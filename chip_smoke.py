@@ -8,22 +8,36 @@ result line, on any failure.  In order:
 
   1. builds every CUDA kernel of the package from ``pcgnn_tpu_torch/csrc``
      (one ``nvcc`` per source, all at once) and prints the compiler report;
-  2. builds the ``synthetic:yelp-like`` graph and its bf16 edge-window and
-     fused record stores on the card, then holds each kernel against its
-     plain PyTorch version on the card at the main path's shapes (and on
-     ragged, masked and float32 cases), exactly (the kernel is a copy), and
-     times kernel, plain version, a one-call PyTorch yardstick and the
-     memory-bound floor;
+  2. builds the ``synthetic:yelp-like`` graph (no hub rows) and its bf16
+     edge-window and fused record stores on the card, then holds the
+     window-gather kernel against its plain PyTorch version on the card at
+     the main path's shapes (and on ragged, masked and float32 cases),
+     exactly (the kernel is a copy), and times kernel, plain version, a
+     one-call PyTorch yardstick and the memory-bound floor;
   3. trains PC-GNN on yelp-like at full width with the bench configuration
      for 2 epochs (12 steps) in the fused-record lane through ``Trainer``,
      with every launch count set to 0 just before and read just after, then
      evaluates the validation split;
   4. runs steps in the per-relation store lane (fused store off);
-  5. profiles one epoch of main-path steps (device time by kernel, kernel
-     launches per step, the card's busy share);
+  5. profiles one epoch of yelp-like steps (device time by kernel, kernel
+     launches and host syncs per step, the card's busy share);
   6. runs one step on the card and the same step on the CPU's plain path,
      from the same weights and batch, and compares loss, gradients and
-     parameters.
+     parameters;
+  7. builds ``synthetic:yelp-skew`` (relation 2 carries 40 hubs of degree
+     up to 20,000 above a window cap near the p99.5 degree) and holds the
+     ragged-gather kernel against its plain version, exactly, at the hub
+     lane's real chunk shapes from one epoch's batches and at edge cases,
+     with the same four timings;
+  8. trains yelp-skew for 2 epochs (12 steps) through ``Trainer`` as in 3:
+     the hub lane runs on every step with a hub row, and both kernels'
+     counts are read; then evaluates the validation split;
+  9. profiles one epoch of yelp-skew steps, as in 5, with the hub lane's
+     own host and device time;
+ 10. compares the card's and the CPU's step on the yelp-skew batch with
+     the most hub rows, as in 6;
+ 11. times yelp-like and yelp-skew steps in turns (like, skew, skew, like),
+     so that the two graphs are compared at the same moments of the host.
 
 The line before the last is the card's name and power limit; before it, a
 ``{"kernels": [...]}`` line; the last line is
@@ -51,6 +65,8 @@ BENCH_CFG = dict(seed=2, data_name="synthetic:yelp-like", model="PCGNN",
                  weight_decay=0.001, alpha=2.0, rho=0.5, epochs=2,
                  valid_epochs=10 ** 9, batch_size=1024, patience=10 ** 9,
                  exp_num=0, ewin_dtype="bfloat16")
+# the same, on the heavy-tailed preset that exercises the hub lane
+SKEW_CFG = dict(BENCH_CFG, data_name="synthetic:yelp-skew")
 TIMING_REPS = 30
 # card against CPU, one Adam step from the same weights and batch.  Both
 # select the same neighbors (selection scores are rounded once from float64,
@@ -85,6 +101,16 @@ def memory_rate(name: str) -> float:
             return 3.9e12
         return 3.35e12            # H100 SXM (80GB HBM3)
     raise RuntimeError(f"no published memory rate known for {name!r}")
+
+
+def host_ops(prof) -> list:
+    """[(name, host ms, calls)] of the operators and runtime calls a
+    torch.profiler run saw on the host, by their own (self) time, longest
+    first."""
+    from torch.autograd import DeviceType
+    return sorted(((e.key, e.self_cpu_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU), key=lambda x: -x[1])
 
 
 def device_kernels(prof) -> list:
@@ -188,24 +214,31 @@ def kernel_phase(t, rate: float) -> tuple[dict, dict]:
                              active=torch.ones(1000, dtype=torch.int32,
                                                device=dev)))
 
-    def case(name, store, starts_list, dp, table, rows_list):
+    def case(name, store, starts_list, dp, table, rows_list, active=None):
         """Times one window shape: the kernel alone (``launch`` on checked
         arguments), the wrapper (its checks read the starts back to the
         host), the plain version, and one ``index_select`` of the same
         windows from ``table``, a [rows, dp] view of the store.  ``*_ms``
-        is device time per call, ``*_run_ms`` the back-to-back run time."""
+        is device time per call, ``*_run_ms`` the back-to-back run time.
+        With ``active``, the kernel and the wrapper copy only the active
+        rows; the plain version and ``index_select`` copy every row, which
+        gives the active rows' values."""
         rows = len(starts_list[0])
         out = torch.empty((rows, dp), dtype=store.dtype, device=store.device)
         starts = [(s,) for s in starts_list]
-        # bytes the copy must move: each window read once and written once,
-        # plus the int64 starts
-        nbytes = 2 * rows * dp * store.element_size() + rows * 8
-        c = {"name": name, "rows": rows, "dp": dp,
+        # bytes the copy must move: each copied window read once and
+        # written once, plus the int64 starts and the int32 mask
+        copied = rows if active is None else int(active.sum())
+        nbytes = (2 * copied * dp * store.element_size() + rows * 8
+                  + (0 if active is None else rows * 4))
+        c = {"name": name, "rows": rows, "copied_rows": copied, "dp": dp,
              "dtype": str(store.dtype).replace("torch.", ""),
              "bound_ms": nbytes / rate * 1e3, "bytes": nbytes}
         for key, fn, args in (
-                ("ms", lambda s: wg.launch(store, s, None, out), starts),
-                ("wrapper_ms", lambda s: window_gather(store, s, dp), starts),
+                ("ms", lambda s: wg.launch(store, s, active, out), starts),
+                ("wrapper_ms", lambda s: window_gather(store, s, dp,
+                                                       active=active),
+                 starts),
                 ("plain_ms", lambda s: window_gather_plain(store, s, dp),
                  starts),
                 ("library_ms", lambda i: torch.index_select(table, 0, i),
@@ -216,6 +249,11 @@ def kernel_phase(t, rate: float) -> tuple[dict, dict]:
 
     main = case("fused_record", flat, [bt * w for bt in batches], w,
                 fused, batches)
+    # the masked variant (the TPU kernel's _gather_masked, whose caller is
+    # the SPMD lane): half the rows active
+    half = (torch.arange(b, device=dev) % 2).to(torch.int32)
+    masked = case("fused_record_masked", flat, [bt * w for bt in batches], w,
+                  fused, batches, active=half)
     for r, rel in enumerate(g.relations):
         a_r = 16 // rel.ewin.element_size()
         starts = [rel.estart[bt] for bt in batches]
@@ -229,6 +267,114 @@ def kernel_phase(t, rate: float) -> tuple[dict, dict]:
              "ms": main["ms"], "plain_ms": main["plain_ms"],
              "bound_ms": main["bound_ms"], "bound_by": "bytes",
              "library_ms": main["library_ms"]}
+    details["masked"] = {k: masked[k] for k in ("ms", "bound_ms", "plain_ms",
+                                                "library_ms")}
+    return entry, details
+
+
+def check_ragged(col, starts, d, fill) -> float:
+    """Ragged-gather kernel against its plain version on the card; returns
+    max |err|.  The kernel is a copy: anything but equality fails."""
+    from pcgnn_tpu_torch.ops.ragged_gather import (ragged_gather,
+                                                   ragged_gather_plain)
+    out = ragged_gather(col, starts, d, fill)
+    ref = ragged_gather_plain(col, starts, d, fill)
+    torch.cuda.synchronize()
+    err = (float((out.double() - ref.double()).abs().max()) if out.numel()
+           else 0.0)
+    if not torch.equal(out, ref):
+        raise AssertionError(f"ragged_gather disagrees with its plain "
+                             f"version (B={len(starts)}, d={d}, max |err| "
+                             f"{err})")
+    return err
+
+
+def hub_chunk_calls(t) -> list:
+    """The ragged-gather calls the hub lane makes over the first epoch's
+    batches: (relation, starts [H], width), chunk by chunk, planned as
+    ``ops.hub.hub_choose_sum`` plans them."""
+    from pcgnn_tpu_torch.ops.hub import HUB_BLOCK, HUB_CHUNK, plan_hub_chunks
+    calls = []
+    batches, _ = t.epoch_plan(0)
+    for bt in batches:
+        for rel in t.graph.relations:
+            if not rel.has_hubs:
+                continue
+            is_hub = rel.deg[bt] > rel.window_width
+            order, n_hub, jbs = plan_hub_chunks(rel.deg[bt], is_hub,
+                                                HUB_CHUNK, HUB_BLOCK)
+            for c, jb in enumerate(jbs):
+                rows = bt[order[c * HUB_CHUNK: min((c + 1) * HUB_CHUNK,
+                                                   n_hub)]]
+                calls.append((rel, rel.indptr[rows], jb * HUB_BLOCK))
+    return calls
+
+
+def ragged_phase(t, rate: float) -> tuple[dict, dict]:
+    """Phase 7: the ragged-gather kernel against its plain version at the
+    hub lane's real calls on yelp-skew and at edge cases, and its timings.
+    Returns (kernels-line entry, details)."""
+    from pcgnn_tpu_torch.ops import ragged_gather as rg
+    from pcgnn_tpu_torch.ops.hub import HUB_BLOCK, HUB_CHUNK
+    g, dev = t.graph, t.device
+    calls = hub_chunk_calls(t)
+    if not calls:
+        raise AssertionError("the first yelp-skew epoch has no hub rows")
+    errs = [check_ragged(rel.col, st, w, rel.num_nodes)
+            for rel, st, w in calls]
+    # edge cases: ragged B, repeated rows, starts near and past the end of
+    # col and negative, int64 starts, widths that are not multiples of 128
+    rel = max((r for r in g.relations if r.has_hubs),
+              key=lambda r: r.num_edges)
+    e = rel.col.numel()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    edge = torch.randint(0, e, (7,), generator=gen, device=dev)
+    edge[:4] = torch.tensor([e - 3, e - 3, -2, e + 5], device=dev)
+    for st in (edge, edge.to(torch.int32)):
+        for d in (1, 100, 1000, HUB_BLOCK, 40 * HUB_BLOCK):
+            errs.append(check_ragged(rel.col, st, d, g.num_nodes))
+
+    details = {"calls_per_epoch": len(calls),
+               "widths": sorted({w for _, _, w in calls}), "cases": []}
+
+    def case(name, col, starts, d):
+        """Times one call shape: the kernel alone (``launch`` on checked
+        arguments), the plain version, and one PyTorch advanced-indexing
+        gather of the same windows from ``col.unfold(0, d, 1)``.  ``*_ms``
+        is device time per call, ``*_run_ms`` the back-to-back run time."""
+        rows = len(starts)
+        out = torch.empty((rows, d), dtype=torch.int32, device=dev)
+        table = col.unfold(0, d, 1)
+        inside = starts.to(torch.int64).clamp(0, col.numel() - d)
+        # bytes the copy must move: each id read once and written once,
+        # plus the starts
+        nbytes = 2 * rows * d * 4 + rows * starts.element_size()
+        c = {"name": name, "rows": rows, "d": d, "bytes": nbytes,
+             "bound_ms": nbytes / rate * 1e3}
+        reps = [(starts,)] * TIMING_REPS
+        for key, fn, args in (
+                ("ms", lambda s: rg.launch(col, s, out, g.num_nodes), reps),
+                ("plain_ms", lambda s: rg.ragged_gather_plain(
+                    col, s, d, g.num_nodes), reps),
+                ("library_ms", lambda i: table[i],
+                 [(inside,)] * TIMING_REPS)):
+            c[key], c[key.replace("ms", "run_ms")] = time_ms(fn, args)
+        details["cases"].append(c)
+        return c
+
+    # the hub lane's widest real call, and one block of it (the width of
+    # one TPU kernel call)
+    wrel, wst, ww = max(calls, key=lambda c: (c[2], len(c[1])))
+    main = case("widest_chunk", wrel.col, wst, ww)
+    case("one_block", wrel.col, wst, HUB_BLOCK)
+    entry = {"name": "ragged_gather", "route": "cuda",
+             "source": "pcgnn_tpu_torch/csrc/ragged_gather.cu",
+             "replaces": "pcgnn_tpu/ops/pallas/ragged_gather.py:112",
+             "launches": None, "max_abs_err": max(errs), "exact": True,
+             "ms": main["ms"], "plain_ms": main["plain_ms"],
+             "bound_ms": main["bound_ms"], "bound_by": "bytes",
+             "library_ms": main["library_ms"]}
+    details["chunk"] = HUB_CHUNK
     return entry, details
 
 
@@ -242,20 +388,37 @@ def edges_per_epoch(t) -> float:
     return per_sample * t.sample_size
 
 
+def kernel_counters() -> dict:
+    """Every kernel wrapper module of the package, by kernel name."""
+    from pcgnn_tpu_torch.ops import ragged_gather, window_gather
+    return {"window_gather": window_gather, "ragged_gather": ragged_gather}
+
+
+def hub_rows(t, batch) -> int:
+    """Rows of ``batch`` above their relation's window cap, summed over
+    the relations that have hubs."""
+    return sum(int((rel.deg[batch] > rel.window_width).sum())
+               for rel in t.graph.relations if rel.has_hubs)
+
+
 def main_path_phase(t) -> dict:
-    """Phase 3: 2 epochs of training through Trainer's step, then one
-    validation evaluate; every kernel count is 0 just before."""
-    from pcgnn_tpu_torch.ops import window_gather as wg
+    """Phases 3 and 8: 2 epochs of training through Trainer's step, then
+    one validation evaluate; every kernel count is 0 just before.  Every
+    step must launch the window gather, and every step with a hub row the
+    ragged gather."""
     from pcgnn_tpu_torch.train.metrics import evaluate
+    mods = kernel_counters()
     model = t.new_model()
     opt = t.new_optimizer(model)
-    step_ms, losses = [], []
+    step_ms, losses, hubs, ragged = [], [], [], []
     torch.cuda.reset_peak_memory_stats()
-    wg.launches = 0
+    resident = torch.cuda.memory_allocated()
+    for mod in mods.values():
+        mod.launches = 0
     for epoch in range(t.config["epochs"]):
         batches, weights = t.epoch_plan(epoch)
         for bt, wt in zip(batches, weights):
-            before = wg.launches
+            before = {k: m.launches for k, m in mods.items()}
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -264,39 +427,66 @@ def main_path_phase(t) -> dict:
             end.synchronize()
             step_ms.append(start.elapsed_time(end))
             losses.append(float(loss))
-            if wg.launches < before + 1:
+            hubs.append(hub_rows(t, bt))
+            ragged.append(mods["ragged_gather"].launches
+                          - before["ragged_gather"])
+            if mods["window_gather"].launches < before["window_gather"] + 1:
                 raise AssertionError("a training step launched no "
                                      "window_gather kernel")
-    train_launches = wg.launches
+            if hubs[-1] and not ragged[-1]:
+                raise AssertionError(f"a training step with {hubs[-1]} hub "
+                                     f"rows launched no ragged_gather")
+    train_launches = {k: m.launches for k, m in mods.items()}
     res = evaluate(lambda nodes: t.predict(model, nodes), t.idx_valid,
                    t.y_valid, t.batch_size, print_line=False)
-    launches = wg.launches
+    launches = {k: m.launches for k, m in mods.items()}
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite training loss: {losses}")
     if not res.auc > 0.5:
         raise AssertionError(f"validation AUC {res.auc} is not above 0.5")
     steady = float(np.median(step_ms[1:]))
-    return {"steps": len(step_ms), "step_ms": step_ms,
-            "step_ms_median": steady, "losses": losses,
+    return {"data": t.config["data_name"], "steps": len(step_ms),
+            "step_ms": step_ms, "step_ms_median": steady, "losses": losses,
+            "hub_rows_per_step": hubs, "ragged_launches_per_step": ragged,
             "train_launches": train_launches, "launches": launches,
             "valid_auc": res.auc, "valid_f1_macro": res.f1_macro,
             "edges_per_s": edges_per_epoch(t)
             / (steady * 1e-3 * t.num_batches),
-            "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            # above what was resident before the first step (graphs,
+            # stores, and any other run's trainer still alive)
+            "step_peak_extra_bytes":
+                torch.cuda.max_memory_allocated() - resident}
+
+
+def count_syncs(fn) -> int:
+    """Device-to-host synchronizations that ``fn()`` makes, as PyTorch's
+    sync debug mode reports them."""
+    import warnings
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
 
 
 def profile_phase(t) -> dict:
-    """Where a main-path step's time goes: one epoch of fused-lane steps
+    """Where a training step's time goes: one epoch of fused-lane steps
     under torch.profiler, after a warm-up step.  Device time by kernel, the
-    count of kernel launches, and the share of the epoch's wall time the
-    card was busy."""
+    count of kernel launches, the share of the epoch's wall time the card
+    was busy, and (outside the profile) the host syncs of one step."""
     from torch.profiler import ProfilerActivity, profile
     model = t.new_model()
     opt = t.new_optimizer(model)
     batches, weights = t.epoch_plan(0)
     labels = [t.graph.labels[bt] for bt in batches]
     t.step(model, opt, batches[0], labels[0], weights[0])
-    torch.cuda.synchronize()
+    syncs = count_syncs(lambda: t.step(model, opt, batches[0], labels[0],
+                                       weights[0]))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -310,15 +500,38 @@ def profile_phase(t) -> dict:
                        if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
                                     "cudaLaunchKernelExC", "cuLaunchKernelEx"))
     steps = len(batches)
-    gather = [(ms, n) for k, ms, n in busy if "window_gather_kernel" in k]
-    return {"steps": steps, "wall_ms_per_step": wall_ms / steps,
-            "window_gather_device_ms_per_launch":
-                gather[0][0] / gather[0][1] if gather else None,
-            "device_ms_per_step": device_ms / steps,
-            "busy_share": device_ms / wall_ms,
-            "kernel_launches_per_step": launch_calls / steps,
-            "top_device_ms_per_step": [(k, ms / steps, n / steps)
-                                       for k, ms, n in busy[:15]]}
+    out = {"data": t.config["data_name"], "steps": steps,
+           "wall_ms_per_step": wall_ms / steps,
+           "device_ms_per_step": device_ms / steps,
+           "busy_share": device_ms / wall_ms,
+           "kernel_launches_per_step": launch_calls / steps,
+           "host_syncs_per_step": syncs,
+           "hub_rows_per_step": [hub_rows(t, bt) for bt in batches],
+           "top_device_ms_per_step": [(k, ms / steps, n / steps)
+                                      for k, ms, n in busy[:15]],
+           "top_host_ms_per_step": [(k, ms / steps, n / steps)
+                                    for k, ms, n in host_ops(prof)[:15]]}
+    # the hub lane's profiler range.  Its host entry holds the host time
+    # inside the range and the device time of the kernels launched there;
+    # its device entry spans the range on the card's timeline, idle gaps
+    # included
+    from torch.autograd import DeviceType
+    lane = {e.device_type: e for e in prof.key_averages()
+            if e.key == "hub_choose_sum"}
+    host = lane.get(DeviceType.CPU)
+    span = lane.get(DeviceType.CUDA)
+    out["hub_lane_host_ms_per_step"] = (
+        host.cpu_time_total / 1e3 / steps if host else 0.0)
+    out["hub_lane_kernel_ms_per_step"] = (
+        host.device_time_total / 1e3 / steps if host else 0.0)
+    out["hub_lane_device_span_ms_per_step"] = (
+        span.device_time_total / 1e3 / steps if span else 0.0)
+    for name in kernel_counters():
+        hit = [(ms, n) for k, ms, n in busy if f"{name}_kernel" in k]
+        out[f"{name}_device_ms_per_launch"] = (
+            sum(ms for ms, _ in hit) / sum(n for _, n in hit) if hit else None)
+        out[f"{name}_launches_per_step"] = sum(n for _, n in hit) / steps
+    return out
 
 
 def store_lane_phase(t, steps: int = 3) -> dict:
@@ -346,13 +559,40 @@ def store_lane_phase(t, steps: int = 3) -> dict:
     return {"steps": steps, "launches": wg.launches, "losses": losses}
 
 
+def turns_phase(trainers, rounds: int = 2) -> dict:
+    """Steps of each graph timed in turns within this call (A, B, B, A per
+    round, one epoch each), so that a difference between the graphs is not
+    a difference between moments of the host.  Step time is the host clock
+    around a step that ends in a synchronize."""
+    times = {t.config["data_name"]: [] for t in trainers}
+    state = {id(t): (lambda m: (m, t.new_optimizer(m)))(t.new_model())
+             for t in trainers}
+    for _ in range(rounds):
+        for t in list(trainers) + list(trainers)[::-1]:
+            model, opt = state[id(t)]
+            batches, weights = t.epoch_plan(0)
+            for bt, wt in zip(batches, weights):
+                y = t.graph.labels[bt]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                t.step(model, opt, bt, y, wt)
+                torch.cuda.synchronize()
+                times[t.config["data_name"]].append(
+                    (time.perf_counter() - t0) * 1e3)
+    return {name: {"step_ms_median": float(np.median(ms)), "step_ms": ms}
+            for name, ms in times.items()}
+
+
 def card_vs_cpu_phase(t) -> dict:
-    """Phase 5: one step on the card and on the CPU's plain path from the
-    same weights and batch."""
+    """Phases 6 and 10: one step on the card and on the CPU's plain path
+    from the same weights and batch (of the first epoch's batches, the one
+    with the most hub rows, if the graph has any)."""
     from pcgnn_tpu_torch.train.trainer import make_optimizer, train_step
     cfg = t.config
     batches, weights = t.epoch_plan(0)
-    bt, wt = batches[0], weights[0]
+    counts = [hub_rows(t, bt) for bt in batches]
+    i = int(np.argmax(counts))
+    bt, wt = batches[i], weights[i]
     model_c = t.new_model()
     model_h = copy.deepcopy(model_c).to("cpu")
     graph_h = t.graph.to("cpu")
@@ -380,7 +620,8 @@ def card_vs_cpu_phase(t) -> dict:
         if not torch.allclose(pc, ph.detach(), rtol=0, atol=PARAM_ATOL):
             raise AssertionError(f"parameter {k} after one step differs "
                                  f"card vs CPU by {diffs[k]['param']}")
-    return {"loss_card": out["card"], "loss_cpu": out["cpu"],
+    return {"data": cfg["data_name"], "hub_rows": counts[i],
+            "loss_card": out["card"], "loss_cpu": out["cpu"],
             "max_abs_diff": diffs}
 
 
@@ -400,41 +641,73 @@ def main() -> int:
         print(f"[build {kname}]\n{report.strip()}", file=sys.stderr)
     print(f"built kernels in {time.time() - t0:.1f} s", file=sys.stderr)
 
-    t1 = time.time()
-    t = Trainer(BENCH_CFG, device="cuda")
-    torch.cuda.synchronize()
-    setup_s = time.time() - t1
-    g = t.graph
-    print(f"yelp-like graph and stores on the card in {setup_s:.1f} s: "
-          f"N={g.num_nodes} fused={tuple(g.fused.shape)} "
-          f"{g.fused.dtype} dps={[r.ewin_dp for r in g.relations]}",
-          file=sys.stderr)
+    runs, trainers = {}, []
+    for cfg in (BENCH_CFG, SKEW_CFG):
+        t1 = time.time()
+        t = Trainer(cfg, device="cuda")
+        torch.cuda.synchronize()
+        g = t.graph
+        run = {"setup_s": time.time() - t1}
+        print(f"{cfg['data_name']} graph and stores on the card in "
+              f"{run['setup_s']:.1f} s: N={g.num_nodes} "
+              f"fused={tuple(g.fused.shape)} {g.fused.dtype} "
+              f"dps={[r.ewin_dp for r in g.relations]} "
+              f"dcap/dmax={[(r.window_width, r.dmax) for r in g.relations]}",
+              file=sys.stderr)
+        if cfg is BENCH_CFG:
+            run["entry"], run["kernel"] = kernel_phase(t, rate)
+        else:
+            run["entry"], run["kernel"] = ragged_phase(t, rate)
+        run["main_path"] = main_path_phase(t)
+        if cfg is BENCH_CFG:
+            run["store_lane"] = store_lane_phase(t)
+        run["profile"] = profile_phase(t)
+        run["card_vs_cpu"] = card_vs_cpu_phase(t)
+        print(f"{cfg['data_name']} phases done at "
+              f"{time.time() - t0:.1f} s", file=sys.stderr)
+        runs[cfg["data_name"]] = run
+        trainers.append(t)
+    turns = turns_phase(trainers)
+    like, skew = runs[BENCH_CFG["data_name"]], runs[SKEW_CFG["data_name"]]
+    # each kernel's launches come from the training run of the path it
+    # serves: the window gather from yelp-like, the ragged gather from
+    # yelp-skew (whose steps launch both)
+    like["entry"]["launches"] = like["main_path"]["launches"]["window_gather"]
+    skew["entry"]["launches"] = skew["main_path"]["launches"]["ragged_gather"]
+    if skew["main_path"]["launches"]["window_gather"] < 1:
+        raise AssertionError("the yelp-skew run launched no window_gather")
 
-    entry, kdetails = kernel_phase(t, rate)
-    main_run = main_path_phase(t)
-    entry["launches"] = main_run["launches"]
-    store_run = store_lane_phase(t)
-    prof = profile_phase(t)
-    cross = card_vs_cpu_phase(t)
-
-    details = {"card": card, "kind": name, "setup_s": setup_s,
-               "kernel": kdetails, "main_path": main_run,
-               "store_lane": store_run, "profile": prof,
-               "card_vs_cpu": cross, "seconds": time.time() - t0}
+    details = {"card": card, "kind": name, "runs": runs, "turns": turns,
+               "seconds": time.time() - t0}
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:
         json.dump(details, f, indent=1)
-    print(json.dumps({"main_path": {
-        k: main_run[k] for k in ("steps", "step_ms_median", "edges_per_s",
-                                 "valid_auc", "train_launches", "launches")},
-        "store_lane_launches": store_run["launches"],
-        "profile": {k: prof[k] for k in (
-            "wall_ms_per_step", "device_ms_per_step", "busy_share",
-            "kernel_launches_per_step",
-            "window_gather_device_ms_per_launch")},
-        "card_vs_cpu_loss": [cross["loss_card"], cross["loss_cpu"]],
-        "seconds": details["seconds"]}))
-    print(json.dumps({"kernels": [entry]}))
+    summary = {}
+    for data, run in runs.items():
+        mp, pr = run["main_path"], run["profile"]
+        summary[data] = {
+            "main_path": {k: mp[k] for k in (
+                "steps", "step_ms_median", "edges_per_s", "valid_auc",
+                "launches", "hub_rows_per_step")},
+            "profile": {k: pr[k] for k in (
+                "wall_ms_per_step", "device_ms_per_step", "busy_share",
+                "kernel_launches_per_step", "host_syncs_per_step",
+                "window_gather_device_ms_per_launch",
+                "ragged_gather_device_ms_per_launch",
+                "ragged_gather_launches_per_step",
+                "hub_lane_host_ms_per_step", "hub_lane_kernel_ms_per_step",
+                "hub_lane_device_span_ms_per_step")},
+            "turns_step_ms_median": turns[data]["step_ms_median"],
+            "card_vs_cpu_loss": [run["card_vs_cpu"]["loss_card"],
+                                 run["card_vs_cpu"]["loss_cpu"]]}
+    summary["store_lane_launches"] = like["store_lane"]["launches"]
+    summary["window_gather_masked"] = like["kernel"]["masked"]
+    summary["ragged_gather_cases"] = [
+        {k: c[k] for k in ("name", "rows", "d", "ms", "bound_ms", "plain_ms",
+                           "library_ms")} for c in skew["kernel"]["cases"]]
+    summary["seconds"] = details["seconds"]
+    print(json.dumps(summary))
+    print(json.dumps({"kernels": [like["entry"], skew["entry"]]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,9 +1,11 @@
 """PC-GNN: one Pick-Choose-Aggregate layer, as an ``nn.Module``.
 
-Counterpart of ``pcgnn_tpu/models/pcgnn.py`` for hub-free graphs whose
-relations all carry edge-window stores (``graph.csr.attach_edge_windows``),
-in both window lanes: the fused record store (one fetch per batch row for
-all relations) and the per-relation stores (one fetch per relation).
+Counterpart of ``pcgnn_tpu/models/pcgnn.py`` for graphs whose relations
+all carry edge-window stores (``graph.csr.attach_edge_windows``), in both
+window lanes: the fused record store (one fetch per batch row for all
+relations) and the per-relation stores (one fetch per relation).  Rows above
+a relation's window cap (hubs, on heavy-tailed graphs) go through the hub
+lane (``ops.hub``), which reads their full CSR edge tails.
 
   scores      = X W_clf + b                  (label-aware scores, [N, 2])
   d(u,v)      = |scores[u,0] - scores[v,0]|  (choose distance)
@@ -37,9 +39,11 @@ from pcgnn_tpu_torch.ops.aggregate import (
     minor_sum_compact_multi,
     oversample_candidates_values,
     oversample_keep,
+    selection_score,
     unpack_window,
     window_sum_from_gathered,
 )
+from pcgnn_tpu_torch.ops.hub import hub_choose_sum, hub_table
 
 
 class Dense(nn.Module):
@@ -49,19 +53,6 @@ class Dense(nn.Module):
         super().__init__()
         self.w = nn.Parameter(w)
         self.b = None if b is None else nn.Parameter(b)
-
-
-def selection_score(rows: torch.Tensor, w0: torch.Tensor,
-                    b0: torch.Tensor) -> torch.Tensor:
-    """Choose score of feature rows, [..., F] -> [...].
-
-    Accumulated in float64 and rounded once to float32: the float32 result
-    then does not depend on the summation order of the device or the
-    operand shape, so a self-loop's distance is exactly 0 and the card and
-    the CPU select the same neighbors.  (The JAX reference computes it in
-    float32 at precision "highest"; the two agree to about an ulp.)
-    """
-    return (rows.double() @ w0.double() + b0.double()).float()
 
 
 class PCGNN(nn.Module):
@@ -112,10 +103,6 @@ class PCGNN(nn.Module):
         which is constant for a run (frozen features, fixed split).
         """
         rels = graph.relations
-        if any(rel.has_hubs for rel in rels):
-            raise NotImplementedError(
-                "relations with hub rows (deg > dcap) need the hub lane, "
-                "which is not ported yet (ROADMAP module 7)")
         if not rels or any(rel.ewin is None for rel in rels):
             raise NotImplementedError(
                 "PC-GNN in the port needs an edge-window store on every "
@@ -143,7 +130,14 @@ class PCGNN(nn.Module):
         center_s0 = selection_score(sel_round(self_feats), w0, b0)
         if use_fused:
             rec = batch_record_window(graph, batch)        # [B, W]
+        # heavy-tailed relations route rows above the window cap through
+        # the hub lane, which sums exact table rows
+        any_hub = any(rel.has_hubs for rel in rels)
+        if any_hub:
+            xs = (hub_table(x, train_pos, train_pos_valid) if train
+                  else hub_table(x))
 
+        minor_ctx = None
         if train:
             m_max = self.minor_window(int(train_pos.shape[0]), rels)
             tp_rows_f = (train_pos_feats if train_pos_feats is not None
@@ -151,6 +145,14 @@ class PCGNN(nn.Module):
             tp_s0 = selection_score(sel_round(tp_rows_f), w0, b0)
             cand_ids, cand_valid, _, cand_slots = oversample_candidates_values(
                 center_s0, tp_s0, train_pos, train_pos_valid, m_max)
+            if any_hub:
+                # hub rows' minor requests can reach the whole candidate
+                # pool, so the hub lane selects them over the score-sorted
+                # candidate table instead of the compact window
+                spv = torch.where(train_pos_valid, tp_s0, _INF)
+                sp_sorted, slot_sorted = torch.sort(spv, stable=True)
+                minor_ctx = (sp_sorted, slot_sorted.to(torch.int32),
+                             tp_rows_f.detach()[slot_sorted])
 
         rel_sums = []       # per relation: (num, cnt, keep_minor)
         for r, rel in enumerate(rels):
@@ -158,19 +160,33 @@ class PCGNN(nn.Module):
             raw = (rec[:, graph.fused_off[r]: graph.fused_off[r + 1]]
                    if use_fused else batch_raw_window(rel, batch))
             xw = unpack_window(raw, d_w, f)                # [B, D, F]
-            deg_b = rel.deg[batch].clamp(max=d_w)
+            deg_b = rel.deg[batch]
             valid = (torch.arange(d_w, device=x.device)[None, :]
-                     < deg_b[:, None])
+                     < deg_b.clamp(max=d_w)[:, None])
+            if rel.has_hubs:
+                is_hub = deg_b > rel.window_width
+                valid = valid & ~is_hub[:, None]   # hubs leave the window lane
             # slots past a row's degree hold the next node's run: valid
             # masks them before any use
             dist = (center_s0[:, None] - selection_score(xw, w0, b0)).abs()
             dist = torch.where(valid, dist, _INF)
             keep = keep_nearest(dist, rel.keff[batch], valid)
             num, cnt = window_sum_from_gathered(xw, keep)
+            if rel.has_hubs:
+                h_num, h_cnt = hub_choose_sum(
+                    rel, batch, is_hub, xs, f, center_s0, w0=w0, b0=b0,
+                    round_sel=bf16, minor_ctx=minor_ctx,
+                    batch_labels=batch_labels, rho=self.rho)
+                num = torch.where(is_hub[:, None], h_num, num)
+                cnt = torch.where(is_hub, h_cnt, cnt)
             keep_minor = None
             if train:
                 keep_minor = oversample_keep(rel, batch, batch_labels,
                                              cand_valid, self.rho)
+                if rel.has_hubs:
+                    # the hub lane selected, summed and de-duplicated the
+                    # hub rows' minors; their window keep is empty
+                    keep_minor = keep_minor & ~is_hub[:, None]
                 keep_minor = dedup_minor_keep(rel.nbr2d[batch], keep, n,
                                               cand_ids, keep_minor)
             rel_sums.append((num, cnt, keep_minor))

@@ -29,6 +29,19 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+def selection_score(rows: torch.Tensor, w0: torch.Tensor,
+                    b0: torch.Tensor) -> torch.Tensor:
+    """Choose score of feature rows, [..., F] -> [...].
+
+    Accumulated in float64 and rounded once to float32: the float32 result
+    then does not depend on the summation order of the device or the
+    operand shape, so a self-loop's distance is exactly 0 and the card and
+    the CPU select the same neighbors.  (The JAX reference computes it in
+    float32 at precision "highest"; the two agree to about an ulp.)
+    """
+    return (rows.double() @ w0.double() + b0.double()).float()
+
+
 def batch_raw_window(rel, batch: torch.Tensor,
                      starts: torch.Tensor | None = None) -> torch.Tensor:
     """[B, ewin_dp] raw store values per batch row, one window each."""

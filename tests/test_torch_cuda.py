@@ -6,14 +6,15 @@ neither), so it runs there without the repository's JAX conftest:
 
     python -m pytest --noconftest -p no:cacheprovider -q -m cuda tests/test_torch_cuda.py
 
-The window gather is a copy, so the kernel must equal its plain version
-exactly.  The model on the card is compared with the same model on the CPU's
-plain path: both select the same rows (selection scores are rounded once
-from float64), and their float32 sums run in another order, so logits agree
-to rtol 1e-5 with atol 1e-6.
+The window and ragged gathers are copies, so each kernel must equal its
+plain version exactly.  The model on the card is compared with the same
+model on the CPU's plain path: both select the same rows (selection scores
+are rounded once from float64), and their float32 sums run in another
+order, so logits agree to rtol 1e-5 with atol 1e-6.
 """
 
 import math
+import warnings
 
 import numpy as np
 import pytest
@@ -22,6 +23,8 @@ import torch
 from pcgnn_tpu_torch.data.synthetic import synthetic_fraud_graph
 from pcgnn_tpu_torch.graph import csr
 from pcgnn_tpu_torch.models.pcgnn import PCGNN
+from pcgnn_tpu_torch.ops import hub
+from pcgnn_tpu_torch.ops import ragged_gather as rg
 from pcgnn_tpu_torch.ops import window_gather as wg
 
 pytestmark = pytest.mark.cuda
@@ -142,3 +145,133 @@ def test_trainer_epoch_on_card(card, tmp_path):
     loss = float(t.run_epoch(model, opt, 0))
     assert math.isfinite(loss)
     assert wg.launches == t.num_batches
+
+
+@pytest.mark.parametrize("d", [1, 100, 128, 512, 1000, 20480])
+@pytest.mark.parametrize("rows", [1, 7, 32, 1024])
+def test_ragged_kernel_equals_plain(card, d, rows):
+    """Any start (unaligned, repeated, near and past the end of col, and
+    negative), int32 and int64 starts, widths that are not multiples of
+    128: the kernel equals the plain version bit for bit."""
+    gen = torch.Generator(device=card).manual_seed(rows * 7 + d)
+    e = 50_000
+    col = torch.randint(0, 1 << 30, (e,), generator=gen, device=card,
+                        dtype=torch.int32)
+    starts = torch.randint(0, e, (rows,), generator=gen, device=card)
+    starts[0] = e - 3
+    if rows > 2:
+        starts[1] = starts[2]
+    if rows > 4:
+        starts[3] = -5
+        starts[4] = e + 7
+    for st in (starts, starts.to(torch.int32)):
+        ref = rg.ragged_gather_plain(col, st, d, 12345)
+        before = rg.launches
+        out = rg.ragged_gather(col, st, d, 12345)
+        assert rg.launches == before + 1
+        torch.cuda.synchronize()
+        assert out.dtype == torch.int32 and out.shape == (rows, d)
+        assert torch.equal(out, ref)
+    assert out[0, 3:].eq(12345).all()
+
+
+def test_ragged_kernel_makes_no_host_sync(card):
+    col = torch.arange(4096, dtype=torch.int32, device=card)
+    starts = torch.tensor([5, 4000, 17], device=card)
+    rg.ragged_gather(col, starts, 512, 4096)       # builds and loads first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = rg.ragged_gather(col, starts, 512, 4096)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert out[1, 95].item() == 4095 and out[1, 96].item() == 4096
+
+
+def test_ragged_wrapper_raises_on_bad_arguments(card):
+    col = torch.zeros(4096, dtype=torch.int32, device=card)
+    ok = torch.tensor([0, 4], device=card)
+    for args in [(col[::2], ok, 8, 0),                 # strided
+                 (col, ok.cpu(), 8, 0),                # two devices
+                 (col, ok, 70_000 * 1024, 0)]:         # grid.y limit
+        with pytest.raises(ValueError):
+            rg.ragged_gather(*args)
+    assert rg.ragged_gather(col, ok[:0], 8, 0).shape == (0, 8)
+
+
+def _skew_pair(card, dtype):
+    g = synthetic_fraud_graph("skew-tiny", seed=3)
+    host = csr.materialize_edge_windows(g, dtype=dtype)
+    dev = csr.materialize_edge_windows(g.to(card), dtype=dtype)
+    return host, dev
+
+
+def test_hub_lane_syncs_once_per_relation(card):
+    """The hub lane reads its chunk plan back in ONE device-to-host copy;
+    everything else it launches stays on the card."""
+    _, dev = _skew_pair(card, torch.float32)
+    rel = dev.relations[0]
+    batch = torch.argsort(rel.deg, descending=True)[:64]
+    is_hub = rel.deg[batch] > rel.window_width
+    xs = torch.cat([dev.features, dev.features.new_zeros((1, 16))])
+    w0 = torch.randn(16, device=card)
+    b0 = torch.zeros((), device=card)
+    args = (rel, batch, is_hub, xs, 16, torch.zeros(64, device=card))
+    hub.hub_choose_sum(*args, w0=w0, b0=b0, chunk=4, block=128)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            before = rg.launches
+            hub.hub_choose_sum(*args, w0=w0, b0=b0, chunk=4, block=128)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    assert len(syncs) == 1, [str(w.message) for w in syncs]
+    assert rg.launches - before == -(-int(is_hub.sum()) // 4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hub_model_on_card_equals_cpu(card, dtype):
+    """skew-tiny, every hub row in the batch: the hub lane on the card
+    selects and sums as on the CPU."""
+    host, dev = _skew_pair(card, dtype)
+    gen = torch.Generator().manual_seed(0)
+    model_h = PCGNN(host.feat_dim, 16, 3, 2.0, 0.5, generator=gen)
+    model_d = PCGNN(host.feat_dim, 16, 3, 2.0, 0.5).to(card)
+    model_d.load_state_dict(model_h.state_dict())
+    rel = host.relations[0]
+    hubs = torch.nonzero(rel.deg > rel.window_width)[:, 0]
+    rng = np.random.default_rng(1)
+    batch = torch.cat([hubs, torch.from_numpy(
+        rng.integers(0, host.num_nodes, 500))])
+    labels = host.labels[batch].clone()
+    labels[: len(hubs): 2] = 1
+    tp = torch.nonzero(host.labels == 1)[:, 0][:200]
+    kw = dict(train_pos=tp, train_pos_valid=torch.ones(len(tp), dtype=bool))
+    out_h = model_h(host, batch, labels, train=True, **kw)
+    rg.launches = 0
+    out_d = model_d(dev, batch.to(card), labels.to(card), train=True,
+                    **{k: v.to(card) for k, v in kw.items()})
+    assert rg.launches >= 1
+    for h, d in zip(out_h, out_d):
+        torch.testing.assert_close(d.cpu(), h, rtol=1e-5, atol=1e-6)
+
+
+def test_trainer_epoch_on_card_with_hubs(card, tmp_path):
+    from pcgnn_tpu_torch.train.results import ResultManager
+    from pcgnn_tpu_torch.train.trainer import Trainer
+    cfg = dict(seed=2, data_name="synthetic:skew-tiny", model="PCGNN",
+               train_ratio=0.4, test_ratio=0.67, emb_size=16, lr=0.01,
+               weight_decay=0.001, alpha=2.0, rho=0.5, epochs=1,
+               valid_epochs=1, batch_size=128, patience=10, exp_num=0)
+    t = Trainer(cfg, result=ResultManager(cfg, root=str(tmp_path)))
+    assert t.graph.relations[0].has_hubs
+    model = t.new_model()
+    opt = t.new_optimizer(model)
+    rg.launches = 0
+    loss = float(t.run_epoch(model, opt, 0))
+    assert math.isfinite(loss)
+    assert rg.launches >= 1

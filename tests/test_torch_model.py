@@ -233,8 +233,13 @@ def test_unported_lanes_raise():
     g = tcsr.materialize_edge_windows(torch_graph("skew-tiny", seed=1))
     m = TPCGNN(g.feat_dim, 8, g.num_relations, ALPHA, RHO)
     batch = torch.arange(8)
-    with pytest.raises(NotImplementedError, match="hub lane"):
-        m(g, batch, None, train=False)
+    # hub rows go through the hub lane now: the skew preset's forward runs
+    assert g.relations[0].has_hubs
+    hubs = torch.nonzero(g.relations[0].deg > g.relations[0].window_width)
+    with torch.no_grad():
+        logits, _ = m(g, torch.cat([batch, hubs[:, 0]]), None, train=False)
+    assert logits.shape == (8 + len(hubs), 2)
+    assert torch.isfinite(logits).all()
     plain = torch_graph("tiny", seed=0)
     with pytest.raises(NotImplementedError, match="edge-window store"):
         m(plain, batch, None, train=False)
