@@ -37,7 +37,21 @@ result line, on any failure.  In order:
  10. compares the card's and the CPU's step on the yelp-skew batch with
      the most hub rows, as in 6;
  11. times yelp-like and yelp-skew steps in turns (like, skew, skew, like),
-     so that the two graphs are compared at the same moments of the host.
+     so that the two graphs are compared at the same moments of the host;
+ 12. on yelp-like's graph without stores, with ``learn_features``, holds the
+     mask-build kernel against its plain version, exactly, at the learned
+     lane's real [B, D + M] calls from one epoch's batches and at edge
+     cases, with the same four timings;
+ 13. trains the learned lane for 2 epochs (12 steps) through ``Trainer`` as
+     in 3: every step launches the mask build once per relation and no
+     window gather, and the table moves; then evaluates;
+ 14. profiles one epoch of learned steps, as in 5;
+ 15. compares the card's and the CPU's learned step, as in 6, and runs one
+     learned forward with every dense neighbor table dropped (the CSR
+     branch, through the ragged gather), whose logits must equal the
+     table's exactly.
+
+Phase 11 also times the learned steps in the same turns.
 
 The line before the last is the card's name and power limit; before it, a
 ``{"kernels": [...]}`` line; the last line is
@@ -67,6 +81,8 @@ BENCH_CFG = dict(seed=2, data_name="synthetic:yelp-like", model="PCGNN",
                  exp_num=0, ewin_dtype="bfloat16")
 # the same, on the heavy-tailed preset that exercises the hub lane
 SKEW_CFG = dict(BENCH_CFG, data_name="synthetic:yelp-skew")
+# the same on yelp-like, with the node table trained (the dense mask lane)
+LEARNED_CFG = dict(BENCH_CFG, learn_features=True)
 TIMING_REPS = 30
 # card against CPU, one Adam step from the same weights and batch.  Both
 # select the same neighbors (selection scores are rounded once from float64,
@@ -378,6 +394,170 @@ def ragged_phase(t, rate: float) -> tuple[dict, dict]:
     return entry, details
 
 
+def check_mask(ids, keep, n) -> float:
+    """Mask-build kernel against its plain version on the card; returns
+    max |err|.  The kernel writes 0s and 1s: anything but equality
+    fails."""
+    from pcgnn_tpu_torch.ops.mask_build import (build_batch_mask,
+                                                build_batch_mask_plain)
+    out = build_batch_mask(ids, keep, n)
+    ref = build_batch_mask_plain(ids, keep, n)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max()) if out.numel() else 0.0
+    if not torch.equal(out, ref):
+        raise AssertionError(f"mask_build disagrees with its plain version "
+                             f"(B={ids.shape[0]}, S={ids.shape[1]}, N={n}, "
+                             f"max |err| {err})")
+    return err
+
+
+def mask_calls(t) -> list:
+    """The mask builds the learned lane asks for over the first epoch's
+    training batches: (relation index, ids [B, D + M], keep), recorded
+    from the model's own forward (no gradients)."""
+    from pcgnn_tpu_torch.ops import aggregate
+    model = t.new_model()
+    batches, _ = t.epoch_plan(0)
+    calls = []
+    real = aggregate.build_batch_mask
+
+    def record(ids, keep, n):
+        calls.append((len(calls) % t.graph.num_relations, ids.clone(),
+                      keep.clone()))
+        return real(ids, keep, n)
+
+    aggregate.build_batch_mask = record
+    try:
+        with torch.no_grad():
+            for bt in batches:
+                model(t.graph, bt, t.graph.labels[bt], train=True,
+                      train_pos=t.consts["tp"],
+                      train_pos_valid=t.consts["tpv"])
+    finally:
+        aggregate.build_batch_mask = real
+    return calls
+
+
+def mask_phase(t, rate: float) -> tuple[dict, dict]:
+    """Phase 12: the mask-build kernel against its plain version at the
+    learned lane's real calls on yelp-like and at edge cases, and its
+    timings.  Returns (kernels-line entry, details)."""
+    from pcgnn_tpu_torch.ops import aggregate
+    from pcgnn_tpu_torch.ops import mask_build as mb
+    g, dev = t.graph, t.device
+    n = g.num_nodes
+    calls = mask_calls(t)
+    errs = [check_mask(ids, keep, n) for _, ids, keep in calls]
+    # edge cases: N odd, under one tile, one past a tile, not a multiple of
+    # it; duplicates, ids outside [0, N), all-dropped and sentinel-only
+    # rows; B = 1; S = 0
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for rows, slots, nn in ((1, 300, 45_953), (7, 18, 7), (33, 500, 8193),
+                            (1024, 290, 5000), (1, 0, 12), (5, 0, 8192)):
+        ids = torch.randint(-2, nn + 2, (rows, slots), generator=gen,
+                            device=dev, dtype=torch.int32)
+        keep = torch.randint(0, 2, (rows, slots), generator=gen,
+                             device=dev, dtype=torch.int32).bool()
+        if slots > 1:
+            ids[:, 1] = ids[:, 0]
+            keep[:, :2] = True
+        if rows > 2:
+            keep[0] = False
+            ids[1] = nn
+            keep[1] = True
+        errs.append(check_mask(ids, keep, nn))
+    # the window and the minors as two column groups, minors shared by
+    # every row ([M]) as the JAX package's callers may pass them
+    _, ids, keep = calls[0]
+    mids = ids[0, -8:].clone()
+    km = torch.ones((ids.shape[0], 8), dtype=torch.bool, device=dev)
+    got = aggregate.scatter_batch_mask(n, ids, keep, mids, km)
+    want = mb.build_batch_mask_plain(
+        torch.cat([ids, mids[None, :].expand(ids.shape[0], 8)], 1),
+        torch.cat([keep, km], 1), n)
+    if not torch.equal(got, want):
+        raise AssertionError("scatter_batch_mask with [M] minors disagrees "
+                             "with the plain version")
+
+    details = {"calls_per_epoch": len(calls),
+               "slots": sorted({int(ids.shape[1]) for _, ids, _ in calls}),
+               "cases": []}
+
+    def case(name, ids, keep):
+        """Times one call shape: the kernel alone (``launch`` on checked
+        arguments), the plain version, and one PyTorch ``scatter_`` of
+        ones into a zeroed [B, N+1] buffer (the ids folded to the sentinel
+        beforehand).  ``*_ms`` is device time per call, ``*_run_ms`` the
+        back-to-back run time."""
+        rows, slots = ids.shape
+        out = torch.empty((rows, n), dtype=torch.float32, device=dev)
+        folded = torch.where(keep, ids, n)
+        # bytes the build must move: the mask written once, each id (4
+        # bytes) and keep flag (1 byte) read once
+        nbytes = rows * n * 4 + rows * slots * 5
+        c = {"name": name, "rows": rows, "slots": slots, "n": n,
+             "bytes": nbytes, "bound_ms": nbytes / rate * 1e3}
+        reps = [()] * TIMING_REPS
+        for key, fn in (
+                ("ms", lambda: mb.launch(ids, keep, out)),
+                ("plain_ms", lambda: mb.build_batch_mask_plain(ids, keep, n)),
+                ("library_ms", lambda: torch.zeros(
+                    (rows, n + 1), device=dev).scatter_(
+                        1, folded.long(), 1.0)[:, :n])):
+            c[key], c[key.replace("ms", "run_ms")] = time_ms(fn, reps)
+        details["cases"].append(c)
+        return c
+
+    for r in range(g.num_relations):
+        _, ids, keep = next(c for c in calls if c[0] == r)
+        main = case(f"relation_{r}", ids, keep)     # the widest: the last
+    entry = {"name": "mask_build", "route": "cuda",
+             "source": "pcgnn_tpu_torch/csrc/mask_build.cu",
+             "replaces": "pcgnn_tpu/ops/pallas/mask_build.py:79",
+             "launches": None, "max_abs_err": max(errs), "exact": True,
+             "ms": main["ms"], "plain_ms": main["plain_ms"],
+             "bound_ms": main["bound_ms"], "bound_by": "bytes",
+             "library_ms": main["library_ms"]}
+    return entry, details
+
+
+def csr_branch_phase(t) -> dict:
+    """Phase 15, second part: one learned forward with every relation's
+    dense neighbor table dropped, so ``batch_neighbor_window`` reads the
+    CSR through the ragged gather.  The ids are the table's, so the logits
+    must be equal, not close."""
+    from pcgnn_tpu_torch.ops import ragged_gather as rg
+    g = t.graph
+    csr_graph = dataclasses.replace(g, relations=tuple(
+        dataclasses.replace(r, nbr2d=None) for r in g.relations))
+    model = t.new_model()
+    batches, _ = t.epoch_plan(0)
+    bt = batches[0]
+    kw = dict(train_pos=t.consts["tp"], train_pos_valid=t.consts["tpv"])
+    with torch.no_grad():
+        want = model(g, bt, g.labels[bt], train=True, **kw)
+        before = rg.launches
+        got = model(csr_graph, bt, g.labels[bt], train=True, **kw)
+        torch.cuda.synchronize()
+    launched = rg.launches - before
+    if launched != g.num_relations:
+        raise AssertionError(f"the CSR branch launched {launched} ragged "
+                             f"gathers, expected {g.num_relations}")
+    for a, b in zip(got, want):
+        if not torch.equal(a, b):
+            raise AssertionError(f"the CSR-branch forward differs from the "
+                                 f"table's by {float((a - b).abs().max())}")
+    return {"ragged_launches": launched, "equal": True}
+
+
+def without_stores(g):
+    """The graph with its edge-window and fused stores dropped: what the
+    learned lane trains on."""
+    return dataclasses.replace(g, fused=None, fused_off=(), relations=tuple(
+        dataclasses.replace(r, ewin=None, estart=None, ewin_dp=0, ewin_f=0)
+        for r in g.relations))
+
+
 def edges_per_epoch(t) -> float:
     """Expected candidate edges per epoch (bench.py's definition): each of
     the epoch's picked nodes contributes deg_r(v) slots per relation."""
@@ -390,8 +570,19 @@ def edges_per_epoch(t) -> float:
 
 def kernel_counters() -> dict:
     """Every kernel wrapper module of the package, by kernel name."""
-    from pcgnn_tpu_torch.ops import ragged_gather, window_gather
-    return {"window_gather": window_gather, "ragged_gather": ragged_gather}
+    from pcgnn_tpu_torch.ops import mask_build, ragged_gather, window_gather
+    return {"window_gather": window_gather, "ragged_gather": ragged_gather,
+            "mask_build": mask_build}
+
+
+def run_name(t) -> str:
+    """The configuration's name in this script's output."""
+    return t.config["data_name"] + (" learned" if t.learn_features else "")
+
+
+def eval_batches(t) -> int:
+    """Batches of one validation evaluate."""
+    return -(-len(t.idx_valid) // t.batch_size)
 
 
 def hub_rows(t, batch) -> int:
@@ -402,12 +593,16 @@ def hub_rows(t, batch) -> int:
 
 
 def main_path_phase(t) -> dict:
-    """Phases 3 and 8: 2 epochs of training through Trainer's step, then
-    one validation evaluate; every kernel count is 0 just before.  Every
-    step must launch the window gather, and every step with a hub row the
-    ragged gather."""
+    """Phases 3, 8 and 13: 2 epochs of training through Trainer's step,
+    then one validation evaluate; every kernel count is 0 just before.
+    Every frozen-lane step must launch the window gather, and every step
+    with a hub row the ragged gather.  Every learned-lane step launches the
+    mask build once per relation and no window gather, and the table must
+    move."""
     from pcgnn_tpu_torch.train.metrics import evaluate
     mods = kernel_counters()
+    step_kernel = "mask_build" if t.learn_features else "window_gather"
+    nrel = t.graph.num_relations
     model = t.new_model()
     opt = t.new_optimizer(model)
     step_ms, losses, hubs, ragged = [], [], [], []
@@ -430,9 +625,14 @@ def main_path_phase(t) -> dict:
             hubs.append(hub_rows(t, bt))
             ragged.append(mods["ragged_gather"].launches
                           - before["ragged_gather"])
-            if mods["window_gather"].launches < before["window_gather"] + 1:
-                raise AssertionError("a training step launched no "
-                                     "window_gather kernel")
+            if mods[step_kernel].launches < before[step_kernel] + 1:
+                raise AssertionError(f"a training step launched no "
+                                     f"{step_kernel} kernel")
+            if t.learn_features and (
+                    mods["mask_build"].launches - before["mask_build"]
+                    != nrel):
+                raise AssertionError("a learned step did not launch the "
+                                     "mask build once per relation")
             if hubs[-1] and not ragged[-1]:
                 raise AssertionError(f"a training step with {hubs[-1]} hub "
                                      f"rows launched no ragged_gather")
@@ -444,12 +644,27 @@ def main_path_phase(t) -> dict:
         raise AssertionError(f"non-finite training loss: {losses}")
     if not res.auc > 0.5:
         raise AssertionError(f"validation AUC {res.auc} is not above 0.5")
+    embed_moved = None
+    if t.learn_features:
+        want = nrel * (len(step_ms) + eval_batches(t))
+        if launches["mask_build"] != want:
+            raise AssertionError(f"mask_build launched "
+                                 f"{launches['mask_build']} times, expected "
+                                 f"{want}")
+        if launches["window_gather"] or launches["ragged_gather"]:
+            raise AssertionError(f"the learned lane launched a gather: "
+                                 f"{launches}")
+        embed_moved = float((model.embed.detach() - t.graph.features)
+                            .abs().max())
+        if not embed_moved > 0:
+            raise AssertionError("the learned table did not move")
     steady = float(np.median(step_ms[1:]))
-    return {"data": t.config["data_name"], "steps": len(step_ms),
+    return {"data": run_name(t), "steps": len(step_ms),
             "step_ms": step_ms, "step_ms_median": steady, "losses": losses,
             "hub_rows_per_step": hubs, "ragged_launches_per_step": ragged,
             "train_launches": train_launches, "launches": launches,
             "valid_auc": res.auc, "valid_f1_macro": res.f1_macro,
+            "eval_batches": eval_batches(t), "embed_moved": embed_moved,
             "edges_per_s": edges_per_epoch(t)
             / (steady * 1e-3 * t.num_batches),
             "peak_mem_bytes": torch.cuda.max_memory_allocated(),
@@ -487,6 +702,9 @@ def profile_phase(t) -> dict:
     t.step(model, opt, batches[0], labels[0], weights[0])
     syncs = count_syncs(lambda: t.step(model, opt, batches[0], labels[0],
                                        weights[0]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -500,12 +718,15 @@ def profile_phase(t) -> dict:
                        if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
                                     "cudaLaunchKernelExC", "cuLaunchKernelEx"))
     steps = len(batches)
-    out = {"data": t.config["data_name"], "steps": steps,
+    out = {"data": run_name(t), "steps": steps,
            "wall_ms_per_step": wall_ms / steps,
            "device_ms_per_step": device_ms / steps,
            "busy_share": device_ms / wall_ms,
            "kernel_launches_per_step": launch_calls / steps,
            "host_syncs_per_step": syncs,
+           # the profiled epoch's peak above what was resident before it
+           "step_peak_extra_bytes":
+               torch.cuda.max_memory_allocated() - resident,
            "hub_rows_per_step": [hub_rows(t, bt) for bt in batches],
            "top_device_ms_per_step": [(k, ms / steps, n / steps)
                                       for k, ms, n in busy[:15]],
@@ -531,6 +752,7 @@ def profile_phase(t) -> dict:
         out[f"{name}_device_ms_per_launch"] = (
             sum(ms for ms, _ in hit) / sum(n for _, n in hit) if hit else None)
         out[f"{name}_launches_per_step"] = sum(n for _, n in hit) / steps
+        out[f"{name}_share"] = sum(ms for ms, _ in hit) / device_ms
     return out
 
 
@@ -564,7 +786,7 @@ def turns_phase(trainers, rounds: int = 2) -> dict:
     round, one epoch each), so that a difference between the graphs is not
     a difference between moments of the host.  Step time is the host clock
     around a step that ends in a synchronize."""
-    times = {t.config["data_name"]: [] for t in trainers}
+    times = {run_name(t): [] for t in trainers}
     state = {id(t): (lambda m: (m, t.new_optimizer(m)))(t.new_model())
              for t in trainers}
     for _ in range(rounds):
@@ -577,7 +799,7 @@ def turns_phase(trainers, rounds: int = 2) -> dict:
                 t0 = time.perf_counter()
                 t.step(model, opt, bt, y, wt)
                 torch.cuda.synchronize()
-                times[t.config["data_name"]].append(
+                times[run_name(t)].append(
                     (time.perf_counter() - t0) * 1e3)
     return {name: {"step_ms_median": float(np.median(ms)), "step_ms": ms}
             for name, ms in times.items()}
@@ -620,7 +842,7 @@ def card_vs_cpu_phase(t) -> dict:
         if not torch.allclose(pc, ph.detach(), rtol=0, atol=PARAM_ATOL):
             raise AssertionError(f"parameter {k} after one step differs "
                                  f"card vs CPU by {diffs[k]['param']}")
-    return {"data": cfg["data_name"], "hub_rows": counts[i],
+    return {"data": run_name(t), "hub_rows": counts[i],
             "loss_card": out["card"], "loss_cpu": out["cpu"],
             "max_abs_diff": diffs}
 
@@ -642,38 +864,51 @@ def main() -> int:
     print(f"built kernels in {time.time() - t0:.1f} s", file=sys.stderr)
 
     runs, trainers = {}, []
-    for cfg in (BENCH_CFG, SKEW_CFG):
+    for cfg in (BENCH_CFG, SKEW_CFG, LEARNED_CFG):
         t1 = time.time()
-        t = Trainer(cfg, device="cuda")
+        if cfg is LEARNED_CFG:
+            # yelp-like's graph from phase 2's loader call, without stores
+            t = Trainer(cfg, graph=without_stores(trainers[0].graph),
+                        device="cuda")
+        else:
+            t = Trainer(cfg, device="cuda")
         torch.cuda.synchronize()
         g = t.graph
         run = {"setup_s": time.time() - t1}
-        print(f"{cfg['data_name']} graph and stores on the card in "
-              f"{run['setup_s']:.1f} s: N={g.num_nodes} "
-              f"fused={tuple(g.fused.shape)} {g.fused.dtype} "
-              f"dps={[r.ewin_dp for r in g.relations]} "
+        stores = (f"fused={tuple(g.fused.shape)} {g.fused.dtype} "
+                  f"dps={[r.ewin_dp for r in g.relations]} "
+                  if g.fused is not None else "no stores ")
+        print(f"{run_name(t)} graph on the card in {run['setup_s']:.1f} s: "
+              f"N={g.num_nodes} {stores}"
               f"dcap/dmax={[(r.window_width, r.dmax) for r in g.relations]}",
               file=sys.stderr)
         if cfg is BENCH_CFG:
             run["entry"], run["kernel"] = kernel_phase(t, rate)
-        else:
+        elif cfg is SKEW_CFG:
             run["entry"], run["kernel"] = ragged_phase(t, rate)
+        else:
+            run["entry"], run["kernel"] = mask_phase(t, rate)
         run["main_path"] = main_path_phase(t)
         if cfg is BENCH_CFG:
             run["store_lane"] = store_lane_phase(t)
         run["profile"] = profile_phase(t)
         run["card_vs_cpu"] = card_vs_cpu_phase(t)
-        print(f"{cfg['data_name']} phases done at "
-              f"{time.time() - t0:.1f} s", file=sys.stderr)
-        runs[cfg["data_name"]] = run
+        if cfg is LEARNED_CFG:
+            run["csr_branch"] = csr_branch_phase(t)
+        print(f"{run_name(t)} phases done at {time.time() - t0:.1f} s",
+              file=sys.stderr)
+        runs[run_name(t)] = run
         trainers.append(t)
     turns = turns_phase(trainers)
-    like, skew = runs[BENCH_CFG["data_name"]], runs[SKEW_CFG["data_name"]]
+    like, skew, learned = (runs[run_name(t)] for t in trainers)
     # each kernel's launches come from the training run of the path it
     # serves: the window gather from yelp-like, the ragged gather from
-    # yelp-skew (whose steps launch both)
+    # yelp-skew (whose steps launch both), the mask build from the learned
+    # lane
     like["entry"]["launches"] = like["main_path"]["launches"]["window_gather"]
     skew["entry"]["launches"] = skew["main_path"]["launches"]["ragged_gather"]
+    learned["entry"]["launches"] = (
+        learned["main_path"]["launches"]["mask_build"])
     if skew["main_path"]["launches"]["window_gather"] < 1:
         raise AssertionError("the yelp-skew run launched no window_gather")
 
@@ -688,13 +923,16 @@ def main() -> int:
         summary[data] = {
             "main_path": {k: mp[k] for k in (
                 "steps", "step_ms_median", "edges_per_s", "valid_auc",
-                "launches", "hub_rows_per_step")},
+                "launches", "hub_rows_per_step", "embed_moved")},
             "profile": {k: pr[k] for k in (
                 "wall_ms_per_step", "device_ms_per_step", "busy_share",
                 "kernel_launches_per_step", "host_syncs_per_step",
                 "window_gather_device_ms_per_launch",
                 "ragged_gather_device_ms_per_launch",
                 "ragged_gather_launches_per_step",
+                "mask_build_device_ms_per_launch",
+                "mask_build_launches_per_step", "mask_build_share",
+                "step_peak_extra_bytes",
                 "hub_lane_host_ms_per_step", "hub_lane_kernel_ms_per_step",
                 "hub_lane_device_span_ms_per_step")},
             "turns_step_ms_median": turns[data]["step_ms_median"],
@@ -705,9 +943,15 @@ def main() -> int:
     summary["ragged_gather_cases"] = [
         {k: c[k] for k in ("name", "rows", "d", "ms", "bound_ms", "plain_ms",
                            "library_ms")} for c in skew["kernel"]["cases"]]
+    summary["mask_build_cases"] = [
+        {k: c[k] for k in ("name", "rows", "slots", "ms", "bound_ms",
+                           "plain_ms", "library_ms")}
+        for c in learned["kernel"]["cases"]]
+    summary["csr_branch"] = learned["csr_branch"]
     summary["seconds"] = details["seconds"]
     print(json.dumps(summary))
-    print(json.dumps({"kernels": [like["entry"], skew["entry"]]}))
+    print(json.dumps({"kernels": [like["entry"], skew["entry"],
+                                  learned["entry"]]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -31,8 +31,10 @@ import torch
 # are multiples of this many bytes
 VEC_BYTES = 16
 
-# dense neighbor-table budget (bytes); tables above it are not built, which
-# the port does not support yet (the CSR lane, ROADMAP module 8)
+# dense neighbor-table budget (bytes); tables above it are not built.  The
+# learned-feature lane then reads its windows from the CSR
+# (``ops.aggregate.batch_neighbor_window``); the frozen lanes' stores need
+# the table (their CSR lane is ROADMAP module 8)
 NBR2D_BUDGET_BYTES = 512 * 1024 * 1024
 
 # edge-window store budgets (bytes): per single store, and in total across a
@@ -73,6 +75,9 @@ class RelGraph:
     ksample_cap: int = 0
     # batch-window width; 0 = dmax.  dcap < dmax means hub rows exist
     dcap: int = 0
+    # a degree-only stub: real degrees, no edge list (the JAX package's
+    # ``degree_stub``); window consumers reject it
+    is_stub: bool = False
     nbr2d: torch.Tensor | None = None       # [N, max(dcap, 1)] int32
     # edge-window store: flat [L] float32 or bfloat16; node v's run starts
     # at element estart[v] and holds its first min(deg, dcap) neighbors'

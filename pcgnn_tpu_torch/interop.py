@@ -5,10 +5,11 @@ The JAX parameter tree (numpy leaves, as ``train/checkpoint.py`` pickles it):
     {"label_clf": {"w": [F, C], "b": [C]},
      "intra": [{"w": [2F, E]}, ...],       # one per relation
      "inter": {"w": [F + R*E, E]},
-     "head": {"w": [E, C]}}
+     "head": {"w": [E, C]},
+     "embed": [N, F]}                       # learn_features only
 
 maps one to one onto the port's ``PCGNN`` parameters ``label_clf.w``,
-``label_clf.b``, ``intra.<r>.w``, ``inter.w`` and ``head.w``.
+``label_clf.b``, ``intra.<r>.w``, ``inter.w``, ``head.w`` and ``embed``.
 """
 
 from __future__ import annotations
@@ -26,13 +27,19 @@ def params_from_jax(tree) -> dict:
              "head.w": t(tree["head"]["w"])}
     for r, layer in enumerate(tree["intra"]):
         state[f"intra.{r}.w"] = t(layer["w"])
+    if "embed" in tree:
+        state["embed"] = t(tree["embed"])
     return state
 
 
 def params_to_jax(model) -> dict:
     """The port's ``PCGNN`` -> JAX parameter tree with numpy leaves."""
     a = lambda p: p.detach().cpu().numpy().copy()
-    return {"label_clf": {"w": a(model.label_clf.w), "b": a(model.label_clf.b)},
+    tree = {"label_clf": {"w": a(model.label_clf.w),
+                          "b": a(model.label_clf.b)},
             "intra": [{"w": a(layer.w)} for layer in model.intra],
             "inter": {"w": a(model.inter.w)},
             "head": {"w": a(model.head.w)}}
+    if model.learn_features:
+        tree["embed"] = a(model.embed)
+    return tree

@@ -5,7 +5,9 @@ all carry edge-window stores (``graph.csr.attach_edge_windows``), in both
 window lanes: the fused record store (one fetch per batch row for all
 relations) and the per-relation stores (one fetch per relation).  Rows above
 a relation's window cap (hubs, on heavy-tailed graphs) go through the hub
-lane (``ops.hub``), which reads their full CSR edge tails.
+lane (``ops.hub``), which reads their full CSR edge tails.  With
+``learn_features`` the node table is a parameter ``embed`` and aggregation
+runs the dense mask-GEMM lane (``_forward_learned``), which needs no store.
 
   scores      = X W_clf + b                  (label-aware scores, [N, 2])
   d(u,v)      = |scores[u,0] - scores[v,0]|  (choose distance)
@@ -17,8 +19,9 @@ lane (``ops.hub``), which reads their full CSR edge tails.
   loss        = CE(gnn_logits, y) + alpha * CE(scores[batch], y)
 
 Parameters keep the JAX layout and names: weights are [in, out];
-``label_clf.w/b``, ``intra.<r>.w``, ``inter.w``, ``head.w``
-(``interop`` converts to and from the JAX pytree).
+``label_clf.w/b``, ``intra.<r>.w``, ``inter.w``, ``head.w`` and, with
+``learn_features``, ``embed`` [N, F] (``interop`` converts to and from the
+JAX pytree).
 """
 
 from __future__ import annotations
@@ -32,13 +35,16 @@ from pcgnn_tpu_torch.models.initializers import torch_linear, xavier_uniform
 from pcgnn_tpu_torch.models.lossfns import int_label_ce
 from pcgnn_tpu_torch.ops.aggregate import (
     _INF,
+    batch_neighbor_window,
     batch_raw_window,
     batch_record_window,
     dedup_minor_keep,
     keep_nearest,
+    masked_mean_aggregate,
     minor_sum_compact_multi,
     oversample_candidates_values,
     oversample_keep,
+    scatter_batch_mask,
     selection_score,
     unpack_window,
     window_sum_from_gathered,
@@ -59,12 +65,14 @@ class PCGNN(nn.Module):
     def __init__(self, feat_dim: int, emb_dim: int, num_relations: int,
                  alpha: float, rho: float, num_classes: int = 2,
                  learn_features: bool = False,
+                 features: torch.Tensor | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if learn_features:
-            raise NotImplementedError(
-                "learn_features is not ported yet (ROADMAP module 10: "
-                "learned-feature lane and the mask kernel)")
+        if learn_features and features is None:
+            raise ValueError(
+                "learn_features=True needs the initial node table "
+                "(PCGNN(..., features=...)): the reference initializes the "
+                "embedding from the dataset features")
         # float32 matmuls stay float32 on the card: TF32 keeps about three
         # decimal digits, which would perturb the choose ranking and break
         # parity with the reference
@@ -84,6 +92,11 @@ class PCGNN(nn.Module):
         self.inter = Dense(xavier_uniform(
             (feat_dim + num_relations * emb_dim, emb_dim), g))
         self.head = Dense(xavier_uniform((emb_dim, num_classes), g))
+        # the trainable node table of the learned-feature lane (the
+        # reference's nn.Embedding with requires_grad=True)
+        self.learn_features = learn_features
+        if learn_features:
+            self.embed = nn.Parameter(features.detach().float().clone())
 
     def minor_window(self, num_train_pos: int, relations) -> int:
         """Width of the compact oversample-candidate window: the largest
@@ -102,6 +115,10 @@ class PCGNN(nn.Module):
         ``train_pos_feats`` optionally supplies ``features[train_pos]``,
         which is constant for a run (frozen features, fixed split).
         """
+        if self.learn_features:
+            return self._forward_learned(
+                graph, batch, batch_labels, train=train, train_pos=train_pos,
+                train_pos_valid=train_pos_valid)
         rels = graph.relations
         if not rels or any(rel.ewin is None for rel in rels):
             raise NotImplementedError(
@@ -207,6 +224,62 @@ class PCGNN(nn.Module):
         combined = torch.relu(cat_all @ self.inter.w)
         gnn_logits = combined @ self.head.w
         return gnn_logits, center_scores
+
+    def _forward_learned(self, graph, batch: torch.Tensor,
+                         batch_labels: Optional[torch.Tensor], *, train: bool,
+                         train_pos: Optional[torch.Tensor] = None,
+                         train_pos_valid: Optional[torch.Tensor] = None):
+        """Learned-feature forward: the dense mask-GEMM lane.
+
+        Selection is the frozen lane's (choose and oversample, detached),
+        scored from the current table: every node's selection score, so
+        the train positives' scores move with ``embed`` too.  Aggregation
+        builds the [B, N] 0/1 mask (``scatter_batch_mask``) and contracts it
+        with ``embed`` (``masked_mean_aggregate``), whose gradient
+        ``mask^T @ g`` reaches the table.  Minors that are also kept
+        neighbors collapse in the mask's set semantics, so no dedup runs.
+        """
+        rels = graph.relations
+        if any(rel.has_hubs for rel in rels):
+            raise ValueError(
+                "learn_features=True needs uncapped relations: the hub lane "
+                "is frozen-feature by design.  Rebuild the graph with "
+                "csr_from_edges(window_cap=dmax) or train with frozen "
+                "features.")
+        x = self.embed
+        n = graph.num_nodes
+        clf = self.label_clf
+        w0 = clf.w[:, 0].detach()
+        b0 = clf.b[0].detach()
+        s0 = selection_score(x.detach(), w0, b0)           # [N]
+        s0_pad = torch.cat([s0, s0.new_full((1,), _INF)])  # sentinel N
+        center_s0 = s0[batch]
+        self_feats = x[batch]
+        # the same rows as (embed @ w + b)[batch], at [B] cost
+        center_scores = self_feats @ clf.w + clf.b
+        if train:
+            m_max = self.minor_window(int(train_pos.shape[0]), rels)
+            cand_ids, cand_valid, _, _ = oversample_candidates_values(
+                center_s0, s0[train_pos], train_pos, train_pos_valid, m_max)
+
+        rel_embs = []
+        for layer, rel in zip(self.intra, rels):
+            nbr, valid = batch_neighbor_window(rel, batch)
+            dist = (center_s0[:, None] - s0_pad[nbr]).abs()
+            dist = torch.where(valid, dist, _INF)
+            keep = keep_nearest(dist, rel.keff[batch], valid)
+            if train:
+                keep_minor = oversample_keep(rel, batch, batch_labels,
+                                             cand_valid, self.rho)
+                mask = scatter_batch_mask(n, nbr, keep, cand_ids, keep_minor)
+            else:
+                mask = scatter_batch_mask(n, nbr, keep)
+            agg = masked_mean_aggregate(mask, x)
+            cat = torch.cat([self_feats, agg], dim=1)      # [B, 2F]
+            rel_embs.append(torch.relu(cat @ layer.w))
+        cat_all = torch.cat([self_feats] + rel_embs, dim=1)
+        combined = torch.relu(cat_all @ self.inter.w)
+        return combined @ self.head.w, center_scores
 
     def to_prob(self, graph, batch, *, train: bool = False, **kw):
         """Sigmoid scores of both heads."""

@@ -1,8 +1,10 @@
-"""Batch window fetches, the choose and oversample selection, and the
-scatter-free window sums of the PC-GNN training step.
+"""Batch window fetches, the choose and oversample selection, the
+scatter-free window sums of the PC-GNN training step, and the dense
+mask-GEMM aggregation of the learned-feature lane.
 
 Counterpart of ``pcgnn_tpu/ops/aggregate.py`` for the frozen-feature window
-lane.  Selection reproduces the JAX tie rules exactly:
+lane and the learned-feature lane.  Selection reproduces the JAX tie rules
+exactly:
 
   * ``keep_nearest`` keeps each row's k nearest, lowest column among ties;
   * candidate orderings are stable sorts, and the (distance, slot)
@@ -16,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from pcgnn_tpu_torch.ops.mask_build import build_batch_mask
+from pcgnn_tpu_torch.ops.ragged_gather import ragged_gather
 from pcgnn_tpu_torch.ops.window_gather import window_gather
 
 _INF = float("inf")
@@ -68,6 +72,38 @@ def batch_record_window(graph, batch: torch.Tensor) -> torch.Tensor:
                          "(graph.csr.materialize_edge_windows(fused=True))")
     w = graph.fused.shape[1]
     return window_gather(graph.fused.view(-1), batch.to(torch.int64) * w, w)
+
+
+def batch_neighbor_window(rel, batch: torch.Tensor, *,
+                          allow_capped: bool = False):
+    """(nbr [B, D] int32 neighbor ids, padding slots N; valid [B, D] bool)
+    of a batch's CSR rows, D = ``rel.window_width``.
+
+    Rows come from the dense table ``nbr2d`` when the graph has one, else
+    as contiguous runs of ``col`` at ``indptr[batch]`` through the ragged
+    gather, which reads N past the end of ``col``.  A capped relation
+    (``rel.has_hubs``) exposes only a hub row's first D neighbors, so it
+    is refused unless the caller handles hub rows (``allow_capped``).
+    """
+    if rel.is_stub:
+        raise ValueError(
+            "batch_neighbor_window called on a degree-only stub relation: "
+            "its edge list is empty, so window aggregation would silently "
+            "average zero phantom neighbors")
+    if rel.has_hubs and not allow_capped:
+        raise ValueError(
+            f"batch_neighbor_window on a window-capped relation "
+            f"(dcap={rel.window_width} < dmax={rel.dmax}) from a caller "
+            f"that is not hub-aware: rows above the cap would silently "
+            f"lose neighbors")
+    d = max(rel.window_width, 1)
+    degs = rel.deg[batch].clamp(max=d)
+    valid = (torch.arange(d, device=batch.device)[None, :]
+             < degs[:, None])
+    if rel.nbr2d is not None:
+        return rel.nbr2d[batch], valid
+    raw = ragged_gather(rel.col, rel.indptr[batch], d, rel.num_nodes)
+    return torch.where(valid, raw, rel.num_nodes), valid
 
 
 def row_ranks(dist: torch.Tensor) -> torch.Tensor:
@@ -232,3 +268,39 @@ def minor_sum_compact_multi(tp_feats: torch.Tensor, cand_slots: torch.Tensor,
             out[i] = (num + torch.einsum("bm,bmf->bf", km, xg),
                       cnt + km.sum(dim=1))
     return out
+
+
+def scatter_batch_mask(num_nodes: int, nbr: torch.Tensor, keep: torch.Tensor,
+                       minor_ids: torch.Tensor | None = None,
+                       keep_minor: torch.Tensor | None = None) -> torch.Tensor:
+    """Kept neighbors (and oversampled minors) as a dense [B, N] float32
+    0/1 mask with set semantics (duplicates give one 1.0).
+
+    ``minor_ids`` is [M] (shared by every row) or [B, M], with
+    ``keep_minor`` [B, M]; its columns are appended to the window's, so a
+    minor that is also a kept neighbor collapses into one entry.  The mask
+    is built by ``ops.mask_build.build_batch_mask``.
+    """
+    if minor_ids is not None:
+        mids = (minor_ids[None, :].expand(keep_minor.shape)
+                if minor_ids.dim() == 1 else minor_ids)
+        nbr = torch.cat([nbr, mids.to(nbr.dtype)], dim=1)
+        keep = torch.cat([keep, keep_minor], dim=1)
+    return build_batch_mask(nbr.to(torch.int32).contiguous(),
+                            keep.contiguous(), num_nodes)
+
+
+def masked_mean_aggregate(mask: torch.Tensor, features: torch.Tensor, *,
+                          norm: str = "mean") -> torch.Tensor:
+    """[B, F] aggregate of ``features`` [N, F] through a [B, N] mask: each
+    row divided by its count (``mean``) or its square root (``sqrt``),
+    counts below 1 taken as 1, then one float32 GEMM.  The GEMM's gradient
+    into ``features`` is ``mask^T @ g``, another GEMM."""
+    cnt = mask.sum(dim=1, keepdim=True)
+    if norm == "mean":
+        denom = cnt.clamp(min=1.0)
+    elif norm == "sqrt":
+        denom = cnt.clamp(min=1.0).sqrt()
+    else:
+        raise ValueError(f"unknown norm {norm!r}")
+    return torch.matmul(mask / denom, features)

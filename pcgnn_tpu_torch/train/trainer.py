@@ -54,9 +54,7 @@ def _reject_unported(cfg: dict) -> None:
     unported = [
         (cfg.get("distributed") or int(cfg.get("num_devices") or 1) > 1,
          "multi-device training (ROADMAP module 13)"),
-        (cfg.get("learn_features"),
-         "learn_features (ROADMAP module 10)"),
-        (not cfg.get("edge_windows", True),
+        (not cfg.get("edge_windows", True) and not cfg.get("learn_features"),
          "edge_windows: false, the lanes without edge-window stores "
          "(ROADMAP modules 4 and 8)"),
         (cfg.get("resume"), "resume (ROADMAP module 5, trainer remainder)"),
@@ -80,7 +78,7 @@ def train_step(model, optimizer, graph: MultiRelGraph, batch: torch.Tensor,
     optimizer.zero_grad(set_to_none=True)
     loss = model.loss(graph, batch, y, w, train_pos=consts["tp"],
                       train_pos_valid=consts["tpv"],
-                      train_pos_feats=consts["tpf"])
+                      train_pos_feats=consts.get("tpf"))
     loss.backward()
     optimizer.step()
     return loss.detach()
@@ -116,9 +114,11 @@ class Trainer:
             feats = normalize_features(graph.features.cpu().numpy())
             graph = dataclasses.replace(
                 graph, features=torch.as_tensor(feats, device=self.device))
-        # the stores snapshot the features: built after any transform
-        if graph.fused is None and all(r.ewin is None
-                                       for r in graph.relations):
+        # the stores snapshot the features: built after any transform.  The
+        # learned-feature lane reads the trainable table itself, no store
+        self.learn_features = bool(cfg.get("learn_features"))
+        if (not self.learn_features and graph.fused is None
+                and all(r.ewin is None for r in graph.relations)):
             graph = materialize_edge_windows(
                 graph, dtype=_EWIN_DTYPES[cfg.get("ewin_dtype", "bfloat16")])
         self.graph = graph
@@ -144,18 +144,23 @@ class Trainer:
         self.train_pos_dev = torch.as_tensor(tp, device=dev)
         self.train_pos_valid = torch.full((len(tp),), bool(len(train_pos)),
                                           device=dev)
-        # features[train_pos] is constant for the run (frozen features,
-        # fixed split)
-        self.consts = {"tp": self.train_pos_dev, "tpv": self.train_pos_valid,
-                       "tpf": graph.features[self.train_pos_dev]}
+        self.consts = {"tp": self.train_pos_dev, "tpv": self.train_pos_valid}
+        if not self.learn_features:
+            # features[train_pos] is constant for the run (frozen features,
+            # fixed split); the learned lane scores the current table
+            self.consts["tpf"] = graph.features[self.train_pos_dev]
 
     def new_model(self):
-        """A freshly initialized model, from the config's seed."""
+        """A freshly initialized model, from the config's seed; a learned
+        node table starts from the graph's features (after any
+        normalization)."""
         cfg = self.config
         return build_model(
             self.model_name, feat_dim=self.graph.feat_dim,
             emb_dim=cfg["emb_size"], num_relations=self.graph.num_relations,
             alpha=cfg.get("alpha", 2.0), rho=cfg.get("rho", 0.5),
+            learn_features=self.learn_features,
+            features=self.graph.features if self.learn_features else None,
             generator=torch.Generator().manual_seed(int(cfg["seed"]))
         ).to(self.device)
 

@@ -6,13 +6,14 @@ neither), so it runs there without the repository's JAX conftest:
 
     python -m pytest --noconftest -p no:cacheprovider -q -m cuda tests/test_torch_cuda.py
 
-The window and ragged gathers are copies, so each kernel must equal its
-plain version exactly.  The model on the card is compared with the same
+The window and ragged gathers are copies and the mask build writes 0s and
+1s, so each kernel must equal its plain version exactly.  The model on the card is compared with the same
 model on the CPU's plain path: both select the same rows (selection scores
 are rounded once from float64), and their float32 sums run in another
 order, so logits agree to rtol 1e-5 with atol 1e-6.
 """
 
+import dataclasses
 import math
 import warnings
 
@@ -24,6 +25,7 @@ from pcgnn_tpu_torch.data.synthetic import synthetic_fraud_graph
 from pcgnn_tpu_torch.graph import csr
 from pcgnn_tpu_torch.models.pcgnn import PCGNN
 from pcgnn_tpu_torch.ops import hub
+from pcgnn_tpu_torch.ops import mask_build as mb
 from pcgnn_tpu_torch.ops import ragged_gather as rg
 from pcgnn_tpu_torch.ops import window_gather as wg
 
@@ -275,3 +277,122 @@ def test_trainer_epoch_on_card_with_hubs(card, tmp_path):
     loss = float(t.run_epoch(model, opt, 0))
     assert math.isfinite(loss)
     assert rg.launches >= 1
+
+
+def _mask_args(gen, rows, slots, n, device):
+    """Ids over [-2, n + 2): real ids, the sentinel n and ids outside the
+    domain; duplicates within rows; row 0 all dropped and row 1 all
+    sentinels where there are such rows."""
+    ids = torch.randint(-2, n + 2, (rows, slots), generator=gen,
+                        device=device, dtype=torch.int32)
+    keep = torch.randint(0, 2, (rows, slots), generator=gen, device=device,
+                         dtype=torch.int32).bool()
+    if slots > 1:
+        ids[:, 1] = ids[:, 0]
+        keep[:, :2] = True
+    if rows > 1:
+        keep[0] = False
+        ids[1] = n
+    return ids, keep
+
+
+@pytest.mark.parametrize("n", [1, 7, 4097, 8192, 8193, 45954])
+@pytest.mark.parametrize("rows,slots", [(1, 0), (1, 300), (7, 18),
+                                        (1024, 290)])
+def test_mask_kernel_equals_plain(card, n, rows, slots):
+    """N odd, under one tile, a tile exactly, one past it and yelp-like's;
+    B = 1, S = 0: the kernel equals the plain version bit for bit."""
+    gen = torch.Generator(device=card).manual_seed(n * 31 + rows + slots)
+    ids, keep = _mask_args(gen, rows, slots, n, card)
+    ref = mb.build_batch_mask_plain(ids, keep, n)
+    before = mb.launches
+    out = mb.build_batch_mask(ids, keep, n)
+    assert mb.launches == before + 1
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and out.shape == (rows, n)
+    assert torch.equal(out, ref)
+    if rows > 1:
+        assert not out[:2].any()
+
+
+def test_mask_wrapper_raises_and_makes_no_host_sync(card):
+    ids = torch.tensor([[0, 3, 3, 9]], dtype=torch.int32, device=card)
+    keep = torch.tensor([[True, True, False, True]], device=card)
+    mb.build_batch_mask(ids, keep, 9)          # builds and loads first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = mb.build_batch_mask(ids, keep, 9)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert out.cpu().tolist() == [[1, 0, 0, 1, 0, 0, 0, 0, 0]]
+    for args in [(ids[:, ::2], keep[:, ::2], 9),           # strided
+                 (ids, keep.cpu(), 9),                      # two devices
+                 (ids, keep, 65536 * 8192)]:                # grid.y limit
+        with pytest.raises(ValueError):
+            mb.build_batch_mask(*args)
+    with pytest.raises(TypeError):
+        mb.build_batch_mask(ids.long(), keep, 9)
+    assert mb.build_batch_mask(ids[:0], keep[:0], 9).shape == (0, 9)
+
+
+def test_learned_model_on_card_equals_cpu(card):
+    """The learned lane on the card selects, masks and aggregates as on the
+    CPU; the forward with the dense neighbor table dropped (the CSR branch
+    and the ragged gather) gives the same logits exactly."""
+    host = synthetic_fraud_graph("small", seed=3)
+    dev = host.to(card)
+    gen = torch.Generator().manual_seed(0)
+    model_h = PCGNN(host.feat_dim, 16, 3, 2.0, 0.5, learn_features=True,
+                    features=host.features, generator=gen)
+    model_d = PCGNN(host.feat_dim, 16, 3, 2.0, 0.5, learn_features=True,
+                    features=host.features).to(card)
+    model_d.load_state_dict(model_h.state_dict())
+    rng = np.random.default_rng(1)
+    batch = torch.from_numpy(rng.integers(0, host.num_nodes, 1000))
+    labels = host.labels[batch]
+    tp = torch.nonzero(host.labels == 1)[:, 0][:200]
+    kw = dict(train_pos=tp, train_pos_valid=torch.ones(len(tp), dtype=bool))
+    kw_d = {k: v.to(card) for k, v in kw.items()}
+    loss_h = model_h.loss(host, batch, labels, **kw)
+    loss_h.backward()
+    mb.launches = wg.launches = 0
+    loss_d = model_d.loss(dev, batch.to(card), labels.to(card), **kw_d)
+    loss_d.backward()
+    assert mb.launches == host.num_relations and wg.launches == 0
+    torch.testing.assert_close(loss_d.cpu(), loss_h, rtol=1e-5, atol=1e-6)
+    for (k, ph), (_, pd) in zip(model_h.named_parameters(),
+                                model_d.named_parameters()):
+        torch.testing.assert_close(pd.grad.cpu(), ph.grad, rtol=1e-4,
+                                   atol=1e-6, msg=k)
+    csr_graph = dataclasses.replace(dev, relations=tuple(
+        dataclasses.replace(r, nbr2d=None) for r in dev.relations))
+    with torch.no_grad():
+        want = model_d(dev, batch.to(card), labels.to(card), train=True,
+                       **kw_d)
+        before = rg.launches
+        got = model_d(csr_graph, batch.to(card), labels.to(card),
+                      train=True, **kw_d)
+    assert rg.launches - before == host.num_relations
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_learned_trainer_epoch_on_card(card, tmp_path):
+    from pcgnn_tpu_torch.train.results import ResultManager
+    from pcgnn_tpu_torch.train.trainer import Trainer
+    cfg = dict(seed=2, data_name="synthetic:small", model="PCGNN",
+               train_ratio=0.4, test_ratio=0.67, emb_size=16, lr=0.01,
+               weight_decay=0.001, alpha=2.0, rho=0.5, epochs=1,
+               valid_epochs=1, batch_size=256, patience=10, exp_num=0,
+               learn_features=True)
+    t = Trainer(cfg, result=ResultManager(cfg, root=str(tmp_path)))
+    assert t.device.type == "cuda" and t.graph.fused is None
+    model = t.new_model()
+    opt = t.new_optimizer(model)
+    start = model.embed.detach().clone()
+    mb.launches = wg.launches = 0
+    loss = float(t.run_epoch(model, opt, 0))
+    assert math.isfinite(loss)
+    assert mb.launches == 3 * t.num_batches and wg.launches == 0
+    assert not torch.equal(model.embed.detach(), start)

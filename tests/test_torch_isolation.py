@@ -37,7 +37,8 @@ def _port_sources():
 def test_every_module_imports_without_jax():
     mods = _port_modules()
     assert {"pcgnn_tpu_torch.ops.window_gather", "pcgnn_tpu_torch.ops.hub",
-            "pcgnn_tpu_torch.ops.ragged_gather"} <= set(mods)
+            "pcgnn_tpu_torch.ops.ragged_gather",
+            "pcgnn_tpu_torch.ops.mask_build"} <= set(mods)
     assert len(mods) >= 22
     code = (
         "import importlib, json, sys\n"

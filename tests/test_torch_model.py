@@ -243,8 +243,6 @@ def test_unported_lanes_raise():
     plain = torch_graph("tiny", seed=0)
     with pytest.raises(NotImplementedError, match="edge-window store"):
         m(plain, batch, None, train=False)
-    with pytest.raises(NotImplementedError, match="learn_features"):
-        TPCGNN(16, 8, 3, ALPHA, RHO, learn_features=True)
     for name in ("GCN", "SAGE"):
         with pytest.raises(NotImplementedError, match="module 9"):
             build_model(name, feat_dim=16, emb_dim=8)

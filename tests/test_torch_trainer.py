@@ -282,8 +282,7 @@ def test_config_matches_jax(tmp_path):
         tconfig.with_defaults(dict(data_name="x", model=None))
 
 
-@pytest.mark.parametrize("key,value", [("learn_features", True),
-                                       ("num_devices", 2),
+@pytest.mark.parametrize("key,value", [("num_devices", 2),
                                        ("edge_windows", False),
                                        ("resume", True)])
 def test_trainer_rejects_unported_config(tmp_path, key, value):
