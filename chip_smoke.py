@@ -28,7 +28,8 @@ result line, on any failure.  In order:
      up to 20,000 above a window cap near the p99.5 degree) and holds the
      ragged-gather kernel against its plain version, exactly, at the hub
      lane's real chunk shapes from one epoch's batches and at edge cases,
-     with the same four timings;
+     with the same four timings, its launch floor (1 row x 1 id) and its
+     bound averaged over the epoch's real calls;
   8. trains yelp-skew for 2 epochs (12 steps) through ``Trainer`` as in 3:
      the hub lane runs on every step with a hub row, and both kernels'
      counts are read; then evaluates the validation split;
@@ -39,13 +40,20 @@ result line, on any failure.  In order:
  11. times yelp-like and yelp-skew steps in turns (like, skew, skew, like),
      so that the two graphs are compared at the same moments of the host;
  12. on yelp-like's graph without stores, with ``learn_features``, holds the
-     mask-build kernel against its plain version, exactly, at the learned
-     lane's real [B, D + M] calls from one epoch's batches and at edge
-     cases, with the same four timings;
+     mask-build kernel against its plain version, exactly, mask and row
+     counts (and the counts against ``mask.sum(1)``), at the learned lane's
+     real calls from one epoch's batches (window [B, D] and minors [B, M]
+     as two column groups) and at edge cases, with the same four timings;
  13. trains the learned lane for 2 epochs (12 steps) through ``Trainer`` as
      in 3: every step launches the mask build once per relation and no
      window gather, and the table moves; then evaluates;
- 14. profiles one epoch of learned steps, as in 5;
+ 14. profiles one epoch of learned steps, as in 5, where no reduction or
+     elementwise kernel may take a mask-sized pass; then times the
+     aggregation at relation 2's real mask, forward and backward, two ways
+     in turns (old, new, new, old): the mask scaled before the GEMM,
+     ``(mask / mask.sum(1)) @ x``, as the JAX package computes it, and the
+     product divided by the kernel's counts, ``(mask @ x) / cnt``, as the
+     port does; with each one's device time by kernel;
  15. compares the card's and the CPU's learned step, as in 6, and runs one
      learned forward with every dense neighbor table dropped (the CSR
      branch, through the ragged gather), whose logits must equal the
@@ -96,6 +104,9 @@ TIMING_REPS = 30
 LOSS_RTOL = 1e-5
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
 PARAM_ATOL = 1e-3
+# a kernel taking this long a launch is a pass over a mask-sized tensor: one
+# pass over the learned lane's 188 MB mask takes 56 us at 3.35 TB/s
+MASK_PASS_US = 30.0
 
 
 def card_line() -> str:
@@ -383,50 +394,63 @@ def ragged_phase(t, rate: float) -> tuple[dict, dict]:
     wrel, wst, ww = max(calls, key=lambda c: (c[2], len(c[1])))
     main = case("widest_chunk", wrel.col, wst, ww)
     case("one_block", wrel.col, wst, HUB_BLOCK)
+    # the launch floor: the same kernel copying 1 row of 1 id
+    floor = case("launch_floor", wrel.col, wst[:1], 1)
+    # the bound of the calls the path makes: the mean over the epoch's
+    # real calls (each id read and written once, and the starts)
+    path_bytes = [2 * len(st) * w * 4 + len(st) * st.element_size()
+                  for _, st, w in calls]
+    details["path_bound_ms"] = float(np.mean(path_bytes)) / rate * 1e3
     entry = {"name": "ragged_gather", "route": "cuda",
              "source": "pcgnn_tpu_torch/csrc/ragged_gather.cu",
              "replaces": "pcgnn_tpu/ops/pallas/ragged_gather.py:112",
              "launches": None, "max_abs_err": max(errs), "exact": True,
              "ms": main["ms"], "plain_ms": main["plain_ms"],
              "bound_ms": main["bound_ms"], "bound_by": "bytes",
-             "library_ms": main["library_ms"]}
+             "library_ms": main["library_ms"], "floor_ms": floor["ms"],
+             "path_bound_ms": details["path_bound_ms"]}
     details["chunk"] = HUB_CHUNK
     return entry, details
 
 
-def check_mask(ids, keep, n) -> float:
-    """Mask-build kernel against its plain version on the card; returns
-    max |err|.  The kernel writes 0s and 1s: anything but equality
+def check_mask(ids, keep, n, mids=None, kmin=None) -> float:
+    """Mask-build kernel against its plain version on the card, mask and
+    counts, and the counts against the mask's row sums; returns max |err|.
+    The kernel writes 0s, 1s and integer counts: anything but equality
     fails."""
-    from pcgnn_tpu_torch.ops.mask_build import (build_batch_mask,
-                                                build_batch_mask_plain)
-    out = build_batch_mask(ids, keep, n)
-    ref = build_batch_mask_plain(ids, keep, n)
+    from pcgnn_tpu_torch.ops.mask_build import (
+        build_batch_mask_counts, build_batch_mask_counts_plain)
+    out, counts = build_batch_mask_counts(ids, keep, n, mids, kmin)
+    ref, ref_counts = build_batch_mask_counts_plain(ids, keep, n, mids, kmin)
     torch.cuda.synchronize()
     err = float((out - ref).abs().max()) if out.numel() else 0.0
-    if not torch.equal(out, ref):
+    if counts.numel():
+        err = max(err, float((counts - ref_counts).abs().max()))
+    if not (torch.equal(out, ref) and torch.equal(counts, ref_counts)
+            and torch.equal(counts, out.sum(1))):
         raise AssertionError(f"mask_build disagrees with its plain version "
                              f"(B={ids.shape[0]}, S={ids.shape[1]}, N={n}, "
-                             f"max |err| {err})")
+                             f"minors {None if kmin is None else kmin.shape}"
+                             f", max |err| {err})")
     return err
 
 
 def mask_calls(t) -> list:
     """The mask builds the learned lane asks for over the first epoch's
-    training batches: (relation index, ids [B, D + M], keep), recorded
-    from the model's own forward (no gradients)."""
+    training batches: (relation index, ids [B, D], keep, minor ids [B, M],
+    keep_minor), recorded from the model's own forward (no gradients)."""
     from pcgnn_tpu_torch.ops import aggregate
     model = t.new_model()
     batches, _ = t.epoch_plan(0)
     calls = []
-    real = aggregate.build_batch_mask
+    real = aggregate.build_batch_mask_counts
 
-    def record(ids, keep, n):
+    def record(ids, keep, n, mids=None, kmin=None):
         calls.append((len(calls) % t.graph.num_relations, ids.clone(),
-                      keep.clone()))
-        return real(ids, keep, n)
+                      keep.clone(), mids.clone(), kmin.clone()))
+        return real(ids, keep, n, mids, kmin)
 
-    aggregate.build_batch_mask = record
+    aggregate.build_batch_mask_counts = record
     try:
         with torch.no_grad():
             for bt in batches:
@@ -434,7 +458,7 @@ def mask_calls(t) -> list:
                       train_pos=t.consts["tp"],
                       train_pos_valid=t.consts["tpv"])
     finally:
-        aggregate.build_batch_mask = real
+        aggregate.build_batch_mask_counts = real
     return calls
 
 
@@ -442,18 +466,20 @@ def mask_phase(t, rate: float) -> tuple[dict, dict]:
     """Phase 12: the mask-build kernel against its plain version at the
     learned lane's real calls on yelp-like and at edge cases, and its
     timings.  Returns (kernels-line entry, details)."""
-    from pcgnn_tpu_torch.ops import aggregate
     from pcgnn_tpu_torch.ops import mask_build as mb
     g, dev = t.graph, t.device
     n = g.num_nodes
     calls = mask_calls(t)
-    errs = [check_mask(ids, keep, n) for _, ids, keep in calls]
-    # edge cases: N odd, under one tile, one past a tile, not a multiple of
-    # it; duplicates, ids outside [0, N), all-dropped and sentinel-only
-    # rows; B = 1; S = 0
+    errs = [check_mask(ids, keep, n, mids, kmin)
+            for _, ids, keep, mids, kmin in calls]
+    # edge cases: N at every residue mod 4, small, one past a chunk of the
+    # old tile and past one bitmap chunk; duplicates, ids outside [0, N),
+    # all-dropped and sentinel-only rows; B = 1; S = 0
     gen = torch.Generator(device=dev).manual_seed(0)
     for rows, slots, nn in ((1, 300, 45_953), (7, 18, 7), (33, 500, 8193),
-                            (1024, 290, 5000), (1, 0, 12), (5, 0, 8192)):
+                            (1024, 290, 5000), (1, 0, 12), (5, 0, 8192),
+                            (64, 265, 45_952), (64, 265, 45_955),
+                            (3, 400, 300_000)):
         ids = torch.randint(-2, nn + 2, (rows, slots), generator=gen,
                             device=dev, dtype=torch.int32)
         keep = torch.randint(0, 2, (rows, slots), generator=gen,
@@ -466,51 +492,71 @@ def mask_phase(t, rate: float) -> tuple[dict, dict]:
             ids[1] = nn
             keep[1] = True
         errs.append(check_mask(ids, keep, nn))
-    # the window and the minors as two column groups, minors shared by
-    # every row ([M]) as the JAX package's callers may pass them
-    _, ids, keep = calls[0]
+    # minors shared by every row ([M], row stride 0) as the JAX package's
+    # callers may pass them: row 0's last window ids, the last one kept in
+    # both groups
+    _, ids, keep, _, _ = calls[0]
     mids = ids[0, -8:].clone()
     km = torch.ones((ids.shape[0], 8), dtype=torch.bool, device=dev)
-    got = aggregate.scatter_batch_mask(n, ids, keep, mids, km)
-    want = mb.build_batch_mask_plain(
-        torch.cat([ids, mids[None, :].expand(ids.shape[0], 8)], 1),
-        torch.cat([keep, km], 1), n)
-    if not torch.equal(got, want):
-        raise AssertionError("scatter_batch_mask with [M] minors disagrees "
-                             "with the plain version")
+    keep = keep.clone()
+    keep[:, -1] = True
+    errs.append(check_mask(ids, keep, n, mids, km))
+    # the two column groups read in place give the build over the
+    # concatenated columns
+    _, ids, keep, mids, kmin = calls[-1]
+    two = mb.build_batch_mask_counts(ids, keep, n, mids, kmin)
+    cat = mb.build_batch_mask_counts(torch.cat([ids, mids], 1),
+                                     torch.cat([keep, kmin], 1), n)
+    if not all(torch.equal(a, b) for a, b in zip(two, cat)):
+        raise AssertionError("the two-group mask build disagrees with the "
+                             "build over the concatenated columns")
 
-    details = {"calls_per_epoch": len(calls),
-               "slots": sorted({int(ids.shape[1]) for _, ids, _ in calls}),
+    details = {"calls_per_epoch": len(calls), "counts_checked": len(errs),
+               "slots": sorted({(int(c[1].shape[1]), int(c[3].shape[1]))
+                                for c in calls}),
                "cases": []}
 
-    def case(name, ids, keep):
+    def case(name, ids, keep, mids, kmin):
         """Times one call shape: the kernel alone (``launch`` on checked
         arguments), the plain version, and one PyTorch ``scatter_`` of
-        ones into a zeroed [B, N+1] buffer (the ids folded to the sentinel
-        beforehand).  ``*_ms`` is device time per call, ``*_run_ms`` the
-        back-to-back run time."""
+        ones into a zeroed [B, N+1] buffer (the two groups' ids
+        concatenated and folded to the sentinel beforehand; it gives no
+        counts).  ``*_ms`` is device time per call, ``*_run_ms`` the
+        back-to-back run time.  Each call writes another output than the
+        call before (the kernel alternates two, the library call's last
+        result is held), so no call rewrites lines still dirty in L2."""
         rows, slots = ids.shape
-        out = torch.empty((rows, n), dtype=torch.float32, device=dev)
-        folded = torch.where(keep, ids, n)
-        # bytes the build must move: the mask written once, each id (4
-        # bytes) and keep flag (1 byte) read once
-        nbytes = rows * n * 4 + rows * slots * 5
-        c = {"name": name, "rows": rows, "slots": slots, "n": n,
-             "bytes": nbytes, "bound_ms": nbytes / rate * 1e3}
-        reps = [()] * TIMING_REPS
+        minors = kmin.shape[1]
+        outs = [(torch.empty((rows, n), dtype=torch.float32, device=dev),
+                 torch.empty(rows, dtype=torch.float32, device=dev))
+                for _ in range(2)]
+        held = [None]
+        folded = torch.where(torch.cat([keep, kmin], 1),
+                             torch.cat([ids, mids], 1), n).long()
+
+        def library():
+            held[0] = torch.zeros((rows, n + 1), device=dev).scatter_(
+                1, folded, 1.0)[:, :n]
+
+        # bytes the build must move: the mask and the counts written once,
+        # each id (4 bytes) and keep flag (1 byte) of both groups read once
+        nbytes = rows * n * 4 + rows * 4 + rows * (slots + minors) * 5
+        c = {"name": name, "rows": rows, "slots": slots, "minors": minors,
+             "n": n, "bytes": nbytes, "bound_ms": nbytes / rate * 1e3}
+        reps = [(i,) for i in range(TIMING_REPS)]
         for key, fn in (
-                ("ms", lambda: mb.launch(ids, keep, out)),
-                ("plain_ms", lambda: mb.build_batch_mask_plain(ids, keep, n)),
-                ("library_ms", lambda: torch.zeros(
-                    (rows, n + 1), device=dev).scatter_(
-                        1, folded.long(), 1.0)[:, :n])):
+                ("ms", lambda i: mb.launch(ids, keep, *outs[i % 2], mids,
+                                           kmin)),
+                ("plain_ms", lambda i: mb.build_batch_mask_counts_plain(
+                    ids, keep, n, mids, kmin)),
+                ("library_ms", lambda i: library())):
             c[key], c[key.replace("ms", "run_ms")] = time_ms(fn, reps)
         details["cases"].append(c)
         return c
 
     for r in range(g.num_relations):
-        _, ids, keep = next(c for c in calls if c[0] == r)
-        main = case(f"relation_{r}", ids, keep)     # the widest: the last
+        _, ids, keep, mids, kmin = next(c for c in calls if c[0] == r)
+        main = case(f"relation_{r}", ids, keep, mids, kmin)  # the widest
     entry = {"name": "mask_build", "route": "cuda",
              "source": "pcgnn_tpu_torch/csrc/mask_build.cu",
              "replaces": "pcgnn_tpu/ops/pallas/mask_build.py:79",
@@ -747,12 +793,107 @@ def profile_phase(t) -> dict:
         host.device_time_total / 1e3 / steps if host else 0.0)
     out["hub_lane_device_span_ms_per_step"] = (
         span.device_time_total / 1e3 / steps if span else 0.0)
+    out["mask_sized_kernels_per_step"] = mask_sized_kernels(prof, steps)
     for name in kernel_counters():
         hit = [(ms, n) for k, ms, n in busy if f"{name}_kernel" in k]
         out[f"{name}_device_ms_per_launch"] = (
             sum(ms for ms, _ in hit) / sum(n for _, n in hit) if hit else None)
         out[f"{name}_launches_per_step"] = sum(n for _, n in hit) / steps
         out[f"{name}_share"] = sum(ms for ms, _ in hit) / device_ms
+    return out
+
+
+def mask_sized_kernels(prof, reps: int) -> list:
+    """[(name, launches per rep, us per launch)] of the kernel launches a
+    torch.profiler run saw that took MASK_PASS_US or more each."""
+    from torch.autograd import DeviceType
+    long = {}
+    for e in prof.events():
+        if (e.device_type == DeviceType.CUDA and not e.is_user_annotation
+                and e.device_time_total >= MASK_PASS_US):
+            n, us = long.get(e.name, (0, 0.0))
+            long[e.name] = (n + 1, us + e.device_time_total)
+    return [(k, n / reps, us / n) for k, (n, us) in
+            sorted(long.items(), key=lambda kv: -kv[1][1])]
+
+
+def mask_pass_faults(kernels: list) -> list:
+    """The reductions and elementwise kernels among ``mask_sized_kernels``:
+    a row sum or a division over the mask, which the lane no longer runs."""
+    return [k for k, _, _ in kernels
+            if "reduce" in k.lower() or "elementwise" in k.lower()]
+
+
+def aggregation_phase(t) -> dict:
+    """Phase 14, second part: the aggregation of relation 2's first real
+    call (build, GEMM, backward into the table) timed both ways in turns,
+    old, new, new, old: the JAX package's ``(mask / mask.sum(1)) @ x`` and
+    the port's ``(mask @ x) / counts`` with the kernel's counts.  Gives
+    each one's device and run ms, its kernels by name, its peak memory
+    above what was resident, and checks that both give the same values."""
+    from torch.profiler import ProfilerActivity, profile
+    from pcgnn_tpu_torch.ops.aggregate import (masked_mean_aggregate,
+                                               scatter_batch_mask,
+                                               scatter_batch_mask_counts)
+    n = t.graph.num_nodes
+    last = t.graph.num_relations - 1
+    _, ids, keep, mids, kmin = next(c for c in mask_calls(t)
+                                    if c[0] == last)
+    x = t.graph.features.clone().requires_grad_(True)
+    gen = torch.Generator(device=t.device).manual_seed(0)
+    grad = torch.randn((ids.shape[0], x.shape[1]), generator=gen,
+                       device=t.device)
+
+    def old():
+        x.grad = None
+        mask = scatter_batch_mask(n, ids, keep, mids, kmin)
+        denom = mask.sum(dim=1, keepdim=True).clamp(min=1.0)
+        agg = torch.matmul(mask / denom, x)
+        agg.backward(grad)
+        return agg
+
+    def new():
+        x.grad = None
+        mask, cnt = scatter_batch_mask_counts(n, ids, keep, mids, kmin)
+        agg = masked_mean_aggregate(mask, x, counts=cnt)
+        agg.backward(grad)
+        return agg
+
+    forms = {"old": old, "new": new}
+    values = {}
+    out = {"rows": int(ids.shape[0]), "n": n, "slots": int(ids.shape[1]),
+           "minors": int(kmin.shape[1])}
+    for name, fn in forms.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        agg = fn().detach()
+        torch.cuda.synchronize()
+        values[name] = (agg, x.grad.clone())
+        out[name] = {"peak_extra_bytes":
+                     torch.cuda.max_memory_allocated() - resident}
+    for a, b in zip(values["old"], values["new"]):
+        torch.testing.assert_close(b, a, rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    reps = [()] * 10
+    turns = {"old": [], "new": []}
+    for name in ("old", "new", "new", "old"):
+        turns[name].append(time_ms(forms[name], reps))
+    for name, fn in forms.items():
+        out[name]["ms"] = float(np.mean([d for d, _ in turns[name]]))
+        out[name]["run_ms"] = float(np.mean([r for _, r in turns[name]]))
+        out[name]["turns"] = turns[name]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in reps:
+                fn()
+            torch.cuda.synchronize()
+        out[name]["kernels"] = [(k[:90], ms / len(reps) * 1e3, c / len(reps))
+                                for k, ms, c in device_kernels(prof)]
+        out[name]["mask_sized"] = mask_sized_kernels(prof, len(reps))
+    faults = mask_pass_faults(out["new"]["mask_sized"])
+    if faults:
+        raise AssertionError(f"the aggregation still runs a mask-sized "
+                             f"reduction or elementwise pass: {faults}")
     return out
 
 
@@ -892,6 +1033,14 @@ def main() -> int:
         if cfg is BENCH_CFG:
             run["store_lane"] = store_lane_phase(t)
         run["profile"] = profile_phase(t)
+        if cfg is LEARNED_CFG:
+            faults = mask_pass_faults(
+                run["profile"]["mask_sized_kernels_per_step"])
+            if faults:
+                raise AssertionError(f"a learned step runs a mask-sized "
+                                     f"reduction or elementwise pass: "
+                                     f"{faults}")
+            run["aggregation"] = aggregation_phase(t)
         run["card_vs_cpu"] = card_vs_cpu_phase(t)
         if cfg is LEARNED_CFG:
             run["csr_branch"] = csr_branch_phase(t)
@@ -932,7 +1081,7 @@ def main() -> int:
                 "ragged_gather_launches_per_step",
                 "mask_build_device_ms_per_launch",
                 "mask_build_launches_per_step", "mask_build_share",
-                "step_peak_extra_bytes",
+                "step_peak_extra_bytes", "mask_sized_kernels_per_step",
                 "hub_lane_host_ms_per_step", "hub_lane_kernel_ms_per_step",
                 "hub_lane_device_span_ms_per_step")},
             "turns_step_ms_median": turns[data]["step_ms_median"],
@@ -943,10 +1092,16 @@ def main() -> int:
     summary["ragged_gather_cases"] = [
         {k: c[k] for k in ("name", "rows", "d", "ms", "bound_ms", "plain_ms",
                            "library_ms")} for c in skew["kernel"]["cases"]]
+    summary["ragged_gather_path_bound_ms"] = skew["kernel"]["path_bound_ms"]
     summary["mask_build_cases"] = [
-        {k: c[k] for k in ("name", "rows", "slots", "ms", "bound_ms",
-                           "plain_ms", "library_ms")}
+        {k: c[k] for k in ("name", "rows", "slots", "minors", "ms",
+                           "bound_ms", "plain_ms", "library_ms")}
         for c in learned["kernel"]["cases"]]
+    summary["mask_build_counts_checked"] = learned["kernel"]["counts_checked"]
+    summary["aggregation"] = {
+        name: {k: learned["aggregation"][name][k] for k in (
+            "ms", "run_ms", "peak_extra_bytes", "kernels")}
+        for name in ("old", "new")}
     summary["csr_branch"] = learned["csr_branch"]
     summary["seconds"] = details["seconds"]
     print(json.dumps(summary))

@@ -44,7 +44,7 @@ from pcgnn_tpu_torch.ops.aggregate import (
     minor_sum_compact_multi,
     oversample_candidates_values,
     oversample_keep,
-    scatter_batch_mask,
+    scatter_batch_mask_counts,
     selection_score,
     unpack_window,
     window_sum_from_gathered,
@@ -234,9 +234,11 @@ class PCGNN(nn.Module):
         Selection is the frozen lane's (choose and oversample, detached),
         scored from the current table: every node's selection score, so
         the train positives' scores move with ``embed`` too.  Aggregation
-        builds the [B, N] 0/1 mask (``scatter_batch_mask``) and contracts it
-        with ``embed`` (``masked_mean_aggregate``), whose gradient
-        ``mask^T @ g`` reaches the table.  Minors that are also kept
+        builds the [B, N] 0/1 mask and its row counts in one kernel launch
+        (``scatter_batch_mask_counts``) and contracts the mask with
+        ``embed``, dividing the product by the counts
+        (``masked_mean_aggregate``), whose gradient ``mask^T @ (g / cnt)``
+        reaches the table.  Minors that are also kept
         neighbors collapse in the mask's set semantics, so no dedup runs.
         """
         rels = graph.relations
@@ -271,10 +273,11 @@ class PCGNN(nn.Module):
             if train:
                 keep_minor = oversample_keep(rel, batch, batch_labels,
                                              cand_valid, self.rho)
-                mask = scatter_batch_mask(n, nbr, keep, cand_ids, keep_minor)
+                mask, cnt = scatter_batch_mask_counts(n, nbr, keep, cand_ids,
+                                                      keep_minor)
             else:
-                mask = scatter_batch_mask(n, nbr, keep)
-            agg = masked_mean_aggregate(mask, x)
+                mask, cnt = scatter_batch_mask_counts(n, nbr, keep)
+            agg = masked_mean_aggregate(mask, x, counts=cnt)
             cat = torch.cat([self_feats, agg], dim=1)      # [B, 2F]
             rel_embs.append(torch.relu(cat @ layer.w))
         cat_all = torch.cat([self_feats] + rel_embs, dim=1)

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from pcgnn_tpu_torch.ops.mask_build import build_batch_mask
+from pcgnn_tpu_torch.ops.mask_build import build_batch_mask_counts
 from pcgnn_tpu_torch.ops.ragged_gather import ragged_gather
 from pcgnn_tpu_torch.ops.window_gather import window_gather
 
@@ -270,37 +270,53 @@ def minor_sum_compact_multi(tp_feats: torch.Tensor, cand_slots: torch.Tensor,
     return out
 
 
+def scatter_batch_mask_counts(num_nodes: int, nbr: torch.Tensor,
+                              keep: torch.Tensor,
+                              minor_ids: torch.Tensor | None = None,
+                              keep_minor: torch.Tensor | None = None):
+    """(mask [B, N] float32 0/1, counts [B] float32): kept neighbors (and
+    oversampled minors) as a dense mask with set semantics (duplicates give
+    one 1.0), and each row's count of distinct kept ids, ``mask.sum(1)``.
+
+    ``minor_ids`` is [M] (shared by every row) or [B, M], with
+    ``keep_minor`` [B, M]; the build reads it in place as a second column
+    group, so a minor that is also a kept neighbor collapses into one
+    entry.  Both come from one launch of
+    ``ops.mask_build.build_batch_mask_counts``.
+    """
+    if minor_ids is not None:
+        minor_ids = minor_ids.to(torch.int32).contiguous()
+        keep_minor = keep_minor.contiguous()
+    return build_batch_mask_counts(nbr.to(torch.int32).contiguous(),
+                                   keep.contiguous(), num_nodes, minor_ids,
+                                   keep_minor)
+
+
 def scatter_batch_mask(num_nodes: int, nbr: torch.Tensor, keep: torch.Tensor,
                        minor_ids: torch.Tensor | None = None,
                        keep_minor: torch.Tensor | None = None) -> torch.Tensor:
-    """Kept neighbors (and oversampled minors) as a dense [B, N] float32
-    0/1 mask with set semantics (duplicates give one 1.0).
-
-    ``minor_ids`` is [M] (shared by every row) or [B, M], with
-    ``keep_minor`` [B, M]; its columns are appended to the window's, so a
-    minor that is also a kept neighbor collapses into one entry.  The mask
-    is built by ``ops.mask_build.build_batch_mask``.
-    """
-    if minor_ids is not None:
-        mids = (minor_ids[None, :].expand(keep_minor.shape)
-                if minor_ids.dim() == 1 else minor_ids)
-        nbr = torch.cat([nbr, mids.to(nbr.dtype)], dim=1)
-        keep = torch.cat([keep, keep_minor], dim=1)
-    return build_batch_mask(nbr.to(torch.int32).contiguous(),
-                            keep.contiguous(), num_nodes)
+    """The mask of :func:`scatter_batch_mask_counts` alone, the JAX
+    package's ``scatter_batch_mask``."""
+    return scatter_batch_mask_counts(num_nodes, nbr, keep, minor_ids,
+                                     keep_minor)[0]
 
 
 def masked_mean_aggregate(mask: torch.Tensor, features: torch.Tensor, *,
-                          norm: str = "mean") -> torch.Tensor:
-    """[B, F] aggregate of ``features`` [N, F] through a [B, N] mask: each
-    row divided by its count (``mean``) or its square root (``sqrt``),
-    counts below 1 taken as 1, then one float32 GEMM.  The GEMM's gradient
-    into ``features`` is ``mask^T @ g``, another GEMM."""
-    cnt = mask.sum(dim=1, keepdim=True)
-    if norm == "mean":
-        denom = cnt.clamp(min=1.0)
-    elif norm == "sqrt":
-        denom = cnt.clamp(min=1.0).sqrt()
-    else:
+                          norm: str = "mean",
+                          counts: torch.Tensor | None = None) -> torch.Tensor:
+    """[B, F] aggregate of ``features`` [N, F] through a [B, N] mask: one
+    float32 GEMM, each row of the product then divided by its count
+    (``mean``) or its square root (``sqrt``), counts below 1 taken as 1.
+
+    ``counts`` [B] are the mask's row sums, as the mask build emits them;
+    without them they are summed here.  The JAX package scales the mask
+    before its GEMM; dividing the [B, F] product instead gives its values
+    to float32 rounding and spares a pass over the [B, N] mask and a scaled
+    copy of it held for the backward.  The gradient into ``features`` is
+    ``mask^T @ (g / denom)``, another GEMM."""
+    if norm not in ("mean", "sqrt"):
         raise ValueError(f"unknown norm {norm!r}")
-    return torch.matmul(mask / denom, features)
+    denom = (mask.sum(dim=1) if counts is None else counts).clamp(min=1.0)
+    if norm == "sqrt":
+        denom = denom.sqrt()
+    return torch.matmul(mask, features) / denom[:, None]

@@ -29,8 +29,6 @@ from pcgnn_tpu_torch.ops import kernels
 # kernel launches in this process; the only writer is ``launch``
 launches = 0
 
-_TILE = 1024               # ids per block of the kernel (csrc kTile)
-_MAX_TILES = 65535         # grid.y limit
 _INT32 = torch.iinfo(torch.int32)
 
 
@@ -83,9 +81,9 @@ def ragged_gather(col: torch.Tensor, starts: torch.Tensor, d: int,
     if not col.is_contiguous():
         raise ValueError("ragged_gather: col must be contiguous")
     b = int(starts.shape[0])
-    if b >= 2 ** 31 or -(-d // _TILE) > _MAX_TILES:
+    if b * d > _INT32.max:
         raise ValueError(f"ragged_gather: {b} rows of {d} ids exceed the "
-                         f"grid limits")
+                         f"kernel's 32-bit indexing")
     out = torch.empty((b, d), dtype=torch.int32, device=col.device)
     if b and d:
         launch(col, starts.contiguous(), out, fill)

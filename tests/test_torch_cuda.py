@@ -7,7 +7,8 @@ neither), so it runs there without the repository's JAX conftest:
     python -m pytest --noconftest -p no:cacheprovider -q -m cuda tests/test_torch_cuda.py
 
 The window and ragged gathers are copies and the mask build writes 0s and
-1s, so each kernel must equal its plain version exactly.  The model on the card is compared with the same
+1s and integer counts, so each kernel must equal its plain version
+exactly.  The model on the card is compared with the same
 model on the CPU's plain path: both select the same rows (selection scores
 are rounded once from float64), and their float32 sums run in another
 order, so logits agree to rtol 1e-5 with atol 1e-6.
@@ -196,10 +197,33 @@ def test_ragged_wrapper_raises_on_bad_arguments(card):
     ok = torch.tensor([0, 4], device=card)
     for args in [(col[::2], ok, 8, 0),                 # strided
                  (col, ok.cpu(), 8, 0),                # two devices
-                 (col, ok, 70_000 * 1024, 0)]:         # grid.y limit
+                 (col, ok, 2 ** 30, 0)]:               # B * d past int32
         with pytest.raises(ValueError):
             rg.ragged_gather(*args)
     assert rg.ragged_gather(col, ok[:0], 8, 0).shape == (0, 8)
+
+
+@pytest.mark.parametrize("d", [17, 49, 212, 513, 16896])
+def test_ragged_kernel_every_alignment(card, d):
+    """Starts at every offset mod 4, near, at and past the end of col and
+    negative, from a 16-byte-aligned col (vector path where d % 4 == 0) and
+    from a view one id in (scalar path): the kernel equals the plain
+    version bit for bit."""
+    gen = torch.Generator(device=card).manual_seed(d)
+    base = torch.randint(0, 1 << 30, (40_001,), generator=gen, device=card,
+                         dtype=torch.int32)
+    for col in (base[:40_000], base[1:]):
+        e = col.numel()
+        starts = torch.tensor(
+            [0, 1, 2, 3, 4097, 4098, 4099, 4100, e - d - 1, e - d, e - d + 1,
+             e - 5, e - 4, e - 1, e, e + 3, -1, -3, -d - 2, 1000],
+            device=card)
+        for st in (starts, starts.to(torch.int32)):
+            ref = rg.ragged_gather_plain(col, st, d, -7)
+            out = rg.ragged_gather(col, st, d, -7)
+            torch.cuda.synchronize()
+            assert torch.equal(out, ref), (d, col.data_ptr() % 16)
+    assert out[13, 1:].eq(-7).all() and out[14].eq(-7).all()
 
 
 def _skew_pair(card, dtype):
@@ -296,41 +320,87 @@ def _mask_args(gen, rows, slots, n, device):
     return ids, keep
 
 
-@pytest.mark.parametrize("n", [1, 7, 4097, 8192, 8193, 45954])
+@pytest.mark.parametrize("n", [1, 7, 4097, 8192, 8193, 45952, 45953, 45954,
+                               45955, 300_000])
 @pytest.mark.parametrize("rows,slots", [(1, 0), (1, 300), (7, 18),
                                         (1024, 290)])
 def test_mask_kernel_equals_plain(card, n, rows, slots):
-    """N odd, under one tile, a tile exactly, one past it and yelp-like's;
-    B = 1, S = 0: the kernel equals the plain version bit for bit."""
+    """N at every residue mod 4 (rows start at every 16-byte offset), odd,
+    small and past one bitmap chunk (300,000 columns: the block builds the
+    row in chunks); B = 1, S = 0: the mask and the counts equal the plain
+    version bit for bit, and the counts are the mask's row sums."""
     gen = torch.Generator(device=card).manual_seed(n * 31 + rows + slots)
     ids, keep = _mask_args(gen, rows, slots, n, card)
-    ref = mb.build_batch_mask_plain(ids, keep, n)
+    ref, ref_counts = mb.build_batch_mask_counts_plain(ids, keep, n)
     before = mb.launches
-    out = mb.build_batch_mask(ids, keep, n)
+    out, counts = mb.build_batch_mask_counts(ids, keep, n)
     assert mb.launches == before + 1
     torch.cuda.synchronize()
     assert out.dtype == torch.float32 and out.shape == (rows, n)
+    assert counts.dtype == torch.float32 and counts.shape == (rows,)
     assert torch.equal(out, ref)
+    assert torch.equal(counts, ref_counts)
+    assert torch.equal(counts, out.sum(1))
     if rows > 1:
-        assert not out[:2].any()
+        assert not out[:2].any() and not counts[:2].any()
+
+
+@pytest.mark.parametrize("n", [45953, 45954, 300_000])
+@pytest.mark.parametrize("minors", ["1d", "2d"])
+@pytest.mark.parametrize("rows,slots", [(1, 0), (7, 18), (1024, 212)])
+def test_mask_kernel_two_groups_equal_plain(card, n, minors, rows, slots):
+    """The window and the minors ([M] shared by every row, or [B, M]) read
+    as two column groups, with a minor that is also a kept neighbor: mask
+    and counts equal the plain version over the concatenated columns."""
+    gen = torch.Generator(device=card).manual_seed(n + rows + slots)
+    ids, keep = _mask_args(gen, rows, slots, n, card)
+    m = 53
+    shape = (m,) if minors == "1d" else (rows, m)
+    mids = torch.randint(-1, n + 1, shape, generator=gen, device=card,
+                         dtype=torch.int32)
+    kmin = torch.randint(0, 2, (rows, m), generator=gen, device=card,
+                         dtype=torch.int32).bool()
+    if slots:
+        # row 0's first kept window id, also a kept minor
+        keep[0, 0] = True
+        ids[0, 0] = 5
+        mids[..., 0] = 5
+        kmin[0, 0] = True
+    ref, ref_counts = mb.build_batch_mask_counts_plain(ids, keep, n, mids,
+                                                       kmin)
+    out, counts = mb.build_batch_mask_counts(ids, keep, n, mids, kmin)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref) and torch.equal(counts, ref_counts)
+    assert torch.equal(counts, out.sum(1))
+    if slots:
+        assert out[0, 5].item() == 1.0
 
 
 def test_mask_wrapper_raises_and_makes_no_host_sync(card):
     ids = torch.tensor([[0, 3, 3, 9]], dtype=torch.int32, device=card)
     keep = torch.tensor([[True, True, False, True]], device=card)
+    mids = torch.tensor([3, 0], dtype=torch.int32, device=card)
+    kmin = torch.tensor([[True, True]], device=card)
     mb.build_batch_mask(ids, keep, 9)          # builds and loads first
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         out = mb.build_batch_mask(ids, keep, 9)
+        both, counts = mb.build_batch_mask_counts(ids, keep, 9, mids, kmin)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert out.cpu().tolist() == [[1, 0, 0, 1, 0, 0, 0, 0, 0]]
+    assert both.cpu().tolist() == [[1, 0, 0, 1, 0, 0, 0, 0, 0]]
+    assert counts.cpu().tolist() == [2.0]
     for args in [(ids[:, ::2], keep[:, ::2], 9),           # strided
                  (ids, keep.cpu(), 9),                      # two devices
-                 (ids, keep, 65536 * 8192)]:                # grid.y limit
+                 (ids, keep, 2 ** 31)]:                     # N past int32
         with pytest.raises(ValueError):
             mb.build_batch_mask(*args)
+    strided = torch.tensor([[3, 7, 0, 7]], dtype=torch.int32,
+                           device=card)[:, ::2]
+    with pytest.raises(ValueError):                         # strided minors
+        mb.build_batch_mask_counts(ids, keep, 9, strided, kmin)
     with pytest.raises(TypeError):
         mb.build_batch_mask(ids.long(), keep, 9)
     assert mb.build_batch_mask(ids[:0], keep[:0], 9).shape == (0, 9)

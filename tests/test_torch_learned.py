@@ -178,6 +178,94 @@ def test_masked_mean_aggregate_equals_jax(norm):
                                    torch.from_numpy(x), norm="max")
 
 
+def _jax_and_torch_args(nbr, keep, mids, kmin):
+    jargs = [jnp.asarray(a) for a in (nbr, keep)]
+    targs = [torch.from_numpy(a) for a in (nbr, keep)]
+    if mids is not None:
+        jargs += [jnp.asarray(mids), jnp.asarray(kmin)]
+        targs += [torch.from_numpy(mids), torch.from_numpy(kmin)]
+    return jargs, targs
+
+
+@pytest.mark.parametrize("b,d,n,minors", _MASK_CASES)
+def test_mask_counts_equal_jax_row_sums(b, d, n, minors):
+    """The counts that come with the mask are the JAX mask's row sums
+    exactly: distinct kept ids in [0, N), a minor that is also a kept
+    neighbor counted once, all-dropped and sentinel-only rows 0."""
+    nbr, keep, mids, kmin = _mask_inputs(b, d, n, minors, b * 100 + d)
+    jargs, targs = _jax_and_torch_args(nbr, keep, mids, kmin)
+    want = np.asarray(jnp.sum(jagg.scatter_batch_mask(n, *jargs), 1))
+    mask, counts = tagg.scatter_batch_mask_counts(n, *targs)
+    assert counts.dtype == torch.float32 and counts.shape == (b,)
+    np.testing.assert_array_equal(counts.numpy(), want)
+    assert torch.equal(counts, mask.sum(1))
+    if b > 2:
+        assert not counts[1:3].any()
+
+
+@pytest.mark.parametrize("b,d,n,minors",
+                         [c for c in _MASK_CASES if c[3] is not None])
+def test_two_group_mask_equals_concatenated(b, d, n, minors):
+    """The window and the minors passed as two column groups give the mask
+    and counts of one build over the concatenated columns, and the JAX
+    package's mask exactly."""
+    nbr, keep, mids, kmin = _mask_inputs(b, d, n, minors, b * 100 + d + 1)
+    jargs, targs = _jax_and_torch_args(nbr, keep, mids, kmin)
+    mask, counts = mask_build.build_batch_mask_counts(
+        *targs[:2], n, *targs[2:])
+    full = np.broadcast_to(mids, kmin.shape) if mids.ndim == 1 else mids
+    cat_mask, cat_counts = mask_build.build_batch_mask_counts(
+        torch.from_numpy(np.concatenate([nbr, full], 1)),
+        torch.from_numpy(np.concatenate([keep, kmin], 1)), n)
+    assert torch.equal(mask, cat_mask) and torch.equal(counts, cat_counts)
+    want = np.asarray(jagg.scatter_batch_mask(n, *jargs))
+    np.testing.assert_array_equal(mask.numpy(), want)
+    if d > 1:     # the duplicate minor, kept in both groups, gives one 1.0
+        assert mask[0, int(nbr[0, 0])] == 1.0
+
+
+@pytest.mark.parametrize("norm", ["mean", "sqrt"])
+def test_masked_mean_aggregate_with_counts_equals_jax(norm):
+    """With the build's counts passed in, the product divided by them
+    equals the JAX package's scaled-mask GEMM to FWD, and the counts, not
+    a row sum of the mask, set the divisor."""
+    nbr, keep, mids, kmin = _mask_inputs(11, 6, 50, "2d", 5)
+    jargs, targs = _jax_and_torch_args(nbr, keep, mids, kmin)
+    x = np.random.default_rng(2).normal(size=(50, 7)).astype(np.float32)
+    want = np.asarray(jagg.masked_mean_aggregate(
+        jagg.scatter_batch_mask(50, *jargs), jnp.asarray(x), norm=norm))
+    mask, counts = tagg.scatter_batch_mask_counts(50, *targs)
+    xt = torch.from_numpy(x)
+    got = tagg.masked_mean_aggregate(mask, xt, norm=norm, counts=counts)
+    np.testing.assert_allclose(got.numpy(), want, **FWD)
+    assert not got[1:3].any()                     # empty rows stay 0
+    doubled = tagg.masked_mean_aggregate(mask, xt, norm=norm,
+                                         counts=4 * counts)
+    scale = 4.0 if norm == "mean" else 2.0
+    rows = counts >= 1
+    torch.testing.assert_close(doubled[rows] * scale, got[rows], **FWD)
+
+
+def test_mask_wrapper_raises_on_bad_minors():
+    nbr = torch.zeros((2, 3), dtype=torch.int32)
+    keep = torch.ones((2, 3), dtype=torch.bool)
+    mids = torch.zeros(4, dtype=torch.int32)
+    kmin = torch.ones((2, 4), dtype=torch.bool)
+    for args, err in [((mids, None), ValueError),          # one without other
+                      ((mids.long(), kmin), TypeError),
+                      ((mids, kmin.int()), TypeError),
+                      ((mids[:3], kmin), ValueError),       # M differs
+                      ((mids, kmin[:1]), ValueError),       # B differs
+                      ((mids.view(2, 2), kmin), ValueError),
+                      ((mids, kmin[0]), ValueError)]:
+        with pytest.raises(err):
+            mask_build.build_batch_mask_counts(nbr, keep, 4, *args)
+    mask, counts = mask_build.build_batch_mask_counts(
+        nbr, keep, 4, mids.view(1, 4).expand(2, 4).contiguous(), kmin)
+    assert mask[:, 0].tolist() == [1.0, 1.0] and counts.tolist() == [1, 1]
+    assert mask_build.launches == 0
+
+
 def test_window_path_equals_mask_path():
     """The frozen lane's scatter-free sums (window + deduplicated minors)
     equal the learned lane's mask GEMM on the same selection."""
