@@ -59,7 +59,30 @@ result line, on any failure.  In order:
      branch, through the ragged gather), whose logits must equal the
      table's exactly.
 
-Phase 11 also times the learned steps in the same turns.
+Phase 11 also times the learned steps in the same turns.  Then:
+
+ 16. trains PC-GNN on yelp-skew's graph without stores (``edge_windows:
+     false``: the score-table lane) as in 8, with no window gather and the
+     ragged gather on every step with a hub row; profiles an epoch and
+     compares the card's step with the CPU's on the batch with the most
+     hub rows;
+ 17. builds ``synthetic:stress-1m`` (1M nodes, directed relations, a
+     degree-only homo graph) on the host, printing its seconds, and trains
+     one epoch in the per-relation store lane (three window gathers a
+     step, scores from the windows), then evaluates; profiles it; holds
+     the window gather against its plain version and times it at each
+     relation's shape; runs one step without stores or the padded table
+     (the clamped-id lane) on the card and the CPU; and one forward with
+     every dense neighbor table dropped (the CSR branch, through the ragged
+     gather), whose logits must equal the table's exactly;
+ 18. trains GCN and GraphSAGE on ``synthetic:amazon_new-like`` with the
+     amazon baselines' hyperparameters for 2 epochs each (one window
+     gather a step, on the homo store), after holding the window gather
+     against its plain version at that shape and timing it with reads from
+     memory; profiles and compares each with the CPU's step;
+ 19. runs one step of each baseline on yelp-skew's graph, whose homo hub
+     rows go through ``hub_mean_sum`` and the ragged gather, card against
+     CPU.
 
 The line before the last is the card's name and power limit; before it, a
 ``{"kernels": [...]}`` line; the last line is
@@ -91,6 +114,21 @@ BENCH_CFG = dict(seed=2, data_name="synthetic:yelp-like", model="PCGNN",
 SKEW_CFG = dict(BENCH_CFG, data_name="synthetic:yelp-skew")
 # the same on yelp-like, with the node table trained (the dense mask lane)
 LEARNED_CFG = dict(BENCH_CFG, learn_features=True)
+# the same on yelp-skew without stores: the score-table lane
+TABLE_CFG = dict(SKEW_CFG, edge_windows=False)
+# the same on the 1M-node stress preset (directed relations, degree-only
+# homo graph), one epoch: the per-relation store lane, scores from windows
+STRESS_CFG = dict(BENCH_CFG, data_name="synthetic:stress-1m", epochs=1)
+# GCN and GraphSAGE with the amazon baselines' hyperparameters
+# (configs/gcn_amazon.json, configs/sage_amazon.json), cut to 2 epochs, on
+# the synthetic preset of amazon_new's shape (its data are not in the
+# repository)
+GCN_CFG = dict(seed=2, data_name="synthetic:amazon_new-like", model="GCN",
+               train_ratio=0.4, test_ratio=0.67, emb_size=64, lr=0.005,
+               weight_decay=0.0005, epochs=2, valid_epochs=10 ** 9,
+               batch_size=1024, patience=10 ** 9, exp_num=0,
+               ewin_dtype="bfloat16")
+SAGE_CFG = dict(GCN_CFG, model="SAGE")
 TIMING_REPS = 30
 # card against CPU, one Adam step from the same weights and batch.  Both
 # select the same neighbors (selection scores are rounded once from float64,
@@ -152,12 +190,13 @@ def device_kernels(prof) -> list:
                    and not e.is_user_annotation), key=lambda x: -x[1])
 
 
-def time_ms(fn, args_list) -> tuple[float, float]:
+def time_ms(fn, args_list, exclude: str | None = None) -> tuple[float, float]:
     """(device ms, run ms) per call of ``fn(*args)`` over ``args_list``,
     after one warm-up call.  Device ms is the kernels' own time under
-    torch.profiler; run ms is CUDA events around the whole run of
-    back-to-back calls over the count, which also holds the card's idle
-    gaps while the host launches the next call."""
+    torch.profiler, without kernels whose name holds ``exclude``; run ms
+    is CUDA events around the whole run of back-to-back calls over the
+    count, which also holds the card's idle gaps while the host launches
+    the next call."""
     from torch.profiler import ProfilerActivity, profile
     fn(*args_list[0])
     torch.cuda.synchronize()
@@ -174,7 +213,8 @@ def time_ms(fn, args_list) -> tuple[float, float]:
         for args in args_list:
             fn(*args)
         torch.cuda.synchronize()
-    dev_ms = sum(ms for _, ms, _ in device_kernels(prof)) / len(args_list)
+    dev_ms = sum(ms for k, ms, _ in device_kernels(prof)
+                 if exclude is None or exclude not in k) / len(args_list)
     return dev_ms, run_ms
 
 
@@ -201,12 +241,53 @@ def strided_rows(store, dp, a):
     return store.as_strided((n, dp), (a, 1))
 
 
+def window_case(name, store, starts_list, dp, table, rows_list, *,
+                rate: float, active=None, flush=None) -> dict:
+    """Times one window shape: the kernel alone (``launch`` on checked
+    arguments), the wrapper (its checks read the starts back to the host),
+    the plain version, and one ``index_select`` of the same windows from
+    ``table``, a [rows, dp] view of the store.  ``*_ms`` is device time per
+    call, ``*_run_ms`` the back-to-back run time.  With ``active``, the
+    kernel and the wrapper copy only the active rows; the plain version and
+    ``index_select`` copy every row, which gives the active rows' values.
+    With ``flush``, a buffer larger than the card's L2, every call first
+    overwrites it, so the call's reads come from memory; the device ms
+    leave the overwrite out, the run ms hold it."""
+    from pcgnn_tpu_torch.ops import window_gather as wg
+    rows = len(starts_list[0])
+    out = torch.empty((rows, dp), dtype=store.dtype, device=store.device)
+    starts = [(s,) for s in starts_list]
+    # bytes the copy must move: each copied window read once and written
+    # once, plus the int64 starts and the int32 mask
+    copied = rows if active is None else int(active.sum())
+    nbytes = (2 * copied * dp * store.element_size() + rows * 8
+              + (0 if active is None else rows * 4))
+    c = {"name": name, "rows": rows, "copied_rows": copied, "dp": dp,
+         "dtype": str(store.dtype).replace("torch.", ""),
+         "bound_ms": nbytes / rate * 1e3, "bytes": nbytes}
+    def cold(fn):
+        if flush is None:
+            return fn
+        return lambda *a: (flush.fill_(0.0), fn(*a))[1]
+
+    for key, fn, args in (
+            ("ms", lambda s: wg.launch(store, s, active, out), starts),
+            ("wrapper_ms", lambda s: wg.window_gather(store, s, dp,
+                                                      active=active),
+             starts),
+            ("plain_ms", lambda s: wg.window_gather_plain(store, s, dp),
+             starts),
+            ("library_ms", lambda i: torch.index_select(table, 0, i),
+             [(i,) for i in rows_list])):
+        c[key], c[key.replace("ms", "run_ms")] = time_ms(
+            cold(fn), args, exclude=None if flush is None else "FillFunctor")
+    c["cold_reads"] = flush is not None
+    return c
+
+
 def kernel_phase(t, rate: float) -> tuple[dict, dict]:
     """Phase 2: exactness on the card and timings at the main path's
     shapes.  Returns (kernels-line entry, details)."""
-    from pcgnn_tpu_torch.ops import window_gather as wg
-    from pcgnn_tpu_torch.ops.window_gather import (window_gather,
-                                                   window_gather_plain)
     g, dev = t.graph, t.device
     b = t.batch_size
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -241,36 +322,8 @@ def kernel_phase(t, rate: float) -> tuple[dict, dict]:
                              active=torch.ones(1000, dtype=torch.int32,
                                                device=dev)))
 
-    def case(name, store, starts_list, dp, table, rows_list, active=None):
-        """Times one window shape: the kernel alone (``launch`` on checked
-        arguments), the wrapper (its checks read the starts back to the
-        host), the plain version, and one ``index_select`` of the same
-        windows from ``table``, a [rows, dp] view of the store.  ``*_ms``
-        is device time per call, ``*_run_ms`` the back-to-back run time.
-        With ``active``, the kernel and the wrapper copy only the active
-        rows; the plain version and ``index_select`` copy every row, which
-        gives the active rows' values."""
-        rows = len(starts_list[0])
-        out = torch.empty((rows, dp), dtype=store.dtype, device=store.device)
-        starts = [(s,) for s in starts_list]
-        # bytes the copy must move: each copied window read once and
-        # written once, plus the int64 starts and the int32 mask
-        copied = rows if active is None else int(active.sum())
-        nbytes = (2 * copied * dp * store.element_size() + rows * 8
-                  + (0 if active is None else rows * 4))
-        c = {"name": name, "rows": rows, "copied_rows": copied, "dp": dp,
-             "dtype": str(store.dtype).replace("torch.", ""),
-             "bound_ms": nbytes / rate * 1e3, "bytes": nbytes}
-        for key, fn, args in (
-                ("ms", lambda s: wg.launch(store, s, active, out), starts),
-                ("wrapper_ms", lambda s: window_gather(store, s, dp,
-                                                       active=active),
-                 starts),
-                ("plain_ms", lambda s: window_gather_plain(store, s, dp),
-                 starts),
-                ("library_ms", lambda i: torch.index_select(table, 0, i),
-                 [(i,) for i in rows_list])):
-            c[key], c[key.replace("ms", "run_ms")] = time_ms(fn, args)
+    def case(*args, **kw):
+        c = window_case(*args, rate=rate, **kw)
         details["cases"].append(c)
         return c
 
@@ -597,16 +650,24 @@ def csr_branch_phase(t) -> dict:
 
 
 def without_stores(g):
-    """The graph with its edge-window and fused stores dropped: what the
-    learned lane trains on."""
-    return dataclasses.replace(g, fused=None, fused_off=(), relations=tuple(
-        dataclasses.replace(r, ewin=None, estart=None, ewin_dp=0, ewin_f=0)
-        for r in g.relations))
+    """The graph with its edge-window and fused stores and its
+    sentinel-padded table dropped: what the learned lane and
+    ``edge_windows: false`` train on, and what a baseline's trainer builds
+    its homo store on."""
+    drop = lambda r: dataclasses.replace(r, ewin=None, estart=None,
+                                         ewin_dp=0, ewin_f=0)
+    return dataclasses.replace(g, fused=None, fused_off=(),
+                               features_pad=None, homo=drop(g.homo),
+                               relations=tuple(drop(r) for r in g.relations))
 
 
 def edges_per_epoch(t) -> float:
     """Expected candidate edges per epoch (bench.py's definition): each of
-    the epoch's picked nodes contributes deg_r(v) slots per relation."""
+    the epoch's picked nodes contributes deg_r(v) slots per relation.  A
+    baseline's epoch takes every training node once, over the homo graph."""
+    if not t.is_pcgnn:
+        return float(t.graph.homo.deg.double().cpu().numpy()[t.idx_train]
+                     .sum())
     p = t.pick_weights.double().cpu().numpy()
     p = p / p.sum()
     per_sample = sum(float((p * rel.deg.double().cpu().numpy()[t.idx_train])
@@ -623,7 +684,34 @@ def kernel_counters() -> dict:
 
 def run_name(t) -> str:
     """The configuration's name in this script's output."""
-    return t.config["data_name"] + (" learned" if t.learn_features else "")
+    name = t.config["data_name"]
+    if not t.is_pcgnn:
+        name += " " + t.model_name
+    if t.learn_features:
+        name += " learned"
+    elif not t.config.get("edge_windows", True):
+        name += " no stores"
+    return name
+
+
+def aggregated_relations(t) -> tuple:
+    """The relations a model aggregates over: PC-GNN's, or the homo graph
+    of GCN and GraphSAGE."""
+    return t.graph.relations if t.is_pcgnn else (t.graph.homo,)
+
+
+def window_launches_per_step(t) -> int:
+    """Window gathers one training step of ``t`` launches: one fused record
+    fetch, or one per relation store, or one on the homo store of a
+    baseline; none without stores."""
+    g = t.graph
+    if t.learn_features or not t.config.get("edge_windows", True):
+        return 0
+    if not t.is_pcgnn:
+        return int(g.homo.ewin is not None)
+    if g.fused is not None:
+        return 1
+    return sum(r.ewin is not None for r in g.relations)
 
 
 def eval_batches(t) -> int:
@@ -633,21 +721,21 @@ def eval_batches(t) -> int:
 
 def hub_rows(t, batch) -> int:
     """Rows of ``batch`` above their relation's window cap, summed over
-    the relations that have hubs."""
+    the aggregated relations that have hubs."""
     return sum(int((rel.deg[batch] > rel.window_width).sum())
-               for rel in t.graph.relations if rel.has_hubs)
+               for rel in aggregated_relations(t) if rel.has_hubs)
 
 
 def main_path_phase(t) -> dict:
-    """Phases 3, 8 and 13: 2 epochs of training through Trainer's step,
-    then one validation evaluate; every kernel count is 0 just before.
-    Every frozen-lane step must launch the window gather, and every step
+    """Phases 3, 8, 13, 16, 17 and 18: the configuration's epochs of
+    training through Trainer's step, then one validation evaluate; every
+    kernel count is 0 just before.  Every step must launch the window
+    gathers its lane reads (``window_launches_per_step``), and every step
     with a hub row the ragged gather.  Every learned-lane step launches the
-    mask build once per relation and no window gather, and the table must
-    move."""
+    mask build once per relation and no gather, and the table must move."""
     from pcgnn_tpu_torch.train.metrics import evaluate
     mods = kernel_counters()
-    step_kernel = "mask_build" if t.learn_features else "window_gather"
+    want_wg = window_launches_per_step(t)
     nrel = t.graph.num_relations
     model = t.new_model()
     opt = t.new_optimizer(model)
@@ -658,12 +746,13 @@ def main_path_phase(t) -> dict:
         mod.launches = 0
     for epoch in range(t.config["epochs"]):
         batches, weights = t.epoch_plan(epoch)
-        for bt, wt in zip(batches, weights):
+        for i, (bt, wt) in enumerate(zip(batches, weights)):
             before = {k: m.launches for k, m in mods.items()}
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            loss = t.step(model, opt, bt, t.graph.labels[bt], wt)
+            loss = t.step(model, opt, bt, t.graph.labels[bt], wt,
+                          t.step_generator(epoch, i))
             end.record()
             end.synchronize()
             step_ms.append(start.elapsed_time(end))
@@ -671,9 +760,11 @@ def main_path_phase(t) -> dict:
             hubs.append(hub_rows(t, bt))
             ragged.append(mods["ragged_gather"].launches
                           - before["ragged_gather"])
-            if mods[step_kernel].launches < before[step_kernel] + 1:
-                raise AssertionError(f"a training step launched no "
-                                     f"{step_kernel} kernel")
+            got_wg = mods["window_gather"].launches - before["window_gather"]
+            if got_wg != want_wg:
+                raise AssertionError(f"a training step launched {got_wg} "
+                                     f"window_gather kernels, expected "
+                                     f"{want_wg}")
             if t.learn_features and (
                     mods["mask_build"].launches - before["mask_build"]
                     != nrel):
@@ -704,10 +795,14 @@ def main_path_phase(t) -> dict:
                             .abs().max())
         if not embed_moved > 0:
             raise AssertionError("the learned table did not move")
+    elif want_wg == 0 and launches["window_gather"]:
+        raise AssertionError(f"a lane without stores launched the window "
+                             f"gather: {launches}")
     steady = float(np.median(step_ms[1:]))
     return {"data": run_name(t), "steps": len(step_ms),
             "step_ms": step_ms, "step_ms_median": steady, "losses": losses,
             "hub_rows_per_step": hubs, "ragged_launches_per_step": ragged,
+            "window_launches_per_step": want_wg,
             "train_launches": train_launches, "launches": launches,
             "valid_auc": res.auc, "valid_f1_macro": res.f1_macro,
             "eval_batches": eval_batches(t), "embed_moved": embed_moved,
@@ -783,8 +878,9 @@ def profile_phase(t) -> dict:
     # its device entry spans the range on the card's timeline, idle gaps
     # included
     from torch.autograd import DeviceType
+    lane_name = "hub_choose_sum" if t.is_pcgnn else "hub_mean_sum"
     lane = {e.device_type: e for e in prof.key_averages()
-            if e.key == "hub_choose_sum"}
+            if e.key == lane_name}
     host = lane.get(DeviceType.CPU)
     span = lane.get(DeviceType.CUDA)
     out["hub_lane_host_ms_per_step"] = (
@@ -960,14 +1056,24 @@ def card_vs_cpu_phase(t) -> dict:
     model_h = copy.deepcopy(model_c).to("cpu")
     graph_h = t.graph.to("cpu")
     consts_h = {k: v.to("cpu") for k, v in t.consts.items()}
-    out = {}
+    out, launched = {}, {}
+    mods = kernel_counters()
     for name, model, graph, consts, dev in (
             ("card", model_c, t.graph, t.consts, t.device),
             ("cpu", model_h, graph_h, consts_h, torch.device("cpu"))):
         opt = make_optimizer(model, cfg["lr"], cfg["weight_decay"])
         b, w = bt.to(dev), wt.to(dev)
+        before = {k: m.launches for k, m in mods.items()}
         out[name] = float(train_step(model, opt, graph, b, graph.labels[b],
                                      w, consts))
+        if name == "card":
+            launched = {k: m.launches - before[k] for k, m in mods.items()}
+    if counts[i] and not launched["ragged_gather"]:
+        raise AssertionError(f"the card's step with {counts[i]} hub rows "
+                             f"launched no ragged_gather")
+    if launched["window_gather"] != window_launches_per_step(t):
+        raise AssertionError(f"the card's step launched "
+                             f"{launched['window_gather']} window gathers")
     if not math.isclose(out["card"], out["cpu"], rel_tol=LOSS_RTOL):
         raise AssertionError(f"step loss card {out['card']} vs CPU "
                              f"{out['cpu']}")
@@ -985,7 +1091,122 @@ def card_vs_cpu_phase(t) -> dict:
                                  f"card vs CPU by {diffs[k]['param']}")
     return {"data": run_name(t), "hub_rows": counts[i],
             "loss_card": out["card"], "loss_cpu": out["cpu"],
-            "max_abs_diff": diffs}
+            "card_launches": launched, "max_abs_diff": diffs}
+
+
+def lane_phases(t) -> dict:
+    """Phases 16-18 for one configuration: the main path, one profiled
+    epoch and the card's step against the CPU's."""
+    run = {"main_path": main_path_phase(t), "profile": profile_phase(t)}
+    run["card_vs_cpu"] = card_vs_cpu_phase(t)
+    return run
+
+
+def homo_window_phase(t, rate: float) -> dict:
+    """Phase 18: the window gather on the baselines' homo store, held
+    against its plain version exactly at the first epoch's batches, and
+    timed at that shape as phase 2 times its cases, with reads from memory:
+    the store (160 MB) is a few times the L2, but the training rows'
+    windows (64 MB) are not, so every timed call first overwrites a 256 MB
+    buffer and draws its 1,024 rows from all nodes."""
+    rel, dev = t.graph.homo, t.device
+    batches, _ = t.epoch_plan(0)
+    errs = [check_gather(rel.ewin, rel.estart[bt], rel.ewin_dp)
+            for bt in batches]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    timed = [torch.randint(t.graph.num_nodes, (t.batch_size,),
+                           generator=gen, device=dev)
+             for _ in range(TIMING_REPS)]
+    a = 16 // rel.ewin.element_size()
+    starts = [rel.estart[bt] for bt in timed]
+    flush = torch.empty(1 << 26, device=dev)
+    c = window_case("homo", rel.ewin, starts, rel.ewin_dp,
+                    strided_rows(rel.ewin, rel.ewin_dp, a),
+                    [s // a for s in starts], rate=rate, flush=flush)
+    c.update(max_abs_err=max(errs), checked_calls=len(errs),
+             window_width=rel.window_width, dmax=rel.dmax,
+             hub_rows=int((rel.deg > rel.window_width).sum()))
+    return c
+
+
+def graph_shape(g) -> dict:
+    """The sizes the phases rely on, to check against the presets."""
+    def rel_shape(r):
+        return {"edges": r.num_edges, "dmax": r.dmax,
+                "dcap": r.window_width, "stub": r.is_stub,
+                "hub_rows": (int((r.deg > r.window_width).sum())
+                             if r.has_hubs else 0),
+                "dense_table": r.nbr2d is not None,
+                "store_bytes": (r.ewin.numel() * r.ewin.element_size()
+                                if r.ewin is not None else 0)}
+    return {"nodes": g.num_nodes, "feat_dim": g.feat_dim,
+            "relations": [rel_shape(r) for r in g.relations],
+            "homo": rel_shape(g.homo),
+            "fused_bytes": (g.fused.numel() * g.fused.element_size()
+                            if g.fused is not None else 0),
+            "features_pad": g.features_pad is not None}
+
+
+def stress_window_cases(t, rate: float) -> list:
+    """Phase 17: the window gather at each stress-1m relation store's
+    shape, held against its plain version exactly at the first epoch's
+    first batch and timed as phase 2 times its cases (1,024 rows drawn
+    from all 1M nodes; each store is many times the L2)."""
+    g, dev = t.graph, t.device
+    bt0 = t.epoch_plan(0)[0][0]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    timed = [torch.randint(g.num_nodes, (t.batch_size,), generator=gen,
+                           device=dev) for _ in range(TIMING_REPS)]
+    cases = []
+    for r, rel in enumerate(g.relations):
+        err = check_gather(rel.ewin, rel.estart[bt0], rel.ewin_dp)
+        a = 16 // rel.ewin.element_size()
+        starts = [rel.estart[bt] for bt in timed]
+        c = window_case(f"stress_relation_{r}", rel.ewin, starts,
+                        rel.ewin_dp, strided_rows(rel.ewin, rel.ewin_dp, a),
+                        [s // a for s in starts], rate=rate)
+        c["max_abs_err"] = err
+        cases.append(c)
+    return cases
+
+
+def stress_phase(rate: float) -> dict:
+    """Phase 17: PC-GNN on the 1M-node stress preset.  The graph is built
+    on the host (its seconds printed), the relations' bf16 stores on the
+    card; one epoch in the per-relation store lane (three window gathers a
+    step: the fused store does not fit what the stores leave of the
+    budget), profiled; the window gather at each relation's shape
+    (``stress_window_cases``); then, without stores or the padded table,
+    one step in the clamped-id lane against the CPU's, and one forward with
+    every dense table dropped (the CSR branch, through the ragged gather),
+    equal to the dense-table forward."""
+    from pcgnn_tpu_torch.data.loaders import load_data
+    from pcgnn_tpu_torch.train.trainer import Trainer
+    t1 = time.time()
+    g = load_data(STRESS_CFG["data_name"], seed=STRESS_CFG["seed"])
+    build_s = time.time() - t1
+    print(f"stress-1m graph built on the host in {build_s:.1f} s",
+          file=sys.stderr)
+    t2 = time.time()
+    t = Trainer(STRESS_CFG, graph=g, device="cuda")
+    torch.cuda.synchronize()
+    run = {"host_build_s": build_s, "setup_s": time.time() - t2,
+           "graph": graph_shape(t.graph)}
+    if not t.graph.homo.is_stub or t.graph.fused is not None or any(
+            r.ewin is None for r in t.graph.relations):
+        raise AssertionError(f"stress-1m is not in the per-relation store "
+                             f"lane: {run['graph']}")
+    run.update(lane_phases(t))
+    run["window_cases"] = stress_window_cases(t, rate)
+    tc = Trainer(dict(STRESS_CFG, edge_windows=False),
+                 graph=without_stores(t.graph), device="cuda")
+    if tc.graph.features_pad is not None or any(
+            r.has_hubs for r in tc.graph.relations):
+        raise AssertionError("the stress step without stores is not in "
+                             "the clamped-id lane")
+    run["clamp_card_vs_cpu"] = card_vs_cpu_phase(tc)
+    run["csr_branch"] = csr_branch_phase(tc)
+    return run
 
 
 def main() -> int:
@@ -1050,18 +1271,57 @@ def main() -> int:
         trainers.append(t)
     turns = turns_phase(trainers)
     like, skew, learned = (runs[run_name(t)] for t in trainers)
-    # each kernel's launches come from the training run of the path it
-    # serves: the window gather from yelp-like, the ragged gather from
-    # yelp-skew (whose steps launch both), the mask build from the learned
-    # lane
-    like["entry"]["launches"] = like["main_path"]["launches"]["window_gather"]
-    skew["entry"]["launches"] = skew["main_path"]["launches"]["ragged_gather"]
-    learned["entry"]["launches"] = (
-        learned["main_path"]["launches"]["mask_build"])
     if skew["main_path"]["launches"]["window_gather"] < 1:
         raise AssertionError("the yelp-skew run launched no window_gather")
 
+    # 16: the score-table lane on yelp-skew's graph without stores
+    t16 = Trainer(TABLE_CFG, graph=without_stores(trainers[1].graph),
+                  device="cuda")
+    runs[run_name(t16)] = lane_phases(t16)
+    print(f"phase 16 done at {time.time() - t0:.1f} s", file=sys.stderr)
+    # 17: stress-1m
+    runs[STRESS_CFG["data_name"]] = stress_phase(rate)
+    print(f"phase 17 done at {time.time() - t0:.1f} s", file=sys.stderr)
+    # 18: GCN and GraphSAGE on amazon_new-like, one graph and homo store
+    t1 = time.time()
+    gcn = Trainer(GCN_CFG, device="cuda")
+    sage = Trainer(SAGE_CFG, graph=gcn.graph, device="cuda")
+    torch.cuda.synchronize()
+    homo_window = homo_window_phase(gcn, rate)
+    homo_window["setup_s"] = time.time() - t1
+    homo_window["graph"] = graph_shape(gcn.graph)
+    for t in (gcn, sage):
+        runs[run_name(t)] = lane_phases(t)
+    print(f"phase 18 done at {time.time() - t0:.1f} s", file=sys.stderr)
+    # 19: one step of each baseline on yelp-skew's graph, whose homo hub
+    # rows go through hub_mean_sum
+    gcn_skew = Trainer(dict(GCN_CFG, data_name=SKEW_CFG["data_name"]),
+                       graph=without_stores(trainers[1].graph),
+                       device="cuda")
+    sage_skew = Trainer(dict(SAGE_CFG, data_name=SKEW_CFG["data_name"]),
+                        graph=gcn_skew.graph, device="cuda")
+    skew_steps = {"homo": graph_shape(gcn_skew.graph)["homo"]}
+    for t in (gcn_skew, sage_skew):
+        skew_steps[run_name(t)] = card_vs_cpu_phase(t)
+        if not skew_steps[run_name(t)]["hub_rows"]:
+            raise AssertionError("no yelp-skew batch has a homo hub row")
+    print(f"phase 19 done at {time.time() - t0:.1f} s", file=sys.stderr)
+
+    # each kernel's launches: the sum over the main paths' runs, each read
+    # with every count set to 0 just before it
+    entries = {"window_gather": like["entry"],
+               "ragged_gather": skew["entry"], "mask_build": learned["entry"]}
+    for kname, entry in entries.items():
+        entry["launches_by_path"] = {
+            data: run["main_path"]["launches"][kname]
+            for data, run in runs.items()}
+        entry["launches"] = sum(entry["launches_by_path"].values())
+    like["entry"]["homo_store"] = {k: homo_window[k] for k in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "rows", "dp",
+        "max_abs_err")}
+
     details = {"card": card, "kind": name, "runs": runs, "turns": turns,
+               "homo_window": homo_window, "skew_baseline_steps": skew_steps,
                "seconds": time.time() - t0}
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:
@@ -1084,7 +1344,8 @@ def main() -> int:
                 "step_peak_extra_bytes", "mask_sized_kernels_per_step",
                 "hub_lane_host_ms_per_step", "hub_lane_kernel_ms_per_step",
                 "hub_lane_device_span_ms_per_step")},
-            "turns_step_ms_median": turns[data]["step_ms_median"],
+            "turns_step_ms_median": (turns[data]["step_ms_median"]
+                                     if data in turns else None),
             "card_vs_cpu_loss": [run["card_vs_cpu"]["loss_card"],
                                  run["card_vs_cpu"]["loss_cpu"]]}
     summary["store_lane_launches"] = like["store_lane"]["launches"]
@@ -1103,10 +1364,27 @@ def main() -> int:
             "ms", "run_ms", "peak_extra_bytes", "kernels")}
         for name in ("old", "new")}
     summary["csr_branch"] = learned["csr_branch"]
+    stress = runs[STRESS_CFG["data_name"]]
+    summary["stress"] = {k: stress[k] for k in ("host_build_s", "setup_s",
+                                                "graph", "csr_branch")}
+    summary["stress"]["window_cases"] = [
+        {k: c[k] for k in ("name", "rows", "dp", "ms", "bound_ms",
+                           "plain_ms", "library_ms")}
+        for c in stress["window_cases"]]
+    summary["stress"]["clamp_card_vs_cpu_loss"] = [
+        stress["clamp_card_vs_cpu"]["loss_card"],
+        stress["clamp_card_vs_cpu"]["loss_cpu"]]
+    summary["homo_window"] = {k: homo_window[k] for k in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "rows", "dp",
+        "checked_calls", "setup_s", "window_width", "dmax", "hub_rows")}
+    summary["skew_baseline_steps"] = {
+        k: v if k == "homo" else {
+            "loss": [v["loss_card"], v["loss_cpu"]],
+            "hub_rows": v["hub_rows"], "launches": v["card_launches"]}
+        for k, v in skew_steps.items()}
     summary["seconds"] = details["seconds"]
     print(json.dumps(summary))
-    print(json.dumps({"kernels": [like["entry"], skew["entry"],
-                                  learned["entry"]]}))
+    print(json.dumps({"kernels": list(entries.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -11,7 +11,8 @@ from __future__ import annotations
 import numpy as np
 
 from pcgnn_tpu_torch.graph.csr import (MultiRelGraph, build_multirel,
-                                       csr_from_edges, rel_threshold)
+                                       csr_from_edges, degree_stub,
+                                       rel_threshold)
 
 # shape statistics of the reference datasets
 PRESETS = {
@@ -24,7 +25,8 @@ PRESETS = {
     # heavy-tailed degree variants (hub rows far above the mean degree)
     "skew-tiny": (2048, 16, 0.15, (8192, 6144, 4096), 3),
     "yelp-skew": (45954, 32, 0.145, (98630, 576724, 3402743), 3),
-    # directed stress presets (degree-only homo graph)
+    # directed stress presets: edge counts stay exact (no symmetrization),
+    # and the homo graph is a degree-only stub (``graph.csr.degree_stub``)
     "stress-10m": (10_000_000, 64, 0.05, (120_000_000, 60_000_000, 20_000_000), 3),
     "stress-1m": (1_000_000, 64, 0.05, (12_000_000, 6_000_000, 2_000_000), 3),
 }
@@ -47,10 +49,6 @@ def synthetic_fraud_graph(preset: str | None = "tiny", *,
                           feature_separation: float = 1.0, seed: int = 0,
                           threshold: float | list = 0.5,
                           device="cpu") -> MultiRelGraph:
-    if preset in _DIRECTED_PRESETS:
-        raise NotImplementedError(
-            f"preset {preset!r} needs the degree-only homo graph and the "
-            f"CSR lane, which are not ported yet (ROADMAP module 8)")
     if preset is not None:
         n, f, rate, epr, _ = PRESETS[preset]
         num_nodes = num_nodes or n
@@ -69,6 +67,7 @@ def synthetic_fraud_graph(preset: str | None = "tiny", *,
 
     pos = np.flatnonzero(labels == 1)
     neg = np.flatnonzero(labels == 0)
+    symmetrize = preset not in _DIRECTED_PRESETS
 
     skew = SKEW.get(preset, {})
     hub_ids = (rng.choice(n, size=max(s[0] for s in skew.values()),
@@ -98,11 +97,22 @@ def synthetic_fraud_graph(preset: str | None = "tiny", *,
         dst = np.concatenate([dst, hub_dst])
         rels.append(csr_from_edges(src, dst, n,
                                    threshold=rel_threshold(threshold, r),
-                                   device=device))
+                                   symmetrize=symmetrize, device=device))
         all_src.append(src)
         all_dst.append(dst)
 
-    homo = csr_from_edges(np.concatenate(all_src), np.concatenate(all_dst), n,
-                          threshold=rel_threshold(threshold, None),
-                          device=device)
+    homo_thr = rel_threshold(threshold, None)
+    if preset in _DIRECTED_PRESETS:
+        # the homo graph feeds only the pick weights: its degrees, with the
+        # set semantics csr_from_edges would apply (the (src, dst) pairs of
+        # all relations deduplicated, the self-loop folded into the set)
+        loops = np.arange(n, dtype=np.int64)
+        key = np.unique(np.concatenate(
+            [s * n + d for s, d in zip(all_src, all_dst)] + [loops * n + loops]))
+        deg = np.bincount((key // n).astype(np.int64), minlength=n)
+        homo = degree_stub(deg, threshold=homo_thr, device=device)
+    else:
+        homo = csr_from_edges(np.concatenate(all_src),
+                              np.concatenate(all_dst), n, threshold=homo_thr,
+                              symmetrize=symmetrize, device=device)
     return build_multirel(rels, homo, feats, labels, device=device)

@@ -31,10 +31,9 @@ import torch
 # are multiples of this many bytes
 VEC_BYTES = 16
 
-# dense neighbor-table budget (bytes); tables above it are not built.  The
-# learned-feature lane then reads its windows from the CSR
-# (``ops.aggregate.batch_neighbor_window``); the frozen lanes' stores need
-# the table (their CSR lane is ROADMAP module 8)
+# dense neighbor-table budget (bytes); tables above it are not built, and
+# the relation then reads its windows from the CSR through the ragged gather
+# (``ops.aggregate.batch_neighbor_window``); it gets no edge-window store
 NBR2D_BUDGET_BYTES = 512 * 1024 * 1024
 
 # edge-window store budgets (bytes): per single store, and in total across a
@@ -42,6 +41,11 @@ NBR2D_BUDGET_BYTES = 512 * 1024 * 1024
 # what the relations leave of the total
 EWIN_BUDGET_BYTES = 4 * 1024 * 1024 * 1024
 EWIN_TOTAL_BUDGET_BYTES = 6 * 1024 * 1024 * 1024
+
+# sentinel-padded feature table budget (bytes): above it the table is not
+# built, and a hub-free graph indexes the raw table with clamped ids instead
+# (``models.pcgnn``), so that no step copies a multi-GB table
+FPAD_BUDGET_BYTES = 1536 * 1024 * 1024
 
 # kept edges per chunk of the on-device store build (bounds the [C, F]
 # index temporary)
@@ -117,6 +121,9 @@ class MultiRelGraph:
     # brings all relations' windows
     fused: torch.Tensor | None = None       # [N, W]
     fused_off: tuple = ()
+    # [N+1, F] features with a zero sentinel row N (the CSR padding id),
+    # built once by ``materialize_edge_windows`` under ``FPAD_BUDGET_BYTES``
+    features_pad: torch.Tensor | None = None
 
     @property
     def num_nodes(self) -> int:
@@ -137,7 +144,8 @@ class MultiRelGraph:
         return dataclasses.replace(
             self, relations=rels, homo=homo,
             features=self.features.to(device), labels=self.labels.to(device),
-            fused=_to(self.fused, device))
+            fused=_to(self.fused, device),
+            features_pad=_to(self.features_pad, device))
 
 
 def csr_from_edges(src: np.ndarray, dst: np.ndarray, num_nodes: int, *,
@@ -217,6 +225,28 @@ def _finalize(indptr: np.ndarray, col: np.ndarray, num_nodes: int,
         dcap=dcap, nbr2d=as_t(nbr2d) if nbr2d is not None else None)
 
 
+def degree_stub(deg: np.ndarray, *, threshold: float = 0.5,
+                device="cpu") -> RelGraph:
+    """A degree-only relation: the real ``deg``/``keff``/``ksample`` and an
+    edge list of sentinel ids alone (``num_edges = 0``, ``dmax = 0``, no
+    dense table).  It serves where only degrees are read: the stress
+    presets' homo graph feeds nothing but the pick weights.  Window
+    consumers refuse it (``is_stub``).  The JAX package's stub holds 2,048
+    sentinel slots, a TPU DMA-span rule; one is enough here, since the
+    ragged gather returns the fill N past the end of ``col``."""
+    deg = np.asarray(deg)
+    n = int(deg.shape[0])
+    k = np.ceil(threshold * deg).astype(np.int32)
+    keff = np.where(deg <= k + 1, deg, k).astype(np.int32)
+    as_t = lambda a: torch.as_tensor(a, dtype=torch.int32, device=device)
+    kmax = int(k.max()) if n else 0
+    return RelGraph(
+        indptr=as_t(np.zeros(n + 1, np.int32)),
+        col=as_t(np.full(1, n, np.int32)), deg=as_t(deg), keff=as_t(keff),
+        ksample=as_t(k), num_nodes=n, num_edges=0, dmax=0, ksample_max=kmax,
+        ksample_cap=kmax, is_stub=True)
+
+
 def build_multirel(relations: Sequence[RelGraph], homo: RelGraph,
                    features: np.ndarray, labels: np.ndarray,
                    device="cpu") -> MultiRelGraph:
@@ -239,10 +269,10 @@ def attach_edge_windows(rel: RelGraph, features: torch.Tensor, *,
     read stays in bounds.  ``dtype`` bfloat16 rounds the stored values to
     nearest even; consumers upcast to float32 after the fetch.
 
-    Returns the relation unchanged when it has no dense neighbor table or
-    the store would exceed ``budget_bytes``.
+    Returns the relation unchanged when it is a stub, has no dense neighbor
+    table or the store would exceed ``budget_bytes``.
     """
-    if rel.nbr2d is None:
+    if rel.is_stub or rel.nbr2d is None:
         return rel
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"edge-window store dtype must be float32 or "
@@ -281,28 +311,48 @@ def materialize_edge_windows(graph: MultiRelGraph, *,
                              budget_bytes: int = EWIN_BUDGET_BYTES,
                              total_budget_bytes: int = EWIN_TOTAL_BUDGET_BYTES,
                              dtype: torch.dtype = torch.float32,
-                             fused: bool = True) -> MultiRelGraph:
+                             fused: bool = True, relations: bool = True,
+                             homo: bool = False) -> MultiRelGraph:
     """Attach edge-window stores to the relations, biggest first, until the
-    total budget is spent, then the fused record store from what is left.
-    Must run after any feature transformation (the stores snapshot the
-    features).  The homo graph gets no store: PC-GNN reads only its
-    degrees."""
+    total budget is spent, then the fused record store from what is left;
+    and the sentinel-padded table ``features_pad`` under
+    ``FPAD_BUDGET_BYTES``.  Must run after any feature transformation (the
+    stores snapshot the features).
+
+    The JAX package builds every store for every model.  The port builds
+    what the model reads, since parity is on values, not layouts: PC-GNN
+    reads the relations' stores (``relations``) and only the homo graph's
+    degrees; GraphSAGE and GCN read only the homo graph's store (``homo``),
+    which takes what the relations' stores leave of the total budget, as in
+    the JAX package, and is the relation's own when homo is one of them.
+    """
     remaining = total_budget_bytes
     rels = list(graph.relations)
-    for i in sorted(range(len(rels)), key=lambda i: -rels[i].num_edges):
-        r2 = attach_edge_windows(rels[i], graph.features,
-                                 budget_bytes=min(budget_bytes, remaining),
-                                 dtype=dtype)
-        if r2.ewin is not None:
-            remaining -= r2.ewin.numel() * r2.ewin.element_size()
-        rels[i] = r2
-    homo = next((new for old, new in zip(graph.relations, rels)
-                 if old is graph.homo), graph.homo)
+    if relations:
+        for i in sorted(range(len(rels)), key=lambda i: -rels[i].num_edges):
+            r2 = attach_edge_windows(rels[i], graph.features,
+                                     budget_bytes=min(budget_bytes, remaining),
+                                     dtype=dtype)
+            if r2.ewin is not None:
+                remaining -= r2.ewin.numel() * r2.ewin.element_size()
+            rels[i] = r2
+    homo_rel = next((new for old, new in zip(graph.relations, rels)
+                     if old is graph.homo), None)
+    if homo_rel is None or (homo and homo_rel.ewin is None):
+        homo_rel = (attach_edge_windows(
+            graph.homo, graph.features,
+            budget_bytes=min(budget_bytes, remaining), dtype=dtype)
+            if homo else graph.homo)
     fused_arr, fused_off = (_build_fused_store(rels, graph.num_nodes,
                                                remaining)
-                            if fused else (None, ()))
-    return dataclasses.replace(graph, relations=tuple(rels), homo=homo,
-                               fused=fused_arr, fused_off=fused_off)
+                            if fused and relations else (None, ()))
+    fpad = None
+    if graph.features.numel() * 4 <= FPAD_BUDGET_BYTES:
+        x = graph.features
+        fpad = torch.cat([x, x.new_zeros((1, x.shape[1]))])
+    return dataclasses.replace(graph, relations=tuple(rels), homo=homo_rel,
+                               fused=fused_arr, fused_off=fused_off,
+                               features_pad=fpad)
 
 
 def _build_fused_store(rels, num_nodes: int, budget_bytes: int):

@@ -1,6 +1,7 @@
-"""Carry PC-GNN weights between the JAX package and the port.
+"""Carry model weights between the JAX package and the port.
 
-The JAX parameter tree (numpy leaves, as ``train/checkpoint.py`` pickles it):
+The JAX parameter trees (numpy leaves, as ``train/checkpoint.py`` pickles
+them).  PC-GNN:
 
     {"label_clf": {"w": [F, C], "b": [C]},
      "intra": [{"w": [2F, E]}, ...],       # one per relation
@@ -10,6 +11,11 @@ The JAX parameter tree (numpy leaves, as ``train/checkpoint.py`` pickles it):
 
 maps one to one onto the port's ``PCGNN`` parameters ``label_clf.w``,
 ``label_clf.b``, ``intra.<r>.w``, ``inter.w``, ``head.w`` and ``embed``.
+GCN and GraphSAGE:
+
+    {"enc": {"w": [F (or 2F), E]}, "head": {"w": [E, C]}}
+
+maps onto ``enc.w`` and ``head.w``.
 """
 
 from __future__ import annotations
@@ -19,8 +25,10 @@ import torch
 
 
 def params_from_jax(tree) -> dict:
-    """JAX parameter tree -> state dict for ``PCGNN.load_state_dict``."""
+    """JAX parameter tree -> state dict for the port's model."""
     t = lambda a: torch.from_numpy(np.array(a, dtype=np.float32))
+    if "enc" in tree:
+        return {"enc.w": t(tree["enc"]["w"]), "head.w": t(tree["head"]["w"])}
     state = {"label_clf.w": t(tree["label_clf"]["w"]),
              "label_clf.b": t(tree["label_clf"]["b"]),
              "inter.w": t(tree["inter"]["w"]),
@@ -33,8 +41,10 @@ def params_from_jax(tree) -> dict:
 
 
 def params_to_jax(model) -> dict:
-    """The port's ``PCGNN`` -> JAX parameter tree with numpy leaves."""
+    """The port's model -> JAX parameter tree with numpy leaves."""
     a = lambda p: p.detach().cpu().numpy().copy()
+    if hasattr(model, "enc"):
+        return {"enc": {"w": a(model.enc.w)}, "head": {"w": a(model.head.w)}}
     tree = {"label_clf": {"w": a(model.label_clf.w),
                           "b": a(model.label_clf.b)},
             "intra": [{"w": a(layer.w)} for layer in model.intra],

@@ -1,11 +1,22 @@
 """PC-GNN: one Pick-Choose-Aggregate layer, as an ``nn.Module``.
 
-Counterpart of ``pcgnn_tpu/models/pcgnn.py`` for graphs whose relations
-all carry edge-window stores (``graph.csr.attach_edge_windows``), in both
-window lanes: the fused record store (one fetch per batch row for all
-relations) and the per-relation stores (one fetch per relation).  Rows above
-a relation's window cap (hubs, on heavy-tailed graphs) go through the hub
-lane (``ops.hub``), which reads their full CSR edge tails.  With
+Counterpart of ``pcgnn_tpu/models/pcgnn.py``, with its lanes:
+
+  * store lanes: every relation carries an edge-window store
+    (``graph.csr.attach_edge_windows``), read as fused records (one fetch
+    per batch row for all relations) or per relation (one fetch each);
+    selection scores come from the fetched rows;
+  * score-table lane: a graph without a store on every relation, under
+    ``SCORE_FROM_WINDOW_MIN_NODES`` nodes, builds one [N] selection-score
+    table per step and gathers ``[x ; s0 (; train-positive indicator)]``
+    rows by neighbor id, minors by candidate id (``minor_sum``);
+  * score-from-window without full coverage (stress scale): a relation
+    with a store reads it, one without gathers rows by neighbor id from the
+    dense table or, without one, from the CSR through the ragged gather,
+    and scores them.
+
+Rows above a relation's window cap (hubs, on heavy-tailed graphs) go through
+the hub lane (``ops.hub``), which reads their full CSR edge tails.  With
 ``learn_features`` the node table is a parameter ``embed`` and aggregation
 runs the dense mask-GEMM lane (``_forward_learned``), which needs no store.
 
@@ -41,6 +52,7 @@ from pcgnn_tpu_torch.ops.aggregate import (
     dedup_minor_keep,
     keep_nearest,
     masked_mean_aggregate,
+    minor_sum,
     minor_sum_compact_multi,
     oversample_candidates_values,
     oversample_keep,
@@ -50,6 +62,11 @@ from pcgnn_tpu_torch.ops.aggregate import (
     window_sum_from_gathered,
 )
 from pcgnn_tpu_torch.ops.hub import hub_choose_sum, hub_table
+
+# node count from which a graph without a store on every relation scores
+# the gathered rows instead of building an [N] score table each step (the
+# per-step O(N) work would outweigh a batch's); tests patch it
+SCORE_FROM_WINDOW_MIN_NODES = 200_000
 
 
 class Dense(nn.Module):
@@ -120,20 +137,27 @@ class PCGNN(nn.Module):
                 graph, batch, batch_labels, train=train, train_pos=train_pos,
                 train_pos_valid=train_pos_valid)
         rels = graph.relations
-        if not rels or any(rel.ewin is None for rel in rels):
-            raise NotImplementedError(
-                "PC-GNN in the port needs an edge-window store on every "
-                "relation (graph.csr.materialize_edge_windows); the "
-                "score-table lane and the CSR lane for graphs without "
-                "stores are not ported yet (ROADMAP modules 4 and 8)")
         x = graph.features
         n, f = x.shape
         clf = self.label_clf
-        use_fused = graph.fused is not None
-        # with a bfloat16 store every selection score ranks the
-        # bf16-rounded snapshot (centers and candidates here; the window
-        # values are bf16 already); the loss path stays exact float32
-        bf16 = any(rel.ewin.dtype == torch.bfloat16 for rel in rels)
+        # every relation stored: the window lanes (fused records when the
+        # graph has them).  Otherwise a relation with a store still reads it
+        # when scores come from the windows (partial coverage, stress
+        # scale), and one without reads table rows through its neighbor ids
+        use_ewin = bool(rels) and all(rel.ewin is not None for rel in rels)
+        use_fused = use_ewin and graph.fused is not None
+        # two score strategies with the same values: one [N] score table
+        # per step (graphs under SCORE_FROM_WINDOW_MIN_NODES without full
+        # store coverage), or scores of the gathered rows themselves, whose
+        # cost follows the batch, not N
+        score_from_window = use_ewin or n >= SCORE_FROM_WINDOW_MIN_NODES
+        # with bfloat16 stores on every relation, every selection score
+        # ranks the bf16-rounded snapshot (centers, candidates and hub rows;
+        # window values are bf16 already).  The JAX package takes this
+        # rounding only under full coverage (pcgnn.py:185-186), and so does
+        # the port.  The loss path stays exact float32
+        bf16 = use_ewin and any(rel.ewin.dtype == torch.bfloat16
+                                for rel in rels)
 
         def sel_round(a):
             return a.to(torch.bfloat16).to(torch.float32) if bf16 else a
@@ -144,22 +168,42 @@ class PCGNN(nn.Module):
         b0 = clf.b[0].detach()
         self_feats = x[batch]
         center_scores = self_feats @ clf.w + clf.b
-        center_s0 = selection_score(sel_round(self_feats), w0, b0)
+        any_hub = any(rel.has_hubs for rel in rels)
+        need_tp = train and any_hub
+        tp_args = (train_pos, train_pos_valid) if need_tp else ()
+        clamp_ids = False
+        s0_col = None
+        if score_from_window:
+            center_s0 = selection_score(sel_round(self_feats), w0, b0)
+            tp_col = f
+            if need_tp:
+                xs = hub_table(x, *tp_args)
+            elif graph.features_pad is not None:
+                xs = graph.features_pad
+            elif not any_hub:
+                # no sentinel row: ids are clamped to N-1 at the gather, and
+                # valid keeps the clamped rows out of every sum, so no step
+                # copies the whole table
+                xs, clamp_ids = x, True
+            else:
+                xs = hub_table(x)
+        else:
+            # one score per node; window, hub and candidate rows read the
+            # same values, so a self-loop's distance is exactly 0
+            s0 = selection_score(x.detach(), w0, b0)
+            center_s0 = s0[batch]
+            xs = hub_table(x, *tp_args, s0=s0)
+            s0_col, tp_col = f, f + 1
         if use_fused:
             rec = batch_record_window(graph, batch)        # [B, W]
-        # heavy-tailed relations route rows above the window cap through
-        # the hub lane, which sums exact table rows
-        any_hub = any(rel.has_hubs for rel in rels)
-        if any_hub:
-            xs = (hub_table(x, train_pos, train_pos_valid) if train
-                  else hub_table(x))
 
         minor_ctx = None
         if train:
             m_max = self.minor_window(int(train_pos.shape[0]), rels)
             tp_rows_f = (train_pos_feats if train_pos_feats is not None
                          else x[train_pos])
-            tp_s0 = selection_score(sel_round(tp_rows_f), w0, b0)
+            tp_s0 = (selection_score(sel_round(tp_rows_f), w0, b0)
+                     if score_from_window else s0[train_pos])
             cand_ids, cand_valid, _, cand_slots = oversample_candidates_values(
                 center_s0, tp_s0, train_pos, train_pos_valid, m_max)
             if any_hub:
@@ -173,27 +217,38 @@ class PCGNN(nn.Module):
 
         rel_sums = []       # per relation: (num, cnt, keep_minor)
         for r, rel in enumerate(rels):
-            d_w = max(rel.window_width, 1)
-            raw = (rec[:, graph.fused_off[r]: graph.fused_off[r + 1]]
-                   if use_fused else batch_raw_window(rel, batch))
-            xw = unpack_window(raw, d_w, f)                # [B, D, F]
-            deg_b = rel.deg[batch]
-            valid = (torch.arange(d_w, device=x.device)[None, :]
-                     < deg_b.clamp(max=d_w)[:, None])
+            if rel.ewin is not None and score_from_window:
+                d_w = max(rel.window_width, 1)
+                raw = (rec[:, graph.fused_off[r]: graph.fused_off[r + 1]]
+                       if use_fused else batch_raw_window(rel, batch))
+                xw = unpack_window(raw, d_w, f)            # [B, D, F]
+                deg_b = rel.deg[batch]
+                valid = (torch.arange(d_w, device=x.device)[None, :]
+                         < deg_b.clamp(max=d_w)[:, None])
+                # slots past a row's degree hold the next node's run: valid
+                # masks them before any use; ids only for the minor dedup
+                nbr = rel.nbr2d[batch] if train else None
+            else:
+                nbr, valid = batch_neighbor_window(rel, batch,
+                                                   allow_capped=True)
+                deg_b = rel.deg[batch]
+                rows = xs[nbr.clamp(max=n - 1) if clamp_ids else nbr]
+                xw = rows[..., :f]
             if rel.has_hubs:
                 is_hub = deg_b > rel.window_width
                 valid = valid & ~is_hub[:, None]   # hubs leave the window lane
-            # slots past a row's degree hold the next node's run: valid
-            # masks them before any use
-            dist = (center_s0[:, None] - selection_score(xw, w0, b0)).abs()
+            nbr_s0 = (selection_score(sel_round(xw), w0, b0)
+                      if score_from_window else rows[..., s0_col])
+            dist = (center_s0[:, None] - nbr_s0).abs()
             dist = torch.where(valid, dist, _INF)
             keep = keep_nearest(dist, rel.keff[batch], valid)
             num, cnt = window_sum_from_gathered(xw, keep)
             if rel.has_hubs:
                 h_num, h_cnt = hub_choose_sum(
                     rel, batch, is_hub, xs, f, center_s0, w0=w0, b0=b0,
-                    round_sel=bf16, minor_ctx=minor_ctx,
-                    batch_labels=batch_labels, rho=self.rho)
+                    s0_col=s0_col, tp_col=tp_col, round_sel=bf16,
+                    minor_ctx=minor_ctx, batch_labels=batch_labels,
+                    rho=self.rho)
                 num = torch.where(is_hub[:, None], h_num, num)
                 cnt = torch.where(is_hub, h_cnt, cnt)
             keep_minor = None
@@ -204,11 +259,15 @@ class PCGNN(nn.Module):
                     # the hub lane selected, summed and de-duplicated the
                     # hub rows' minors; their window keep is empty
                     keep_minor = keep_minor & ~is_hub[:, None]
-                keep_minor = dedup_minor_keep(rel.nbr2d[batch], keep, n,
-                                              cand_ids, keep_minor)
+                # the unclamped ids: a clamped sentinel must not match
+                keep_minor = dedup_minor_keep(nbr, keep, n, cand_ids,
+                                              keep_minor)
+                if not score_from_window:
+                    m_num, m_cnt = minor_sum(xs, cand_ids, keep_minor, f)
+                    num, cnt, keep_minor = num + m_num, cnt + m_cnt, None
             rel_sums.append((num, cnt, keep_minor))
 
-        if train:
+        if train and score_from_window and rels:
             # minors come from the compact [P, F] exact float32 table
             minors = minor_sum_compact_multi(
                 tp_rows_f, cand_slots, [km for _, _, km in rel_sums])

@@ -1,10 +1,10 @@
 """Batch window fetches, the choose and oversample selection, the
-scatter-free window sums of the PC-GNN training step, and the dense
-mask-GEMM aggregation of the learned-feature lane.
+scatter-free window sums of the PC-GNN training step, the self-union windows
+of the GraphSAGE and GCN baselines, and the dense mask-GEMM aggregation of
+the learned-feature lane.
 
-Counterpart of ``pcgnn_tpu/ops/aggregate.py`` for the frozen-feature window
-lane and the learned-feature lane.  Selection reproduces the JAX tie rules
-exactly:
+Counterpart of ``pcgnn_tpu/ops/aggregate.py`` (all but the full-graph
+SpMM).  Selection reproduces the JAX tie rules exactly:
 
   * ``keep_nearest`` keeps each row's k nearest, lowest column among ties;
   * candidate orderings are stable sorts, and the (distance, slot)
@@ -57,6 +57,21 @@ def batch_raw_window(rel, batch: torch.Tensor,
     return window_gather(rel.ewin, starts, rel.ewin_dp)
 
 
+def batch_feature_window(rel, batch: torch.Tensor, f: int,
+                         starts: torch.Tensor | None = None) -> torch.Tensor:
+    """[B, D, f] float32 neighbor feature windows from the relation's
+    edge-window store, one kernel fetch for the batch; slots past a row's
+    degree hold the next node's run and must be masked by the caller."""
+    if rel.ewin is None:
+        raise ValueError("batch_feature_window needs the edge-window store "
+                         "(graph.csr.attach_edge_windows)")
+    if f != rel.ewin_f:
+        raise ValueError(f"batch_feature_window: feature width {f} != "
+                         f"{rel.ewin_f}, the width the store was built with")
+    raw = batch_raw_window(rel, batch, starts)
+    return unpack_window(raw, max(rel.window_width, 1), f)
+
+
 def unpack_window(raw: torch.Tensor, d: int, f: int) -> torch.Tensor:
     """[B, >= d*f] fetched store rows -> [B, d, f] float32 windows (a
     bfloat16 store upcasts exactly)."""
@@ -104,6 +119,31 @@ def batch_neighbor_window(rel, batch: torch.Tensor, *,
         return rel.nbr2d[batch], valid
     raw = ragged_gather(rel.col, rel.indptr[batch], d, rel.num_nodes)
     return torch.where(valid, raw, rel.num_nodes), valid
+
+
+def union_self_window(nbr: torch.Tensor, valid: torch.Tensor,
+                      batch: torch.Tensor):
+    """(nbr [B, D+1], keep [B, D+1]): the window with a self column that is
+    active only where the row's CSR lacks the self-loop (the reference's set
+    union of a node's neighbors and itself)."""
+    batch = batch.to(nbr.dtype)
+    present = ((nbr == batch[:, None]) & valid).any(dim=1)
+    return (torch.cat([nbr, batch[:, None]], dim=1),
+            torch.cat([valid, ~present[:, None]], dim=1))
+
+
+def self_union_feature_window(rel, batch: torch.Tensor,
+                              features: torch.Tensor):
+    """The store form of ``batch_neighbor_window`` + ``union_self_window``
+    + ``x_padded[nbr]``: (xw [B, D+1, F], keep [B, D+1]), the store's
+    window with the exact feature row appended as the conditional self
+    column.  Ids come from the dense table, one [B] row gather."""
+    d = max(rel.window_width, 1)
+    valid = (torch.arange(d, device=batch.device)[None, :]
+             < rel.deg[batch].clamp(max=d)[:, None])
+    xw = batch_feature_window(rel, batch, features.shape[1])
+    _, keep = union_self_window(rel.nbr2d[batch], valid, batch)
+    return torch.cat([xw, features[batch][:, None, :]], dim=1), keep
 
 
 def row_ranks(dist: torch.Tensor) -> torch.Tensor:
@@ -247,6 +287,25 @@ def window_sum_from_gathered(xw: torch.Tensor, keep: torch.Tensor):
     [B, D, F] window."""
     kf = keep.to(xw.dtype)
     return torch.einsum("bd,bdf->bf", kf, xw), kf.sum(dim=1)
+
+
+def minor_sum(xs_padded: torch.Tensor, cand_ids: torch.Tensor,
+              keep_minor: torch.Tensor, f: int):
+    """(num [B, f], cnt [B]) of the selected oversampled minors, gathered
+    by id from the [N+1, FC] table ``xs_padded`` (the score-table lane's;
+    only its first ``f`` columns sum), in ``MINOR_CHUNK`` column blocks
+    above that width, so the gathered block stays [B, chunk, f]."""
+    b, m = cand_ids.shape
+    xs = xs_padded.detach()
+    ids = cand_ids.detach().to(torch.int64)
+    num = xs.new_zeros((b, f))
+    cnt = xs.new_zeros((b,))
+    for c0 in range(0, m, MINOR_CHUNK):
+        km = keep_minor[:, c0: c0 + MINOR_CHUNK].detach().to(xs.dtype)
+        num = num + torch.einsum("bm,bmf->bf", km,
+                                 xs[ids[:, c0: c0 + MINOR_CHUNK], :f])
+        cnt = cnt + km.sum(dim=1)
+    return num, cnt
 
 
 def minor_sum_compact_multi(tp_feats: torch.Tensor, cand_slots: torch.Tensor,

@@ -1,13 +1,16 @@
 """Blockwise hub-row aggregation lane.
 
-Counterpart of ``pcgnn_tpu/ops/hub.py`` for PC-GNN's choose lane
-(``hub_mean_sum``, the GraphSAGE/GCN lane, is not ported yet).  Rows whose
-degree exceeds the relation's window cap ("hubs") leave the window lane: the
-batch's hub rows are ordered by descending degree and processed in chunks of
-``HUB_CHUNK``, each chunk reading its rows' full CSR edge tails.  Per chunk:
+Counterpart of ``pcgnn_tpu/ops/hub.py``: PC-GNN's choose lane
+(``hub_choose_sum``) and the all-neighbor lane of the GraphSAGE and GCN
+baselines (``hub_mean_sum``).  Rows whose degree exceeds the relation's
+window cap ("hubs") leave the window lane: the batch's hub rows are ordered
+by descending degree and processed in chunks of ``HUB_CHUNK``, each chunk
+reading its rows' full CSR edge tails.  Per chunk of ``hub_choose_sum``:
 
-  pass 1: neighbor ids -> exact feature rows -> choose distances -> each
-          row's ``keff`` nearest (``keep_nearest``, lowest slot among ties);
+  pass 1: neighbor ids -> table rows -> choose distances (from the table's
+          score column in the score-table lane, else scored from the rows)
+          -> each row's ``keff`` nearest (``keep_nearest``, lowest slot
+          among ties);
   pass 2: the kept rows' feature sum, less the kept neighbors that duplicate
           selected oversampled minors (a kept neighbor duplicates iff it is
           a valid train positive and its distance is within the row's
@@ -69,13 +72,18 @@ def keep_nearest_switch(dist: torch.Tensor, kf_rows: torch.Tensor, jb: int,
 
 
 def hub_table(x: torch.Tensor, train_pos: Optional[torch.Tensor] = None,
-              train_pos_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """[N+1, F(+1)] table the hub lane gathers rows from: the exact
-    features; in training, the valid-train-positive indicator as column F
-    (the duplicate-minor subtraction reads it); and a zero sentinel row N,
-    the id the CSR padding holds."""
+              train_pos_valid: Optional[torch.Tensor] = None,
+              s0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[N+1, FC] table the window and hub lanes gather rows from, in the
+    JAX forward's column order: the exact features; the selection scores
+    ``s0`` [N] as column F when given (the score-table lane); in training,
+    the valid-train-positive indicator as the next column (the
+    duplicate-minor subtraction reads it); and a zero sentinel row N, the
+    id the CSR padding holds."""
     n = x.shape[0]
     cols = [x.detach()]
+    if s0 is not None:
+        cols.append(s0.detach()[:, None])
     if train_pos is not None:
         tp_rows = torch.where(train_pos_valid, train_pos, n)
         # invalid entries land in slot n, sliced away below (index_fill_
@@ -152,6 +160,8 @@ def chunk_minor_band(c_s0, ks_rows, fraud, sp_sorted, slot_sorted,
 def hub_choose_sum(rel, batch: torch.Tensor, is_hub: torch.Tensor,
                    xs: torch.Tensor, f: int, center_s0: torch.Tensor, *,
                    w0: torch.Tensor, b0: torch.Tensor,
+                   s0_col: Optional[int] = None,
+                   tp_col: Optional[int] = None,
                    round_sel: bool = False,
                    minor_ctx: Optional[tuple] = None,
                    batch_labels: Optional[torch.Tensor] = None,
@@ -163,11 +173,17 @@ def hub_choose_sum(rel, batch: torch.Tensor, is_hub: torch.Tensor,
       rel: capped relation (``rel.has_hubs``).
       batch: [B] node ids.
       is_hub: [B] bool, ``deg[batch] > rel.window_width``.
-      xs: [N+1, FC] table from ``hub_table``: exact features, in training
-        the train-positive indicator as column ``f``, zero sentinel row N.
+      xs: [N+1, FC] table from ``hub_table``: exact features, the score
+        and train-positive columns, zero sentinel row N.
       f: number of leading feature columns to aggregate.
       center_s0: [B] selection scores of the centers.
       w0, b0: the selection score's weights (``selection_score``).
+      s0_col: column of ``xs`` holding every node's selection score (the
+        score-table lane: the window rows of the relation read the same
+        table, so hub rows take their neighbors' scores from it rather than
+        recompute them); None scores the rows with ``w0``, ``b0``.
+      tp_col: column of ``xs`` holding the train-positive indicator, read
+        with ``minor_ctx``; None means column ``f``.
       round_sel: score the neighbor rows on their bf16-rounded values (a
         bfloat16 store ranks rounded values in the window lane, so hub rows
         of the same relation must too).  Sums stay exact.
@@ -185,6 +201,8 @@ def hub_choose_sum(rel, batch: torch.Tensor, is_hub: torch.Tensor,
     w0, b0 = w0.detach(), b0.detach()
     if minor_ctx is not None:
         minor_ctx = tuple(a.detach() for a in minor_ctx)
+    if tp_col is None:
+        tp_col = f
     num = xs.new_zeros((batch.shape[0], f))
     cnt = xs.new_zeros((batch.shape[0],))
     order, n_hub, jbs = plan_hub_chunks(rel.deg[batch], is_hub, chunk, block)
@@ -204,11 +222,15 @@ def hub_choose_sum(rel, batch: torch.Tensor, is_hub: torch.Tensor,
                             rel.num_nodes)
         xw = xs[nbr]                                   # [H, jb*block, FC]
         # pass 1: distances over every row's degree, +inf past it
-        rows_f = xw[..., :f]
-        if round_sel:
-            rows_f = rows_f.to(torch.bfloat16).to(torch.float32)
+        if s0_col is not None:
+            s0n = xw[..., s0_col]
+        else:
+            rows_f = xw[..., :f]
+            if round_sel:
+                rows_f = rows_f.to(torch.bfloat16).to(torch.float32)
+            s0n = selection_score(rows_f, w0, b0)
         slots = torch.arange(jb * block, device=xs.device)
-        dist = (c_s0[:, None] - selection_score(rows_f, w0, b0)).abs()
+        dist = (c_s0[:, None] - s0n).abs()
         dist = torch.where(slots[None, :] < deg[:, None], dist, _INF)
         keep = keep_nearest_switch(dist, rel.keff[rows], jb, block)
         # pass 2: kept sum, less kept neighbors that are selected minors; a
@@ -216,7 +238,7 @@ def hub_choose_sum(rel, batch: torch.Tensor, is_hub: torch.Tensor,
         # float64 and is rounded once, whatever the device's order
         w = keep.to(torch.float64)
         if thr is not None:
-            dup = keep & (xw[..., f] > 0.5) & (dist <= thr[:, None])
+            dup = keep & (xw[..., tp_col] > 0.5) & (dist <= thr[:, None])
             w = w - dup.to(torch.float64)
         num_c = torch.einsum("hw,hwf->hf", w, xw[..., :f].double())
         cnt_c = w.sum(dim=1)
@@ -224,4 +246,44 @@ def hub_choose_sum(rel, batch: torch.Tensor, is_hub: torch.Tensor,
             num_c, cnt_c = num_c + mnum, cnt_c + mcnt
         num[rows_slot] = num_c.to(xs.dtype)
         cnt[rows_slot] = cnt_c.to(xs.dtype)
+    return num, cnt
+
+
+# a profiler range, as for hub_choose_sum
+@torch.profiler.record_function("hub_mean_sum")
+def hub_mean_sum(rel, batch: torch.Tensor, is_hub: torch.Tensor,
+                 x_padded: torch.Tensor, *, include_self: bool = True,
+                 chunk: int = HUB_CHUNK, block: int = HUB_BLOCK):
+    """All-neighbor sums over hub rows' full CSR tails: the GraphSAGE and
+    GCN baselines' hub lane (no choose).
+
+    ``x_padded`` is the [N+1, F] feature table with a zero sentinel row N.
+    Chunks are planned as in ``hub_choose_sum``, and each chunk's whole tail
+    is one ragged-gather fetch.  ``include_self`` is ``union_self_window``'s
+    conditional self union: the row's own features join once, only when no
+    block of its CSR holds the self-loop.  Sums run in float64 and are
+    rounded once.  Returns (num [B, F], cnt [B]); zeros at non-hub rows.
+    """
+    x_padded = x_padded.detach()
+    f = x_padded.shape[1]
+    num = x_padded.new_zeros((batch.shape[0], f))
+    cnt = x_padded.new_zeros((batch.shape[0],))
+    order, n_hub, jbs = plan_hub_chunks(rel.deg[batch], is_hub, chunk, block)
+    for c, jb in enumerate(jbs):
+        rows_slot = order[c * chunk: min((c + 1) * chunk, n_hub)]
+        rows = batch[rows_slot]
+        nbr = ragged_gather(rel.col, rel.indptr[rows], jb * block,
+                            rel.num_nodes)
+        slots = torch.arange(jb * block, device=x_padded.device)
+        valid = slots[None, :] < rel.deg[rows][:, None]
+        w = valid.to(torch.float64)
+        num_c = torch.einsum("hw,hwf->hf", w, x_padded[nbr].double())
+        cnt_c = w.sum(dim=1)
+        if include_self:
+            has_self = (valid & (nbr == rows[:, None])).any(dim=1)
+            miss = (~has_self).to(torch.float64)
+            num_c = num_c + miss[:, None] * x_padded[rows].double()
+            cnt_c = cnt_c + miss
+        num[rows_slot] = num_c.to(x_padded.dtype)
+        cnt[rows_slot] = cnt_c.to(x_padded.dtype)
     return num, cnt

@@ -1,7 +1,8 @@
 """The training orchestrator, single device.
 
 Counterpart of ``pcgnn_tpu/train/trainer.py``.  Per epoch:
-  1. *pick* a label-balanced sample of 2·|train_pos| training nodes,
+  1. PC-GNN: *pick* a label-balanced sample of 2·|train_pos| training nodes;
+     GCN and GraphSAGE: every training node once,
   2. shuffle, split into fixed-size batches (the last padded with id 0 at
      weight 0),
   3. per batch: loss -> backward -> Adam with L2 weight decay added to the
@@ -30,6 +31,7 @@ from pcgnn_tpu_torch.data.prep import (normalize_features, pos_neg_split,
 from pcgnn_tpu_torch.graph.csr import MultiRelGraph, materialize_edge_windows
 from pcgnn_tpu_torch.interop import params_from_jax, params_to_jax
 from pcgnn_tpu_torch.models import build_model
+from pcgnn_tpu_torch.models.pcgnn import PCGNN
 from pcgnn_tpu_torch.sampling.pick import pick_probs, pick_step
 from pcgnn_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from pcgnn_tpu_torch.train.metrics import evaluate
@@ -54,9 +56,6 @@ def _reject_unported(cfg: dict) -> None:
     unported = [
         (cfg.get("distributed") or int(cfg.get("num_devices") or 1) > 1,
          "multi-device training (ROADMAP module 13)"),
-        (not cfg.get("edge_windows", True) and not cfg.get("learn_features"),
-         "edge_windows: false, the lanes without edge-window stores "
-         "(ROADMAP modules 4 and 8)"),
         (cfg.get("resume"), "resume (ROADMAP module 5, trainer remainder)"),
         (cfg.get("profile_dir"), "profile_dir (ROADMAP module 12)"),
     ]
@@ -73,12 +72,18 @@ def make_optimizer(model: torch.nn.Module, lr: float,
 
 
 def train_step(model, optimizer, graph: MultiRelGraph, batch: torch.Tensor,
-               y: torch.Tensor, w: torch.Tensor, consts: dict) -> torch.Tensor:
-    """One optimizer step (loss -> gradients -> Adam); returns the loss."""
+               y: torch.Tensor, w: torch.Tensor, consts: dict,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """One optimizer step (loss -> gradients -> Adam); returns the loss.
+    PC-GNN's loss reads the train positives in ``consts``; GraphSAGE draws
+    its ``num_sample`` subsets from ``generator``."""
     optimizer.zero_grad(set_to_none=True)
-    loss = model.loss(graph, batch, y, w, train_pos=consts["tp"],
-                      train_pos_valid=consts["tpv"],
-                      train_pos_feats=consts.get("tpf"))
+    if isinstance(model, PCGNN):
+        loss = model.loss(graph, batch, y, w, train_pos=consts["tp"],
+                          train_pos_valid=consts["tpv"],
+                          train_pos_feats=consts.get("tpf"))
+    else:
+        loss = model.loss(graph, batch, y, w, generator=generator)
     loss.backward()
     optimizer.step()
     return loss.detach()
@@ -113,25 +118,34 @@ class Trainer:
             # amazon-family features are row-normalized
             feats = normalize_features(graph.features.cpu().numpy())
             graph = dataclasses.replace(
-                graph, features=torch.as_tensor(feats, device=self.device))
-        # the stores snapshot the features: built after any transform.  The
-        # learned-feature lane reads the trainable table itself, no store
+                graph, features=torch.as_tensor(feats, device=self.device),
+                features_pad=None)
+        # the stores snapshot the features: built after any transform, for
+        # the model that reads them (PC-GNN the relations', GCN and
+        # GraphSAGE the homo graph's).  The learned-feature lane reads the
+        # trainable table itself, and edge_windows: false builds nothing
+        self.model_name = cfg["model"].upper()
+        self.is_pcgnn = self.model_name == "PCGNN"
         self.learn_features = bool(cfg.get("learn_features"))
-        if (not self.learn_features and graph.fused is None
-                and all(r.ewin is None for r in graph.relations)):
+        has_stores = graph.fused is not None or any(
+            r.ewin is not None for r in (*graph.relations, graph.homo))
+        if (cfg.get("edge_windows", True) and not self.learn_features
+                and not has_stores):
             graph = materialize_edge_windows(
-                graph, dtype=_EWIN_DTYPES[cfg.get("ewin_dtype", "bfloat16")])
+                graph, dtype=_EWIN_DTYPES[cfg.get("ewin_dtype", "bfloat16")],
+                relations=self.is_pcgnn, homo=not self.is_pcgnn,
+                fused=self.is_pcgnn)
         self.graph = graph
         self.idx_train, self.idx_valid, self.idx_test = (idx_train, idx_valid,
                                                          idx_test)
         self.y_train = y_train
         self.y_valid, self.y_test = labels[idx_valid], labels[idx_test]
         self.train_pos, self.train_neg = train_pos, train_neg
-        self.model_name = cfg["model"].upper()
         self.model = self.new_model()
 
         b = int(cfg["batch_size"])
-        self.sample_size = max(2 * len(train_pos), 1)
+        self.sample_size = max(2 * len(train_pos) if self.is_pcgnn
+                               else len(idx_train), 1)
         self.num_batches = max(-(-self.sample_size // b), 1)
         self.batch_size = b
 
@@ -155,14 +169,19 @@ class Trainer:
         node table starts from the graph's features (after any
         normalization)."""
         cfg = self.config
+        gen = torch.Generator().manual_seed(int(cfg["seed"]))
+        if not self.is_pcgnn:
+            return build_model(self.model_name, feat_dim=self.graph.feat_dim,
+                               emb_dim=cfg["emb_size"],
+                               num_sample=cfg.get("num_sample"),
+                               generator=gen).to(self.device)
         return build_model(
             self.model_name, feat_dim=self.graph.feat_dim,
             emb_dim=cfg["emb_size"], num_relations=self.graph.num_relations,
             alpha=cfg.get("alpha", 2.0), rho=cfg.get("rho", 0.5),
             learn_features=self.learn_features,
             features=self.graph.features if self.learn_features else None,
-            generator=torch.Generator().manual_seed(int(cfg["seed"]))
-        ).to(self.device)
+            generator=gen).to(self.device)
 
     def new_optimizer(self, model) -> torch.optim.Adam:
         return make_optimizer(model, self.config["lr"],
@@ -170,11 +189,13 @@ class Trainer:
 
     def epoch_plan(self, epoch: int):
         """(batches [nb, B] int64, weights [nb, B] float32) of one epoch:
-        pick, shuffle, pad with id 0 at weight 0."""
+        pick (PC-GNN; the other models take every training node), shuffle,
+        pad with id 0 at weight 0."""
         b, nb, s = self.batch_size, self.num_batches, self.sample_size
         g = torch.Generator(device=self.device)
         g.manual_seed(int(self.config["seed"]) * 1_000_003 + epoch)
-        sampled = pick_step(g, self.idx_train_dev, self.pick_weights, s)
+        sampled = (pick_step(g, self.idx_train_dev, self.pick_weights, s)
+                   if self.is_pcgnn else self.idx_train_dev)
         sampled = sampled[torch.randperm(s, generator=g, device=self.device)]
         ids = torch.zeros(nb * b, dtype=torch.int64, device=self.device)
         ids[:s] = sampled
@@ -182,15 +203,28 @@ class Trainer:
         w[:s] = 1.0
         return ids.view(nb, b), w.view(nb, b)
 
-    def step(self, model, optimizer, batch, y, w) -> torch.Tensor:
+    def step_generator(self, epoch: int, step: int):
+        """A fresh generator for one step's random draws (GraphSAGE's
+        ``num_sample``), seeded from (seed, epoch, step); None for models
+        that draw nothing."""
+        if getattr(self.model, "num_sample", None) is None:
+            return None
+        g = torch.Generator(device=self.device)
+        g.manual_seed((int(self.config["seed"]) * 1_000_003 + epoch)
+                      * 1_000_003 + step + 1)
+        return g
+
+    def step(self, model, optimizer, batch, y, w,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
         return train_step(model, optimizer, self.graph, batch, y, w,
-                          self.consts)
+                          self.consts, generator)
 
     def run_epoch(self, model, optimizer, epoch: int) -> torch.Tensor:
         """One epoch of steps; returns the mean loss (on the device)."""
         batches, weights = self.epoch_plan(epoch)
-        losses = [self.step(model, optimizer, bt, self.graph.labels[bt], wt)
-                  for bt, wt in zip(batches, weights)]
+        losses = [self.step(model, optimizer, bt, self.graph.labels[bt], wt,
+                            self.step_generator(epoch, i))
+                  for i, (bt, wt) in enumerate(zip(batches, weights))]
         return torch.stack(losses).mean()
 
     def predict(self, model, batch: torch.Tensor) -> torch.Tensor:

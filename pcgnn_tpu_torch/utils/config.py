@@ -2,7 +2,9 @@
 
 Counterpart of ``pcgnn_tpu/utils/config.py`` with the same keys and
 defaults.  Keys for lanes the port does not have yet are rejected by the
-trainer (``train.trainer.Trainer``) rather than ignored.
+trainer (``train.trainer.Trainer``) rather than ignored.  GraphSAGE's
+``num_sample`` is read when present; it has no default here, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -35,7 +37,8 @@ DEFAULTS = {
     "graph_id": None,
     "num_devices": 1,
     "mesh_graph": None,
-    # edge-window feature stores; the port runs PC-GNN only on them
+    # edge-window feature stores (PC-GNN: the relations', GCN and GraphSAGE:
+    # the homo graph's); false trains on the lanes without stores
     "edge_windows": True,
     # store dtype: "bfloat16" (default) or "float32"
     "ewin_dtype": "bfloat16",

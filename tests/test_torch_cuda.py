@@ -466,3 +466,134 @@ def test_learned_trainer_epoch_on_card(card, tmp_path):
     assert math.isfinite(loss)
     assert mb.launches == 3 * t.num_batches and wg.launches == 0
     assert not torch.equal(model.embed.detach(), start)
+
+
+# -------------------------------- lanes without stores and the baselines
+
+def _baseline_pair(card, name, dtype, preset="small"):
+    from pcgnn_tpu_torch.models import build_model
+    g = synthetic_fraud_graph(preset, seed=3)
+    kw = dict(dtype=dtype, relations=False, homo=True, fused=False)
+    host = csr.materialize_edge_windows(g, **kw)
+    dev = csr.materialize_edge_windows(g.to(card), **kw)
+    model_h = build_model(name, feat_dim=g.feat_dim, emb_dim=16,
+                          generator=torch.Generator().manual_seed(0))
+    model_d = build_model(name, feat_dim=g.feat_dim, emb_dim=16).to(card)
+    model_d.load_state_dict(model_h.state_dict())
+    return host, dev, model_h, model_d
+
+
+@pytest.mark.parametrize("name", ["GCN", "SAGE"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_baseline_store_lane_on_card_equals_cpu(card, name, dtype):
+    """The homo store's windows with the self column, fetched by the
+    window-gather kernel, equal the CPU's exactly; the baseline's logits
+    and loss agree to rtol 1e-5 with one kernel launch a forward."""
+    from pcgnn_tpu_torch.ops import aggregate
+    host, dev, model_h, model_d = _baseline_pair(card, name, dtype)
+    assert dev.homo.ewin is not None
+    batch = torch.from_numpy(np.random.default_rng(1).integers(
+        0, host.num_nodes, 1000))
+    xw_h, keep_h = aggregate.self_union_feature_window(host.homo, batch,
+                                                       host.features)
+    xw_d, keep_d = aggregate.self_union_feature_window(
+        dev.homo, batch.to(card), dev.features)
+    assert torch.equal(keep_d.cpu(), keep_h)
+    assert torch.equal(xw_d.cpu()[keep_h], xw_h[keep_h])
+    labels = host.labels[batch]
+    wg.launches = 0
+    out_d = model_d(dev, batch.to(card))[0]
+    assert wg.launches == 1
+    out_h = model_h(host, batch)[0]
+    torch.testing.assert_close(out_d.cpu(), out_h, rtol=1e-5, atol=1e-6)
+    loss_h = model_h.loss(host, batch, labels)
+    loss_d = model_d.loss(dev, batch.to(card), labels.to(card))
+    torch.testing.assert_close(loss_d.cpu(), loss_h, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("include_self", [True, False])
+def test_hub_mean_sum_on_card_equals_cpu(card, include_self):
+    """skew-tiny's homo hub rows: one ragged-gather launch a chunk; counts
+    equal and sums (float64, rounded once) agree with the CPU's."""
+    g = synthetic_fraud_graph("skew-tiny", seed=3)
+    rel, rel_d = g.homo, g.homo.to(card)
+    assert rel.has_hubs
+    hubs = torch.nonzero(rel.deg > rel.window_width)[:, 0]
+    batch = torch.cat([hubs, hubs[:1], torch.arange(40)])
+    is_hub = rel.deg[batch] > rel.window_width
+    xp = torch.cat([g.features, g.features.new_zeros((1, g.feat_dim))])
+    kw = dict(include_self=include_self, chunk=2, block=128)
+    num_h, cnt_h = hub.hub_mean_sum(rel, batch, is_hub, xp, **kw)
+    rg.launches = 0
+    num_d, cnt_d = hub.hub_mean_sum(rel_d, batch.to(card), is_hub.to(card),
+                                    xp.to(card), **kw)
+    assert rg.launches == -(-int(is_hub.sum()) // 2)
+    assert torch.equal(cnt_d.cpu(), cnt_h)
+    torch.testing.assert_close(num_d.cpu(), num_h, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["GCN", "SAGE"])
+def test_baseline_hub_model_on_card_equals_cpu(card, name):
+    host, dev, model_h, model_d = _baseline_pair(card, name, torch.bfloat16,
+                                                 "skew-tiny")
+    rel = host.homo
+    assert rel.has_hubs
+    hubs = torch.nonzero(rel.deg > rel.window_width)[:, 0]
+    batch = torch.cat([hubs, torch.arange(300)])
+    wg.launches = rg.launches = 0
+    out_d = model_d(dev, batch.to(card))[0]
+    assert wg.launches == 1 and rg.launches >= 1
+    torch.testing.assert_close(out_d.cpu(), model_h(host, batch)[0],
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("lane", ["table", "window_csr"])
+def test_lanes_without_stores_on_card_equal_cpu(card, monkeypatch, lane):
+    """skew-tiny without stores: the score-table lane (hub rows read the
+    score column; no window gather), and score-from-window with every dense
+    table dropped (each relation's windows through the ragged gather)."""
+    from pcgnn_tpu_torch.models import pcgnn
+    g = synthetic_fraud_graph("skew-tiny", seed=3)
+    if lane == "window_csr":
+        monkeypatch.setattr(pcgnn, "SCORE_FROM_WINDOW_MIN_NODES", 0)
+        g = dataclasses.replace(g, relations=tuple(
+            dataclasses.replace(r, nbr2d=None) for r in g.relations))
+    dev = g.to(card)
+    gen = torch.Generator().manual_seed(0)
+    model_h = PCGNN(g.feat_dim, 16, 3, 2.0, 0.5, generator=gen)
+    model_d = PCGNN(g.feat_dim, 16, 3, 2.0, 0.5).to(card)
+    model_d.load_state_dict(model_h.state_dict())
+    rel = g.relations[0]
+    hubs = torch.nonzero(rel.deg > rel.window_width)[:, 0]
+    batch = torch.cat([hubs, torch.from_numpy(
+        np.random.default_rng(1).integers(0, g.num_nodes, 500))])
+    labels = g.labels[batch].clone()
+    labels[: len(hubs): 2] = 1
+    tp = torch.nonzero(g.labels == 1)[:, 0][:200]
+    kw = dict(train_pos=tp, train_pos_valid=torch.ones(len(tp), dtype=bool))
+    out_h = model_h(g, batch, labels, train=True, **kw)
+    wg.launches = rg.launches = 0
+    out_d = model_d(dev, batch.to(card), labels.to(card), train=True,
+                    **{k: v.to(card) for k, v in kw.items()})
+    assert wg.launches == 0
+    assert rg.launches >= (1 if lane == "table" else 1 + g.num_relations)
+    for h, d in zip(out_h, out_d):
+        torch.testing.assert_close(d.cpu(), h, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["GCN", "SAGE"])
+def test_baseline_trainer_epoch_on_card(card, tmp_path, name):
+    from pcgnn_tpu_torch.train.results import ResultManager
+    from pcgnn_tpu_torch.train.trainer import Trainer
+    cfg = dict(seed=2, data_name="synthetic:small", model=name,
+               train_ratio=0.4, test_ratio=0.67, emb_size=16, lr=0.005,
+               weight_decay=0.0005, epochs=1, valid_epochs=1,
+               batch_size=256, patience=10, exp_num=0)
+    t = Trainer(cfg, result=ResultManager(cfg, root=str(tmp_path)))
+    assert t.graph.homo.ewin.is_cuda
+    model = t.new_model()
+    opt = t.new_optimizer(model)
+    wg.launches = 0
+    loss = float(t.run_epoch(model, opt, 0))
+    assert math.isfinite(loss)
+    assert wg.launches == t.num_batches

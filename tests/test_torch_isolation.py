@@ -38,8 +38,9 @@ def test_every_module_imports_without_jax():
     mods = _port_modules()
     assert {"pcgnn_tpu_torch.ops.window_gather", "pcgnn_tpu_torch.ops.hub",
             "pcgnn_tpu_torch.ops.ragged_gather",
-            "pcgnn_tpu_torch.ops.mask_build"} <= set(mods)
-    assert len(mods) >= 22
+            "pcgnn_tpu_torch.ops.mask_build", "pcgnn_tpu_torch.models.gcn",
+            "pcgnn_tpu_torch.models.graphsage"} <= set(mods)
+    assert len(mods) >= 24
     code = (
         "import importlib, json, sys\n"
         f"mods = {mods!r} + ['chip_smoke']\n"

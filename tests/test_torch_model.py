@@ -230,6 +230,10 @@ def test_minor_window_matches_jax(base):
 
 
 def test_unported_lanes_raise():
+    """Every lane that once raised here runs now: the hub lane on the skew
+    preset, the score-table lane on a graph without stores, and the GCN
+    and GraphSAGE baselines (their parity with the JAX package is held in
+    tests/test_torch_lanes.py and tests/test_torch_baselines.py)."""
     g = tcsr.materialize_edge_windows(torch_graph("skew-tiny", seed=1))
     m = TPCGNN(g.feat_dim, 8, g.num_relations, ALPHA, RHO)
     batch = torch.arange(8)
@@ -240,9 +244,14 @@ def test_unported_lanes_raise():
         logits, _ = m(g, torch.cat([batch, hubs[:, 0]]), None, train=False)
     assert logits.shape == (8 + len(hubs), 2)
     assert torch.isfinite(logits).all()
-    plain = torch_graph("tiny", seed=0)
-    with pytest.raises(NotImplementedError, match="edge-window store"):
-        m(plain, batch, None, train=False)
+    plain = torch_graph("skew-tiny", seed=1)
+    assert all(r.ewin is None for r in plain.relations)
+    with torch.no_grad():
+        table, _ = m(plain, torch.cat([batch, hubs[:, 0]]), None,
+                     train=False)
+    assert table.shape == logits.shape and torch.isfinite(table).all()
     for name in ("GCN", "SAGE"):
-        with pytest.raises(NotImplementedError, match="module 9"):
-            build_model(name, feat_dim=16, emb_dim=8)
+        model = build_model(name, feat_dim=16, emb_dim=8)
+        with torch.no_grad():
+            out, none = model(plain, batch)
+        assert out.shape == (8, 2) and none is None
