@@ -11,9 +11,11 @@ result line, on any failure.  In order:
   2. builds the ``synthetic:yelp-like`` graph (no hub rows) and its bf16
      edge-window and fused record stores on the card, then holds the
      window-gather kernel against its plain PyTorch version on the card at
-     the main path's shapes (and on ragged, masked and float32 cases),
-     exactly (the kernel is a copy), and times kernel, plain version, a
-     one-call PyTorch yardstick and the memory-bound floor;
+     the main path's shapes, in the store's dtype and widened to float32,
+     and at starts of every kind (every misalignment, negative, past the
+     end; with and without ``active``), exactly (the kernel is a copy);
+     times kernel, plain version, a one-call PyTorch yardstick, the
+     memory-bound floor and the launch floor (1 row of 16 bytes);
   3. trains PC-GNN on yelp-like at full width with the bench configuration
      for 2 epochs (12 steps) in the fused-record lane through ``Trainer``,
      with every launch count set to 0 just before and read just after, then
@@ -67,11 +69,15 @@ Phase 11 also times the learned steps in the same turns.  Then:
      compares the card's step with the CPU's on the batch with the most
      hub rows;
  17. builds ``synthetic:stress-1m`` (1M nodes, directed relations, a
-     degree-only homo graph) on the host, printing its seconds, and trains
-     one epoch in the per-relation store lane (three window gathers a
-     step, scores from the windows), then evaluates; profiles it; holds
+     degree-only homo graph) on the host, printing its seconds, builds its
+     first epoch's plan twice and prints whether the two are equal, with
+     the plan's digest (to compare two calls) and how many of 20 float32
+     pick CDFs of its weights differ (the cumsum the pick used to take);
+     trains one epoch in the per-relation store lane (three window gathers
+     a step, scores from the windows), then evaluates; profiles it; holds
      the window gather against its plain version and times it at each
-     relation's shape; runs one step without stores or the padded table
+     relation's shape (also with reads from memory, and with the card idle
+     before each call); runs one step without stores or the padded table
      (the clamped-id lane) on the card and the CPU; and one forward with
      every dense neighbor table dropped (the CSR branch, through the ragged
      gather), whose logits must equal the table's exactly;
@@ -84,6 +90,9 @@ Phase 11 also times the learned steps in the same turns.  Then:
      rows go through ``hub_mean_sum`` and the ragged gather, card against
      CPU.
 
+Every profiled run (phases 5, 9, 14, 16-18) counts the host syncs of one
+step; a run whose relations have no hub rows must make none.
+
 The line before the last is the card's name and power limit; before it, a
 ``{"kernels": [...]}`` line; the last line is
 ``{"ok": true, "device": {...}}``.  Longer details go to
@@ -94,6 +103,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -130,6 +140,7 @@ GCN_CFG = dict(seed=2, data_name="synthetic:amazon_new-like", model="GCN",
                ewin_dtype="bfloat16")
 SAGE_CFG = dict(GCN_CFG, model="SAGE")
 TIMING_REPS = 30
+PROFILE_TRIES = 5
 # card against CPU, one Adam step from the same weights and batch.  Both
 # select the same neighbors (selection scores are rounded once from float64,
 # so they do not depend on the device's summation order); the float32 sums
@@ -208,31 +219,53 @@ def time_ms(fn, args_list, exclude: str | None = None) -> tuple[float, float]:
     end.record()
     end.synchronize()
     run_ms = start.elapsed_time(end) / len(args_list)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for args in args_list:
-            fn(*args)
-        torch.cuda.synchronize()
-    dev_ms = sum(ms for k, ms, _ in device_kernels(prof)
-                 if exclude is None or exclude not in k) / len(args_list)
-    return dev_ms, run_ms
+    # now and then the profiler records none of a run's kernels (seen on an
+    # H100 with torch 2.11): profile the run again rather than report 0
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for args in args_list:
+                fn(*args)
+            torch.cuda.synchronize()
+        dev_ms = sum(ms for k, ms, _ in device_kernels(prof)
+                     if exclude is None or exclude not in k) / len(args_list)
+        if dev_ms > 0:
+            return dev_ms, run_ms
+    raise RuntimeError(f"the profiler recorded no kernel of {fn} in "
+                       f"{PROFILE_TRIES} runs")
 
 
-def check_gather(store, starts, dp, active=None) -> float:
+def check_gather(store, starts, dp, active=None, out_dtype=None) -> float:
     """Kernel against plain version on the card, on the rows it copies;
-    returns max |err|.  The kernel is a copy: anything but equality fails."""
-    from pcgnn_tpu_torch.ops.window_gather import (window_gather,
-                                                   window_gather_plain)
-    out = window_gather(store, starts, dp, active=active)
-    ref = window_gather_plain(store, starts, dp)
+    returns max |err|.  The kernel is a copy: anything but equality
+    fails."""
+    from pcgnn_tpu_torch.ops import window_gather as wg
+    out = wg.window_gather(store, starts, dp, active=active,
+                           out_dtype=out_dtype)
+    ref = wg.window_gather_plain(store, starts, dp, out_dtype=out_dtype)
     torch.cuda.synchronize()
     rows = slice(None) if active is None else active.bool()
     out, ref = out[rows], ref[rows]
     err = float((out.float() - ref.float()).abs().max()) if out.numel() else 0.0
     if not torch.equal(out, ref):
         raise AssertionError(f"window_gather disagrees with its plain "
-                             f"version (dp={dp}, max |err| {err})")
+                             f"version (dp={dp}, {store.dtype} -> "
+                             f"{out.dtype}, max |err| {err})")
     return err
+
+
+def any_starts(length, dp, a, gen, dev, rows=1000):
+    """``rows`` starts of every kind for a store of ``length`` elements:
+    random ones at every offset mod ``a`` (the elements of a 16-byte
+    vector), and fixed ones at and past the end and negative (the kernel
+    wraps a negative start once, then clamps every start into
+    [0, length - dp], as ``lax.dynamic_slice`` does)."""
+    fixed = torch.tensor([0, length - dp, length - dp + 1, length - 1, length,
+                          3 * length, -1, -a - 1, -dp, -length, -length - 1,
+                          -3 * length], device=dev)
+    rand = torch.randint(0, length - dp + 1, (rows - len(fixed),),
+                         generator=gen, device=dev)
+    return torch.cat([fixed, rand])
 
 
 def strided_rows(store, dp, a):
@@ -241,46 +274,84 @@ def strided_rows(store, dp, a):
     return store.as_strided((n, dp), (a, 1))
 
 
+def time_spaced_ms(fn, args_list, gap_s: float = 0.002) -> float:
+    """Device ms per call of ``fn(*args)`` when the card was idle for
+    ``gap_s`` before each call (host sleep after a synchronize), as on a
+    host-bound training step; the kernels' own time under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    fn(*args_list[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for args in args_list:
+            time.sleep(gap_s)
+            fn(*args)
+            torch.cuda.synchronize()
+    return sum(ms for _, ms, _ in device_kernels(prof)) / len(args_list)
+
+
 def window_case(name, store, starts_list, dp, table, rows_list, *,
-                rate: float, active=None, flush=None) -> dict:
+                rate: float, active=None, flush=None,
+                spaced: bool = False) -> dict:
     """Times one window shape: the kernel alone (``launch`` on checked
-    arguments), the wrapper (its checks read the starts back to the host),
-    the plain version, and one ``index_select`` of the same windows from
-    ``table``, a [rows, dp] view of the store.  ``*_ms`` is device time per
+    arguments) copying (``ms``) and widening to float32 (``widen_ms``),
+    the wrapper, the plain version (both ways), and one ``index_select``
+    of the same windows from ``table``, a [rows, dp] view of the store
+    (a copy: no PyTorch call also widens).  ``*_ms`` is device time per
     call, ``*_run_ms`` the back-to-back run time.  With ``active``, the
     kernel and the wrapper copy only the active rows; the plain version and
     ``index_select`` copy every row, which gives the active rows' values.
     With ``flush``, a buffer larger than the card's L2, every call first
     overwrites it, so the call's reads come from memory; the device ms
-    leave the overwrite out, the run ms hold it."""
+    leave the overwrite out, the run ms hold it.  ``spaced``: the
+    copy and the widening also timed with the card idle before each
+    call."""
     from pcgnn_tpu_torch.ops import window_gather as wg
     rows = len(starts_list[0])
+    f32 = torch.float32
     out = torch.empty((rows, dp), dtype=store.dtype, device=store.device)
+    wide = torch.empty((rows, dp), dtype=f32, device=store.device)
     starts = [(s,) for s in starts_list]
     # bytes the copy must move: each copied window read once and written
-    # once, plus the int64 starts and the int32 mask
+    # once (in float32 when widened), plus the int64 starts and the int32
+    # mask
     copied = rows if active is None else int(active.sum())
-    nbytes = (2 * copied * dp * store.element_size() + rows * 8
-              + (0 if active is None else rows * 4))
+    esize = store.element_size()
+    extra = rows * 8 + (0 if active is None else rows * 4)
+    nbytes = 2 * copied * dp * esize + extra
+    wbytes = copied * dp * (esize + 4) + extra
     c = {"name": name, "rows": rows, "copied_rows": copied, "dp": dp,
+         "row_bytes": dp * esize,
          "dtype": str(store.dtype).replace("torch.", ""),
-         "bound_ms": nbytes / rate * 1e3, "bytes": nbytes}
+         "bound_ms": nbytes / rate * 1e3, "bytes": nbytes,
+         "widen_bound_ms": wbytes / rate * 1e3, "widen_bytes": wbytes}
+    excl = None if flush is None else "FillFunctor"
+
     def cold(fn):
         if flush is None:
             return fn
         return lambda *a: (flush.fill_(0.0), fn(*a))[1]
 
+    def kernel(dst):
+        return lambda s: wg.launch(store, s, active, dst)
+
     for key, fn, args in (
-            ("ms", lambda s: wg.launch(store, s, active, out), starts),
+            ("ms", kernel(out), starts),
+            ("widen_ms", kernel(wide), starts),
             ("wrapper_ms", lambda s: wg.window_gather(store, s, dp,
                                                       active=active),
              starts),
             ("plain_ms", lambda s: wg.window_gather_plain(store, s, dp),
              starts),
+            ("widen_plain_ms", lambda s: wg.window_gather_plain(
+                store, s, dp, out_dtype=f32), starts),
             ("library_ms", lambda i: torch.index_select(table, 0, i),
              [(i,) for i in rows_list])):
-        c[key], c[key.replace("ms", "run_ms")] = time_ms(
-            cold(fn), args, exclude=None if flush is None else "FillFunctor")
+        c[key], c[key.replace("ms", "run_ms")] = time_ms(cold(fn), args,
+                                                         exclude=excl)
+    if spaced:
+        c["spaced_ms"] = time_spaced_ms(kernel(out), starts)
+        c["widen_spaced_ms"] = time_spaced_ms(kernel(wide), starts)
     c["cold_reads"] = flush is not None
     return c
 
@@ -288,8 +359,10 @@ def window_case(name, store, starts_list, dp, table, rows_list, *,
 def kernel_phase(t, rate: float) -> tuple[dict, dict]:
     """Phase 2: exactness on the card and timings at the main path's
     shapes.  Returns (kernels-line entry, details)."""
+    from pcgnn_tpu_torch.ops import window_gather as wg
     g, dev = t.graph, t.device
     b = t.batch_size
+    f32 = torch.float32
     gen = torch.Generator(device=dev).manual_seed(0)
     batches = [t.idx_train_dev[torch.randint(len(t.idx_train), (b,),
                                              generator=gen, device=dev)]
@@ -300,27 +373,32 @@ def kernel_phase(t, rate: float) -> tuple[dict, dict]:
     flat = fused.view(-1)
     details = {"cases": []}
 
-    errs = [check_gather(flat, batches[0] * w, w)]
-    for rel in g.relations:
-        errs.append(check_gather(rel.ewin, rel.estart[batches[0]],
-                                 rel.ewin_dp))
-    # B = 1000, starts aligned to 16 bytes but not to records, active mask
+    # the main path's calls: the fused record fetch and each relation's
+    # store, copied and widened
+    errs = []
+    for out_dtype in (None, f32):
+        errs.append(check_gather(flat, batches[0] * w, w,
+                                 out_dtype=out_dtype))
+        for rel in g.relations:
+            errs.append(check_gather(rel.ewin, rel.estart[batches[0]],
+                                     rel.ewin_dp, out_dtype=out_dtype))
+    # B = 1000 starts of every kind at the fused width, with and without an
+    # active mask, copied and widened; and a float32 store at the widest
+    # relation's window
     a = 16 // esize
-    ragged = torch.randint(0, (flat.numel() - w) // a, (1000,),
-                           generator=gen, device=dev) * a
+    edge = any_starts(flat.numel(), w, a, gen, dev)
     active = torch.randint(0, 2, (1000,), generator=gen, device=dev,
                            dtype=torch.int32)
-    errs.append(check_gather(flat, ragged, w))
-    errs.append(check_gather(flat, ragged, w, active=active))
-    # a float32 store at the widest relation's window
-    f32 = torch.randn(1 << 24, generator=gen, device=dev)
+    f32_store = torch.randn(1 << 24, generator=gen, device=dev)
     dp32 = g.relations[-1].ewin_dp
-    st32 = torch.randint(0, (f32.numel() - dp32) // 4, (1000,),
-                         generator=gen, device=dev) * 4
-    errs.append(check_gather(f32, st32, dp32))
-    errs.append(check_gather(f32, st32, dp32,
-                             active=torch.ones(1000, dtype=torch.int32,
-                                               device=dev)))
+    edge32 = any_starts(f32_store.numel(), dp32, 4, gen, dev)
+    for act in (None, active):
+        for st in (edge, edge.to(torch.int32)):
+            for out_dtype in (None, f32):
+                errs.append(check_gather(flat, st, w, act, out_dtype))
+        errs.append(check_gather(f32_store, edge32, dp32, act))
+    # a window that is not whole 16-byte vectors (the element path only)
+    errs.append(check_gather(flat, edge, w - 3, active, f32))
 
     def case(*args, **kw):
         c = window_case(*args, rate=rate, **kw)
@@ -340,13 +418,21 @@ def kernel_phase(t, rate: float) -> tuple[dict, dict]:
         case(f"relation_{r}", rel.ewin, starts, rel.ewin_dp,
              strided_rows(rel.ewin, rel.ewin_dp, a_r),
              [s // a_r for s in starts])
+    # the launch floor: the same kernel copying 1 row of 16 bytes
+    floor = case("launch_floor", flat, [bt[:1] * w for bt in batches], a,
+                 strided_rows(flat, a, a), [bt[:1] * w // a for bt in batches])
+    # the main path's call widens the fused records to float32; no one
+    # PyTorch call does that, so its yardstick is the copy's
     entry = {"name": "window_gather", "route": "cuda",
              "source": "pcgnn_tpu_torch/csrc/window_gather.cu",
              "replaces": "pcgnn_tpu/ops/pallas/window_gather.py:223",
              "launches": None, "max_abs_err": max(errs), "exact": True,
-             "ms": main["ms"], "plain_ms": main["plain_ms"],
-             "bound_ms": main["bound_ms"], "bound_by": "bytes",
-             "library_ms": main["library_ms"]}
+             "checked": len(errs),
+             "ms": main["widen_ms"], "plain_ms": main["widen_plain_ms"],
+             "bound_ms": main["widen_bound_ms"], "bound_by": "bytes",
+             "library_ms": None,
+             "copy_ms": main["ms"], "copy_bound_ms": main["bound_ms"],
+             "copy_library_ms": main["library_ms"], "floor_ms": floor["ms"]}
     details["masked"] = {k: masked[k] for k in ("ms", "bound_ms", "plain_ms",
                                                 "library_ms")}
     return entry, details
@@ -843,6 +929,12 @@ def profile_phase(t) -> dict:
     t.step(model, opt, batches[0], labels[0], weights[0])
     syncs = count_syncs(lambda: t.step(model, opt, batches[0], labels[0],
                                        weights[0]))
+    # the hub lane reads its chunk plan back once per relation with hubs;
+    # nothing else in a step reads from the card
+    want_syncs = sum(rel.has_hubs for rel in aggregated_relations(t))
+    if syncs != want_syncs:
+        raise AssertionError(f"a {run_name(t)} step made {syncs} host syncs, "
+                             f"expected {want_syncs}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
@@ -1104,15 +1196,17 @@ def lane_phases(t) -> dict:
 
 def homo_window_phase(t, rate: float) -> dict:
     """Phase 18: the window gather on the baselines' homo store, held
-    against its plain version exactly at the first epoch's batches, and
-    timed at that shape as phase 2 times its cases, with reads from memory:
-    the store (160 MB) is a few times the L2, but the training rows'
-    windows (64 MB) are not, so every timed call first overwrites a 256 MB
-    buffer and draws its 1,024 rows from all nodes."""
+    against its plain version exactly at the first epoch's batches, copied
+    and widened (the path's call), and timed at that shape as phase 2 times
+    its cases, with reads from memory: the store (160 MB) is a few times
+    the L2, but the training rows' windows (64 MB) are not, so every timed
+    call first overwrites a 256 MB buffer and draws its 1,024 rows from all
+    nodes."""
     rel, dev = t.graph.homo, t.device
     batches, _ = t.epoch_plan(0)
-    errs = [check_gather(rel.ewin, rel.estart[bt], rel.ewin_dp)
-            for bt in batches]
+    errs = [check_gather(rel.ewin, rel.estart[bt], rel.ewin_dp,
+                         out_dtype=out_dtype)
+            for bt in batches for out_dtype in (None, torch.float32)]
     gen = torch.Generator(device=dev).manual_seed(0)
     timed = [torch.randint(t.graph.num_nodes, (t.batch_size,),
                            generator=gen, device=dev)
@@ -1150,24 +1244,71 @@ def graph_shape(g) -> dict:
 def stress_window_cases(t, rate: float) -> list:
     """Phase 17: the window gather at each stress-1m relation store's
     shape, held against its plain version exactly at the first epoch's
-    first batch and timed as phase 2 times its cases (1,024 rows drawn
-    from all 1M nodes; each store is many times the L2)."""
+    first batch (copied and widened, the path's call) and timed as phase 2
+    times its cases (1,024 rows drawn from all 1M nodes; each store is many
+    times the L2); also with reads from memory (a 256 MB buffer overwritten
+    before each call) and with the card idle before each call, the two
+    ways a call on the host-bound path differs from one of a back-to-back
+    run."""
     g, dev = t.graph, t.device
     bt0 = t.epoch_plan(0)[0][0]
     gen = torch.Generator(device=dev).manual_seed(0)
     timed = [torch.randint(g.num_nodes, (t.batch_size,), generator=gen,
                            device=dev) for _ in range(TIMING_REPS)]
+    flush = torch.empty(1 << 26, device=dev)
     cases = []
     for r, rel in enumerate(g.relations):
-        err = check_gather(rel.ewin, rel.estart[bt0], rel.ewin_dp)
+        err = max(check_gather(rel.ewin, rel.estart[bt0], rel.ewin_dp,
+                               out_dtype=out_dtype)
+                  for out_dtype in (None, torch.float32))
         a = 16 // rel.ewin.element_size()
         starts = [rel.estart[bt] for bt in timed]
+        table = strided_rows(rel.ewin, rel.ewin_dp, a)
+        rows = [s // a for s in starts]
         c = window_case(f"stress_relation_{r}", rel.ewin, starts,
-                        rel.ewin_dp, strided_rows(rel.ewin, rel.ewin_dp, a),
-                        [s // a for s in starts], rate=rate)
+                        rel.ewin_dp, table, rows, rate=rate, spaced=True)
+        cold = window_case(f"stress_relation_{r}_cold", rel.ewin, starts,
+                           rel.ewin_dp, table, rows, rate=rate, flush=flush)
+        c["cold"] = {k: cold[k] for k in ("ms", "widen_ms", "library_ms")}
         c["max_abs_err"] = err
         cases.append(c)
     return cases
+
+
+def window_summary(c: dict) -> dict:
+    """A window-gather case's numbers for the summary line: its shape, its
+    times (ms: device time per call), bounds and yardsticks, and where
+    measured spaced and cold reads."""
+    out = {k: c[k] for k in ("name", "rows", "dp", "row_bytes", "dtype",
+                             "ms", "bound_ms", "widen_ms", "widen_bound_ms",
+                             "plain_ms", "library_ms", "cold_reads")}
+    for k in ("spaced_ms", "widen_spaced_ms", "cold"):
+        if k in c:
+            out[k] = c[k]
+    return out
+
+
+def digest(*tensors) -> str:
+    h = hashlib.sha256()
+    for x in tensors:
+        h.update(x.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def plan_check(t, picks: int = 20) -> dict:
+    """Phase 17: the first epoch's plan built twice in this process (it is
+    seeded, so the two must be equal), and its digest, to compare two
+    calls; and the float32 ``torch.cumsum`` of the pick weights, the CDF
+    the pick used to draw from, taken ``picks`` times: how many distinct
+    results it gives."""
+    first, second = t.epoch_plan(0), t.epoch_plan(0)
+    w32 = t.pick_weights.to(torch.float32)
+    cdfs = {digest(torch.cumsum(w32, dim=0)) for _ in range(picks)}
+    return {"equal_in_process": all(torch.equal(a, b)
+                                    for a, b in zip(first, second)),
+            "digest": digest(*first), "float32_cdfs": picks,
+            "float32_cdfs_distinct": len(cdfs),
+            "train_nodes": int(w32.numel()), "draws": t.sample_size}
 
 
 def stress_phase(rate: float) -> dict:
@@ -1191,7 +1332,16 @@ def stress_phase(rate: float) -> dict:
     t = Trainer(STRESS_CFG, graph=g, device="cuda")
     torch.cuda.synchronize()
     run = {"host_build_s": build_s, "setup_s": time.time() - t2,
-           "graph": graph_shape(t.graph)}
+           "graph": graph_shape(t.graph), "plan": plan_check(t)}
+    plan = run["plan"]
+    print(f"stress-1m epoch_plan(0): equal when built twice in this "
+          f"process: {plan['equal_in_process']}; digest {plan['digest']}; "
+          f"{plan['float32_cdfs_distinct']} distinct of "
+          f"{plan['float32_cdfs']} float32 cumsums of the "
+          f"{plan['train_nodes']} pick weights")
+    if not plan["equal_in_process"]:
+        raise AssertionError("stress-1m's first epoch plan differs between "
+                             "two builds in one process")
     if not t.graph.homo.is_stub or t.graph.fused is not None or any(
             r.ewin is None for r in t.graph.relations):
         raise AssertionError(f"stress-1m is not in the per-relation store "
@@ -1317,8 +1467,8 @@ def main() -> int:
             for data, run in runs.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())
     like["entry"]["homo_store"] = {k: homo_window[k] for k in (
-        "ms", "plain_ms", "library_ms", "bound_ms", "rows", "dp",
-        "max_abs_err")}
+        "ms", "widen_ms", "plain_ms", "library_ms", "bound_ms",
+        "widen_bound_ms", "rows", "dp", "max_abs_err")}
 
     details = {"card": card, "kind": name, "runs": runs, "turns": turns,
                "homo_window": homo_window, "skew_baseline_steps": skew_steps,
@@ -1350,6 +1500,9 @@ def main() -> int:
                                  run["card_vs_cpu"]["loss_cpu"]]}
     summary["store_lane_launches"] = like["store_lane"]["launches"]
     summary["window_gather_masked"] = like["kernel"]["masked"]
+    summary["window_gather_cases"] = [window_summary(c) for c in (
+        like["kernel"]["cases"] + [homo_window]
+        + runs[STRESS_CFG["data_name"]]["window_cases"])]
     summary["ragged_gather_cases"] = [
         {k: c[k] for k in ("name", "rows", "d", "ms", "bound_ms", "plain_ms",
                            "library_ms")} for c in skew["kernel"]["cases"]]
@@ -1366,16 +1519,12 @@ def main() -> int:
     summary["csr_branch"] = learned["csr_branch"]
     stress = runs[STRESS_CFG["data_name"]]
     summary["stress"] = {k: stress[k] for k in ("host_build_s", "setup_s",
-                                                "graph", "csr_branch")}
-    summary["stress"]["window_cases"] = [
-        {k: c[k] for k in ("name", "rows", "dp", "ms", "bound_ms",
-                           "plain_ms", "library_ms")}
-        for c in stress["window_cases"]]
+                                                "graph", "csr_branch",
+                                                "plan")}
     summary["stress"]["clamp_card_vs_cpu_loss"] = [
         stress["clamp_card_vs_cpu"]["loss_card"],
         stress["clamp_card_vs_cpu"]["loss_cpu"]]
     summary["homo_window"] = {k: homo_window[k] for k in (
-        "ms", "plain_ms", "library_ms", "bound_ms", "rows", "dp",
         "checked_calls", "setup_s", "window_width", "dmax", "hub_rows")}
     summary["skew_baseline_steps"] = {
         k: v if k == "homo" else {

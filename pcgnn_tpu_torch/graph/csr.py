@@ -16,6 +16,10 @@ GPU layout differs from the TPU one in three ways: bf16 is stored natively
 (no two-per-f32-word packing), each node's run starts on a 16-byte boundary
 (not a 1024-element one), and there is no ``node_pack`` table (a GPU row
 gather has no fixed per-dispatch cost to amortize).  Values are identical.
+Which relations get a store, and whether the fused record store is built,
+is decided by the JAX package's byte accounting of its own layout
+(``reference_store_bytes``), so both packages run the same lanes at every
+budget.
 """
 
 from __future__ import annotations
@@ -52,6 +56,15 @@ FPAD_BUDGET_BYTES = 1536 * 1024 * 1024
 _EWIN_BUILD_CHUNK = 1 << 18
 # nodes per chunk of the fused-store assembly
 _FUSED_CHUNK = 2048
+
+# the JAX package's store layout, in 4-byte words, for its byte accounting:
+# runs aligned to 1024 words, the length rounded to whole 4 Mi-word build
+# chunks, fused sections rounded to 128 words over whole 2048-node chunks
+_REF_ALIGN = 1024
+_REF_SLACK = 3072
+_REF_BUILD_CHUNK = 4 * 1024 * 1024
+_REF_SECTION = 128
+_REF_FUSED_CHUNK = 2048
 
 
 def _round_up(x: int, m: int) -> int:
@@ -90,6 +103,9 @@ class RelGraph:
     estart: torch.Tensor | None = None      # [N] int64 element offsets
     ewin_dp: int = 0
     ewin_f: int = 0
+    # whether the JAX package lays this store out with aligned runs
+    # (``reference_store_bytes``): its fused record store needs them
+    ewin_aligned: bool = False
 
     @property
     def window_width(self) -> int:
@@ -257,6 +273,44 @@ def build_multirel(relations: Sequence[RelGraph], homo: RelGraph,
         labels=torch.as_tensor(np.asarray(labels, np.int64), device=device))
 
 
+def _ref_words_per_slot(f: int, dtype: torch.dtype) -> int:
+    """A neighbor slot's width in the JAX package's 4-byte words: bf16
+    packs an even slot width two values to a word."""
+    return (f + f % 2) // 2 if dtype == torch.bfloat16 else f
+
+
+def reference_store_bytes(deg: np.ndarray, window_width: int, f: int,
+                          dtype: torch.dtype, budget_bytes: int):
+    """(bytes, aligned) that the JAX package's ``attach_edge_windows``
+    charges for a relation's store, or None when it builds none.
+
+    Its layout: each node's run of ``min(deg, D)`` slots starts on a
+    1024-word boundary when that fits ``budget_bytes``, else exactly after
+    the previous run; the length adds one window and 3,072 words of slack
+    and rounds up to whole 4 Mi-word build chunks."""
+    fw = _ref_words_per_slot(f, dtype)
+    d = max(window_width, 1)
+    dp = _round_up(d * fw, _REF_ALIGN)
+    runs = np.minimum(np.asarray(deg, np.int64), d) * fw
+    for aligned in (True, False):
+        total = int((-(-runs // _REF_ALIGN) * _REF_ALIGN if aligned
+                     else runs).sum())
+        nbytes = _round_up(total + dp + _REF_SLACK, _REF_BUILD_CHUNK) * 4
+        if nbytes <= budget_bytes:
+            return nbytes, aligned
+    return None
+
+
+def _ref_charge(rel: RelGraph, f: int, dtype: torch.dtype,
+                budget_bytes: int):
+    """``reference_store_bytes`` of a relation that can carry a store; None
+    for a stub or a relation without a dense neighbor table."""
+    if rel.is_stub or rel.nbr2d is None:
+        return None
+    return reference_store_bytes(rel.deg.cpu().numpy(), rel.window_width, f,
+                                 dtype, budget_bytes)
+
+
 def attach_edge_windows(rel: RelGraph, features: torch.Tensor, *,
                         budget_bytes: int = EWIN_BUDGET_BYTES,
                         dtype: torch.dtype = torch.float32) -> RelGraph:
@@ -267,16 +321,27 @@ def attach_edge_windows(rel: RelGraph, features: torch.Tensor, *,
     holds ``min(deg, dcap)`` rows of F values, starting on a 16-byte
     boundary; the tail keeps one window of slack so the last window's
     read stays in bounds.  ``dtype`` bfloat16 rounds the stored values to
-    nearest even; consumers upcast to float32 after the fetch.
+    nearest even; a consumer that wants float32 widens in the fetch.
 
     Returns the relation unchanged when it is a stub, has no dense neighbor
-    table or the store would exceed ``budget_bytes``.
+    table or the JAX package's store of it would exceed ``budget_bytes``
+    (``reference_store_bytes``; this layout's own bytes decide nothing).
     """
-    if rel.is_stub or rel.nbr2d is None:
+    _check_store_dtype(dtype)
+    charge = _ref_charge(rel, int(features.shape[1]), dtype, budget_bytes)
+    if charge is None:
         return rel
+    return _build_store(rel, features, dtype, aligned=charge[1])
+
+
+def _check_store_dtype(dtype: torch.dtype) -> None:
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"edge-window store dtype must be float32 or "
                          f"bfloat16, got {dtype}")
+
+
+def _build_store(rel: RelGraph, features: torch.Tensor, dtype: torch.dtype,
+                 *, aligned: bool) -> RelGraph:
     dev = features.device
     esize = torch.empty((), dtype=dtype).element_size()
     a = VEC_BYTES // esize                     # elements per 16-byte vector
@@ -287,8 +352,6 @@ def attach_edge_windows(rel: RelGraph, features: torch.Tensor, *,
     runs = (degc * f + a - 1) // a * a
     estart = torch.cumsum(runs, 0) - runs
     length = int(runs.sum()) + dp
-    if length * esize > budget_bytes:
-        return rel
     flat = torch.zeros(length, dtype=dtype, device=dev)
     feats = features.to(dtype)
     # every kept edge slot (v, j < degc[v]) copies features[col[indptr[v]+j]]
@@ -304,7 +367,7 @@ def attach_edge_windows(rel: RelGraph, features: torch.Tensor, *,
         c1 = c0 + _EWIN_BUILD_CHUNK
         flat[dst[c0:c1, None] + cols] = feats[src[c0:c1]]
     return dataclasses.replace(rel, ewin=flat, estart=estart, ewin_dp=dp,
-                               ewin_f=f)
+                               ewin_f=f, ewin_aligned=aligned)
 
 
 def materialize_edge_windows(graph: MultiRelGraph, *,
@@ -322,27 +385,39 @@ def materialize_edge_windows(graph: MultiRelGraph, *,
     The JAX package builds every store for every model.  The port builds
     what the model reads, since parity is on values, not layouts: PC-GNN
     reads the relations' stores (``relations``) and only the homo graph's
-    degrees; GraphSAGE and GCN read only the homo graph's store (``homo``),
-    which takes what the relations' stores leave of the total budget, as in
-    the JAX package, and is the relation's own when homo is one of them.
+    degrees; GraphSAGE and GCN read only the homo graph's store (``homo``).
+    Coverage follows the JAX package's accounting of its own stores
+    (``reference_store_bytes``): each relation it would store is charged
+    to the total, built or not, so the homo store gets what the relations'
+    stores leave, and is the relation's own when homo is one of them.
     """
+    _check_store_dtype(dtype)
+    f = graph.feat_dim
     remaining = total_budget_bytes
     rels = list(graph.relations)
-    if relations:
-        for i in sorted(range(len(rels)), key=lambda i: -rels[i].num_edges):
-            r2 = attach_edge_windows(rels[i], graph.features,
-                                     budget_bytes=min(budget_bytes, remaining),
-                                     dtype=dtype)
-            if r2.ewin is not None:
-                remaining -= r2.ewin.numel() * r2.ewin.element_size()
-            rels[i] = r2
-    homo_rel = next((new for old, new in zip(graph.relations, rels)
-                     if old is graph.homo), None)
-    if homo_rel is None or (homo and homo_rel.ewin is None):
-        homo_rel = (attach_edge_windows(
+    charges = {}
+    for i in sorted(range(len(rels)), key=lambda i: -rels[i].num_edges):
+        charge = _ref_charge(rels[i], f, dtype, min(budget_bytes, remaining))
+        if charge is None:
+            continue
+        remaining -= charge[0]
+        charges[i] = charge
+        if relations:
+            rels[i] = _build_store(rels[i], graph.features, dtype,
+                                   aligned=charge[1])
+    shared = next((i for i, old in enumerate(graph.relations)
+                   if old is graph.homo), None)
+    if shared is not None:
+        homo_rel = rels[shared]
+        if homo and homo_rel.ewin is None and shared in charges:
+            homo_rel = _build_store(homo_rel, graph.features, dtype,
+                                    aligned=charges[shared][1])
+    elif homo:
+        homo_rel = attach_edge_windows(
             graph.homo, graph.features,
             budget_bytes=min(budget_bytes, remaining), dtype=dtype)
-            if homo else graph.homo)
+    else:
+        homo_rel = graph.homo
     fused_arr, fused_off = (_build_fused_store(rels, graph.num_nodes,
                                                remaining)
                             if fused and relations else (None, ()))
@@ -358,16 +433,24 @@ def materialize_edge_windows(graph: MultiRelGraph, *,
 def _build_fused_store(rels, num_nodes: int, budget_bytes: int):
     """[N, W] record store: row v concatenates each relation's window
     ``ewin_r[estart_r[v] : estart_r[v] + dp_r]``.  W stays a multiple of
-    16 bytes, so record v starts 16-byte aligned at element v * W."""
+    16 bytes, so record v starts 16-byte aligned at element v * W.
+
+    Built when the JAX package builds its own: every relation's store is
+    aligned in its accounting and its record table (sections of whole 128
+    words, over whole 2048-node chunks) fits ``budget_bytes``."""
     from pcgnn_tpu_torch.ops.window_gather import window_gather
 
-    if not rels or num_nodes == 0 or any(r.ewin is None for r in rels):
+    if (not rels or num_nodes == 0
+            or any(r.ewin is None or not r.ewin_aligned for r in rels)):
         return None, ()
     dtype, dev = rels[0].ewin.dtype, rels[0].ewin.device
+    ref_w = sum(_round_up(max(r.window_width, 1)
+                          * _ref_words_per_slot(r.ewin_f, dtype), _REF_SECTION)
+                for r in rels)
+    if _round_up(num_nodes, _REF_FUSED_CHUNK) * ref_w * 4 > budget_bytes:
+        return None, ()
     off = tuple(int(x) for x in np.cumsum([0] + [r.ewin_dp for r in rels]))
     w = off[-1]
-    if num_nodes * w * rels[0].ewin.element_size() > budget_bytes:
-        return None, ()
     out = torch.empty((num_nodes, w), dtype=dtype, device=dev)
     for i0 in range(0, num_nodes, _FUSED_CHUNK):
         i1 = min(i0 + _FUSED_CHUNK, num_nodes)

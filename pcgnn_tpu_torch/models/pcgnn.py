@@ -195,7 +195,7 @@ class PCGNN(nn.Module):
             xs = hub_table(x, *tp_args, s0=s0)
             s0_col, tp_col = f, f + 1
         if use_fused:
-            rec = batch_record_window(graph, batch)        # [B, W]
+            rec = batch_record_window(graph, batch)        # [B, W] float32
 
         minor_ctx = None
         if train:

@@ -48,13 +48,15 @@ def selection_score(rows: torch.Tensor, w0: torch.Tensor,
 
 def batch_raw_window(rel, batch: torch.Tensor,
                      starts: torch.Tensor | None = None) -> torch.Tensor:
-    """[B, ewin_dp] raw store values per batch row, one window each."""
+    """[B, ewin_dp] float32 store values per batch row, one window each (a
+    bfloat16 store is widened exactly by the fetch)."""
     if rel.ewin is None:
         raise ValueError("batch_raw_window needs the edge-window store "
                          "(graph.csr.attach_edge_windows)")
     if starts is None:
         starts = rel.estart[batch]
-    return window_gather(rel.ewin, starts, rel.ewin_dp)
+    return window_gather(rel.ewin, starts, rel.ewin_dp,
+                         out_dtype=torch.float32)
 
 
 def batch_feature_window(rel, batch: torch.Tensor, f: int,
@@ -73,20 +75,22 @@ def batch_feature_window(rel, batch: torch.Tensor, f: int,
 
 
 def unpack_window(raw: torch.Tensor, d: int, f: int) -> torch.Tensor:
-    """[B, >= d*f] fetched store rows -> [B, d, f] float32 windows (a
-    bfloat16 store upcasts exactly)."""
+    """[B, >= d*f] fetched store rows -> [B, d, f] float32 windows (a view
+    of float32 rows; bfloat16 ones upcast exactly)."""
     return raw[:, : d * f].reshape(raw.shape[0], d, f).to(torch.float32)
 
 
 def batch_record_window(graph, batch: torch.Tensor) -> torch.Tensor:
-    """[B, W] fused records: every relation's window in one fetch per batch
-    row (``graph.csr._build_fused_store``).  Slice relation r's section at
-    ``graph.fused_off[r]`` and unpack with :func:`unpack_window`."""
+    """[B, W] float32 fused records: every relation's window in one fetch
+    per batch row (``graph.csr._build_fused_store``), widened by the fetch.
+    Slice relation r's section at ``graph.fused_off[r]`` and unpack with
+    :func:`unpack_window` (a view)."""
     if graph.fused is None:
         raise ValueError("batch_record_window needs the fused record store "
                          "(graph.csr.materialize_edge_windows(fused=True))")
     w = graph.fused.shape[1]
-    return window_gather(graph.fused.view(-1), batch.to(torch.int64) * w, w)
+    return window_gather(graph.fused.view(-1), batch.to(torch.int64) * w, w,
+                         out_dtype=torch.float32)
 
 
 def batch_neighbor_window(rel, batch: torch.Tensor, *,

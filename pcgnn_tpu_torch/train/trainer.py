@@ -32,7 +32,7 @@ from pcgnn_tpu_torch.graph.csr import MultiRelGraph, materialize_edge_windows
 from pcgnn_tpu_torch.interop import params_from_jax, params_to_jax
 from pcgnn_tpu_torch.models import build_model
 from pcgnn_tpu_torch.models.pcgnn import PCGNN
-from pcgnn_tpu_torch.sampling.pick import pick_probs, pick_step
+from pcgnn_tpu_torch.sampling.pick import pick_cdf, pick_probs, pick_step
 from pcgnn_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from pcgnn_tpu_torch.train.metrics import evaluate
 from pcgnn_tpu_torch.train.results import ResultManager
@@ -154,6 +154,8 @@ class Trainer:
         self.pick_weights = pick_probs(
             graph.homo.deg[self.idx_train_dev],
             torch.as_tensor(y_train, device=dev))
+        # the weights are fixed for the run: their CDF is summed once
+        self.pick_cdf = pick_cdf(self.pick_weights)
         tp = train_pos if len(train_pos) else np.zeros(1, np.int64)
         self.train_pos_dev = torch.as_tensor(tp, device=dev)
         self.train_pos_valid = torch.full((len(tp),), bool(len(train_pos)),
@@ -194,7 +196,7 @@ class Trainer:
         b, nb, s = self.batch_size, self.num_batches, self.sample_size
         g = torch.Generator(device=self.device)
         g.manual_seed(int(self.config["seed"]) * 1_000_003 + epoch)
-        sampled = (pick_step(g, self.idx_train_dev, self.pick_weights, s)
+        sampled = (pick_step(g, self.idx_train_dev, self.pick_cdf, s)
                    if self.is_pcgnn else self.idx_train_dev)
         sampled = sampled[torch.randperm(s, generator=g, device=self.device)]
         ids = torch.zeros(nb * b, dtype=torch.int64, device=self.device)

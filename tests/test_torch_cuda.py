@@ -77,21 +77,102 @@ def test_kernel_reaches_the_store_end(card):
     assert out[0, -1].item() == 4095 and out[1, 0].item() == 0
 
 
+def _any_starts(length, dp, a, gen, device):
+    """Starts of every kind: in range at every offset mod a (a elements a
+    16-byte vector), at and past the end, negative (wrapped once, then
+    clamped), and random aligned ones."""
+    fixed = [0, length - dp, length - dp + 1, length - 1, length, length + 5,
+             3 * length, -1, -a - 1, -dp, -length, -length - 1, -3 * length,
+             2 ** 31 - 1, -2 ** 31]
+    fixed += [4096 + k for k in range(1, a)] + [length - dp - k
+                                                for k in range(1, a)]
+    rand = torch.randint(0, (length - dp) // a + 1, (24,), generator=gen,
+                         device=device) * a
+    return torch.cat([torch.tensor(fixed, device=device), rand])
+
+
+@pytest.mark.parametrize("widen", [False, True])
+@pytest.mark.parametrize("dtype,dp", [
+    (torch.bfloat16, 13), (torch.bfloat16, 512), (torch.bfloat16, 832),
+    (torch.bfloat16, 2048), (torch.bfloat16, 4096), (torch.bfloat16, 8128),
+    (torch.bfloat16, 8896), (torch.float32, 6), (torch.float32, 200),
+    (torch.float32, 1000), (torch.float32, 3392)])
+def test_kernel_takes_any_start(card, dtype, dp, widen):
+    """Clamped, negative and past-the-end starts, every misalignment of a
+    start (1-7 elements for bf16, 1-3 for f32), rows that take blocks of 1
+    to 8 warps (and loop past 8), a dp that is not whole units, int32
+    starts (widened by the wrapper) and int64 ones, with and without
+    ``active``, in the store's dtype and widened to float32: the kernel
+    equals the plain version bit for bit."""
+    gen = torch.Generator(device=card).manual_seed(dp + widen)
+    store = torch.randn(1 << 18, generator=gen, device=card).to(dtype)
+    a = 16 // store.element_size()
+    starts = _any_starts(store.numel(), dp, a, gen, card)
+    out_dtype = torch.float32 if widen else dtype
+    ref = wg.window_gather_plain(store, starts, dp, out_dtype=out_dtype)
+    active = torch.randint(0, 2, starts.shape, generator=gen, device=card,
+                           dtype=torch.int32)
+    for st in (starts, starts.to(torch.int32)):
+        for act in (None, active):
+            out = torch.full((len(st), dp), -1.0, dtype=out_dtype,
+                             device=card)
+            before = wg.launches
+            wg.launch(store, st.to(torch.int64).contiguous(), act, out)
+            assert wg.launches == before + 1
+            torch.cuda.synchronize()
+            rows = slice(None) if act is None else act.bool()
+            assert torch.equal(out[rows], ref[rows]), (st.dtype, act is None)
+            if act is not None:        # inactive rows are not written
+                assert out[~act.bool()].eq(-1).all()
+    got = wg.window_gather(store, starts, dp, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and torch.equal(got, ref)
+
+
+def test_window_gather_makes_no_host_sync(card):
+    store = torch.arange(4096, dtype=torch.float32, device=card)
+    starts = torch.tensor([5, -3, 4000, 16], device=card)
+    wg.window_gather(store, starts, 512)            # builds and loads first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = wg.window_gather(store, starts, 512)
+        wide = wg.window_gather(store.bfloat16(), starts, 512,
+                                out_dtype=torch.float32)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert out[:, 0].tolist() == [5, 4096 - 512, 4096 - 512, 16]
+    assert torch.equal(wide, out.bfloat16().float())
+
+
 def test_wrapper_raises_on_bad_arguments(card):
     store = torch.zeros(4096, device=card)
     ok = torch.tensor([0, 4], device=card)
     bad = [
-        (store, torch.tensor([2], device=card), 8),          # not 16-byte
-        (store, torch.tensor([4096 - 4], device=card), 8),   # past the end
-        (store, torch.tensor([-4], device=card), 8),          # negative
-        (store, ok, 6),                                       # dp not 16 B
+        (store, ok, 0),                                       # dp <= 0
+        (store, ok, 4097),                                    # dp > L
         (store[::2], ok, 8),                                  # strided
+        (store[1:], ok, 8),                                   # not 16-byte
         (store, ok.cpu(), 8),                                 # two devices
     ]
     for args in bad:
         with pytest.raises(ValueError):
             wg.window_gather(*args)
+    with pytest.raises(TypeError):
+        wg.window_gather(store, ok, 8, out_dtype=torch.bfloat16)
     assert wg.window_gather(store, ok[:0], 8).shape == (0, 8)
+    # what the wrapper refused before, and now copies: a start that is not
+    # 16-byte aligned, past the end or negative, and a dp that is not
+    # whole vectors
+    store = torch.arange(4096, dtype=torch.float32, device=card)
+    for starts, dp in ((torch.tensor([2], device=card), 8),
+                       (torch.tensor([4096 - 4], device=card), 8),
+                       (torch.tensor([-4], device=card), 8),
+                       (ok, 6)):
+        got = wg.window_gather(store, starts, dp)
+        torch.cuda.synchronize()
+        assert torch.equal(got, wg.window_gather_plain(store, starts, dp))
 
 
 def _graph_pair(card, dtype, fused):
@@ -597,3 +678,41 @@ def test_baseline_trainer_epoch_on_card(card, tmp_path, name):
     loss = float(t.run_epoch(model, opt, 0))
     assert math.isfinite(loss)
     assert wg.launches == t.num_batches
+
+
+# ------------------------------------------------------ epoch plan repeats
+
+def test_stress_epoch_plan_repeats(card, monkeypatch, tmp_path):
+    """Stress-1m's shape, patched small: ``epoch_plan(0)`` built twice in
+    one process is the same plan (run the file twice to compare two
+    processes: the plan is seeded, so it must not move between them)."""
+    from pcgnn_tpu_torch.data import synthetic
+    from pcgnn_tpu_torch.train.results import ResultManager
+    from pcgnn_tpu_torch.train.trainer import Trainer
+    monkeypatch.setitem(synthetic.PRESETS, "stress-1m",
+                        (4096, 16, 0.05, (16384, 8192, 4096), 3))
+    cfg = dict(seed=2, data_name="synthetic:stress-1m", model="PCGNN",
+               train_ratio=0.4, test_ratio=0.67, emb_size=16, lr=0.01,
+               weight_decay=0.001, alpha=2.0, rho=0.5, epochs=1,
+               valid_epochs=1, batch_size=256, patience=10, exp_num=0)
+    t = Trainer(cfg, result=ResultManager(cfg, root=str(tmp_path)))
+    first, second = t.epoch_plan(0), t.epoch_plan(0)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_pick_repeats_at_stress_size(card):
+    """The pick at stress-1m's real size (400,000 training nodes, 40,000
+    draws) from one seed gives the same draws every time."""
+    from pcgnn_tpu_torch.sampling.pick import pick_cdf, pick_probs, pick_step
+    rng = np.random.default_rng(0)
+    t = 400_000
+    deg = torch.from_numpy(rng.integers(1, 60, t)).to(card)
+    y = torch.from_numpy((rng.random(t) < 0.05).astype(np.int64)).to(card)
+    idx = torch.arange(t, device=card)
+    weights = pick_probs(deg, y)
+    draws = []
+    for _ in range(20):
+        g = torch.Generator(device=card).manual_seed(7)
+        draws.append(pick_step(g, idx, pick_cdf(weights), 40_000))
+    assert all(torch.equal(d, draws[0]) for d in draws)

@@ -116,15 +116,33 @@ def test_pick_probs_and_distribution():
     # streams differ between the packages, so parity is statistical)
     idx = torch.tensor([100, 200, 300])
     g = torch.Generator().manual_seed(0)
-    draws = tpick.pick_step(g, idx, torch.tensor([1.0, 2.0, 7.0]), 20000)
+    draws = tpick.pick_step(g, idx, tpick.pick_cdf(
+        torch.tensor([1.0, 2.0, 7.0])), 20000)
     freq = np.array([(draws == v).float().mean().item()
                      for v in (100, 200, 300)])
     np.testing.assert_allclose(freq, [0.1, 0.2, 0.7], atol=0.02)
-    small = tpick.pick_step(g, torch.tensor([5, 9]), torch.ones(2), 100)
+    small = tpick.pick_step(g, torch.tensor([5, 9]),
+                            tpick.pick_cdf(torch.ones(2)), 100)
     assert len(small) == 100 and set(small.tolist()) <= {5, 9}
     # a uniform draw at the very top of the CDF stays in range
-    top = tpick.pick_step(g, idx, torch.tensor([0.0, 0.0, 1e-30]), 50)
+    top = tpick.pick_step(g, idx, tpick.pick_cdf(
+        torch.tensor([0.0, 0.0, 1e-30])), 50)
     assert (top == 300).all()
+
+
+def test_pick_cdf_is_the_sequential_float64_sum():
+    """The pick's CDF is the float64 running sum in index order (numpy's),
+    whatever device sums it, so one seed gives one plan."""
+    rng = np.random.default_rng(5)
+    w = rng.random(100_000).astype(np.float32)
+    cdf = tpick.pick_cdf(torch.from_numpy(w))
+    assert cdf.dtype == torch.float64
+    np.testing.assert_array_equal(cdf.numpy(), np.cumsum(w.astype(np.float64)))
+    idx = torch.arange(len(w))
+    draws = [tpick.pick_step(torch.Generator().manual_seed(3), idx,
+                             tpick.pick_cdf(torch.from_numpy(w)), 5000)
+             for _ in range(2)]
+    assert torch.equal(draws[0], draws[1])
 
 
 def test_adam_matches_jax_torch_adam():
