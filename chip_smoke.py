@@ -88,7 +88,19 @@ Phase 11 also times the learned steps in the same turns.  Then:
      memory; profiles and compares each with the CPU's step;
  19. runs one step of each baseline on yelp-skew's graph, whose homo hub
      rows go through ``hub_mean_sum`` and the ragged gather, card against
-     CPU.
+     CPU;
+ 20. writes yelp-like's graph as the reference's YelpChi files (the
+     ``.pt`` features and four pickled ``defaultdict(set)`` adjacency
+     lists), loads them onto the card (equal to the generated graph,
+     exactly), and trains PC-GNN from them through ``pcgnn_tpu_torch.cli``
+     with ``configs/pcgnn_yelpchi.json`` cut to 2 epochs: a window gather on
+     every step, validation AUC above 0.5; then ``verify_dataset`` must say
+     GO; it prints the write and load seconds and the step ms;
+ 21. on that graph, ``resume``: an uncut 4-epoch run, twice, and a 2-epoch
+     run resumed to 4, whose epoch plans must equal the uncut run's and
+     whose final parameters must be within 1e-3 of them (it prints that
+     difference beside the two uncut runs'); and ``profile_dir``: a 5-epoch
+     run whose trace of epochs 2-4 holds a window gather on every step.
 
 Every profiled run (phases 5, 9, 14, 16-18) counts the host syncs of one
 step; a run whose relations have no hub rows must make none.
@@ -101,14 +113,18 @@ The line before the last is the card's name and power limit; before it, a
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
+import glob
 import hashlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1359,6 +1375,285 @@ def stress_phase(rate: float) -> dict:
     return run
 
 
+# configs/pcgnn_yelpchi.json, cut to 2 epochs with a validation at the end,
+# on YelpChi-format files written from yelp-like's graph at this seed (the
+# real YelpChi files are not in the repository)
+FILES_CONFIG = os.path.join("configs", "pcgnn_yelpchi.json")
+FILES_SEED = 2
+FILES_RUN = dict(epochs=2, valid_epochs=2)
+# phase 21: runs of 4 epochs, validated and saved every epoch, one cut
+# after 2; the profiled run takes 5 epochs so that its trace spans 2-4
+RESUME_RUN = dict(epochs=4, valid_epochs=1, resume=True)
+RESUME_CUT = 2
+PROFILE_EPOCHS = 5
+
+
+def write_yelp_files(g, prefix: str) -> None:
+    """Phase 20: graph ``g`` as the reference's YelpChi files under
+    ``prefix``: ``YelpChi_data.pt`` (x and y under ``"review"``) and the
+    homo, rur, rtr and rsr adjacency lists, each a pickled
+    ``defaultdict(set)`` of every node with neighbors."""
+    import pickle
+    from collections import defaultdict
+
+    from pcgnn_tpu_torch.data.verify import expected_files
+    pt, *adj_files = expected_files("yelp", prefix)
+    os.makedirs(os.path.dirname(pt), exist_ok=True)
+    torch.save({"review": {"x": g.features.cpu(), "y": g.labels.cpu()}}, pt)
+    for path, rel in zip(adj_files, (g.homo, *g.relations)):
+        indptr = rel.indptr.cpu().numpy()
+        col = rel.col.cpu().numpy()
+        adj = defaultdict(set)
+        for v in np.flatnonzero(np.diff(indptr)):
+            adj[int(v)] = set(col[indptr[v]:indptr[v + 1]].tolist())
+        with open(path, "wb") as f:
+            pickle.dump(adj, f)
+
+
+def graph_differences(want, got) -> list:
+    """Where graph ``got`` is not exactly ``want``: the CSR arrays, degrees,
+    keep counts and window widths of every relation and the homo graph,
+    the features and the labels."""
+    if want.num_relations != got.num_relations:
+        return ["relation count"]
+    out = []
+    pairs = [(f"relation {r}", a, b)
+             for r, (a, b) in enumerate(zip(want.relations, got.relations))]
+    for name, a, b in pairs + [("homo", want.homo, got.homo)]:
+        e = a.num_edges
+        sizes = [(r.num_edges, r.dmax, r.dcap) for r in (a, b)]
+        if sizes[0] != sizes[1]:
+            out.append(f"{name}: edges/dmax/dcap {sizes[0]} vs {sizes[1]}")
+            continue
+        for k, x, y in (("indptr", a.indptr, b.indptr),
+                        ("col", a.col[:e], b.col[:e]), ("deg", a.deg, b.deg),
+                        ("keff", a.keff, b.keff),
+                        ("ksample", a.ksample, b.ksample)):
+            if not torch.equal(x.cpu(), y.cpu()):
+                out.append(f"{name}: {k}")
+    for k in ("features", "labels"):
+        if not torch.equal(getattr(want, k).cpu(), getattr(got, k).cpu()):
+            out.append(k)
+    return out
+
+
+def files_config(prefix: str, **kw) -> dict:
+    from pcgnn_tpu_torch.utils.config import load_config
+    cfg = load_config(FILES_CONFIG)
+    cfg.update(data_prefix=prefix, **kw)
+    return cfg
+
+
+def files_phase(work: str, card: str, like) -> tuple:
+    """Phase 20: the main path from files, through the CLI.  yelp-like's
+    graph at ``FILES_SEED`` is written as YelpChi-format files and loaded
+    back onto the card (equal to the generated graph, exactly); then
+    ``python -m pcgnn_tpu_torch.cli`` trains PC-GNN on a copy of
+    ``configs/pcgnn_yelpchi.json`` pointed at them (``FILES_RUN``), in a
+    fresh result root, with every kernel count set to 0 just before: every
+    step must launch the window gather, and the validation AUC must be
+    above 0.5.  Then ``verify_dataset`` must say GO on the files; and the
+    loaded graph's steps are timed in turns with those of ``like``, phase
+    3's trainer on the generated graph (``turns_phase``).  Returns the
+    phase's record and the loaded graph."""
+    from pcgnn_tpu_torch import cli
+    from pcgnn_tpu_torch.data.loaders import load_data
+    from pcgnn_tpu_torch.data.synthetic import synthetic_fraud_graph
+    from pcgnn_tpu_torch.data.verify import verify_dataset
+    from pcgnn_tpu_torch.train.results import ResultManager, read_table
+    from pcgnn_tpu_torch.train.trainer import Trainer
+    prefix = os.path.join(work, "data") + "/"
+    t1 = time.time()
+    gen = synthetic_fraud_graph("yelp-like", seed=FILES_SEED)
+    run = {"generate_s": time.time() - t1}
+    t1 = time.time()
+    write_yelp_files(gen, prefix)
+    run["write_s"] = time.time() - t1
+    run["file_bytes"] = sum(os.path.getsize(os.path.join(d, f))
+                            for d, _, fs in os.walk(prefix) for f in fs)
+    t1 = time.time()
+    graph = load_data("yelp", prefix, device="cuda")
+    torch.cuda.synchronize()
+    run["load_s"] = time.time() - t1
+    diffs = graph_differences(gen, graph)
+    if diffs:
+        raise AssertionError(f"the graph loaded from the files differs from "
+                             f"the generated one: {diffs}")
+    cfg = files_config(prefix, **FILES_RUN)
+    cfg_path = os.path.join(work, "pcgnn_yelpchi.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    steps = []
+    mods = kernel_counters()
+    wg = mods["window_gather"]
+    step = Trainer.step
+
+    def timed_step(self, *args, **kwargs):
+        before = wg.launches
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step(self, *args, **kwargs)
+        end.record()
+        end.synchronize()
+        steps.append((start.elapsed_time(end), wg.launches - before,
+                      self.num_batches))
+        return out
+
+    cwd = os.getcwd()
+    Trainer.step = timed_step
+    try:
+        os.chdir(work)
+        for mod in mods.values():
+            mod.launches = 0
+        with contextlib.redirect_stdout(sys.stderr):
+            auc, recall, f1 = cli.main(["--exp_config_path", cfg_path])
+        launches = {k: m.launches for k, m in mods.items()}
+    finally:
+        os.chdir(cwd)
+        Trainer.step = step
+    gathers = [n for _, n, _ in steps]
+    if (not steps or len(steps) != FILES_RUN["epochs"] * steps[0][2]
+            or min(gathers) < 1):
+        raise AssertionError(f"the CLI run made {len(steps)} steps with "
+                             f"window gathers {gathers}")
+    (val_table,) = glob.glob(os.path.join(work, "experimental_results",
+                                          "validation_df", "*.csv"))
+    valid_auc = float(read_table(val_table)[-1]["auc"])
+    if not valid_auc > 0.5:
+        raise AssertionError(f"validation AUC {valid_auc} is not above 0.5")
+    ok, lines = verify_dataset("yelp", prefix)
+    if not ok:
+        raise AssertionError("verify_dataset says NO-GO on the files:\n"
+                             + "\n".join(lines))
+    loaded = Trainer(cfg, graph=graph, device="cuda", result=ResultManager(
+        cfg, root=os.path.join(work, "turns")))
+    turns = turns_phase([like, loaded])
+    step_ms = [ms for ms, _, _ in steps]
+    run.update(steps=len(steps), step_ms=step_ms,
+               step_ms_median=float(np.median(step_ms[1:])),
+               window_launches_per_step=gathers,
+               launches=launches, valid_auc=valid_auc, test_auc=auc,
+               test_recall=recall, test_f1_macro=f1, verify=lines[-1],
+               shape=graph_shape(graph), turns=turns)
+    print(f"phase 20, yelp from files: generated in {run['generate_s']:.1f} "
+          f"s, written in {run['write_s']:.1f} s ({run['file_bytes']} bytes), "
+          f"loaded onto the card in {run['load_s']:.1f} s; CLI step "
+          f"{run['step_ms_median']:.2f} ms (median of {len(steps)}), "
+          f"valid AUC {valid_auc:.4f}; {lines[-1]}; in turns, step "
+          f"{turns[run_name(loaded)]['step_ms_median']:.2f} ms loaded, "
+          f"{turns[run_name(like)]['step_ms_median']:.2f} ms generated; "
+          f"on {card}")
+    return run, graph
+
+
+def tree_leaves(tree) -> list:
+    """The arrays of a parameter tree, in a fixed order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [np.asarray(tree)]
+
+
+def max_abs_diff(a, b) -> float:
+    return max(float(np.abs(x - y).max())
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def resume_phase(work: str, graph, card: str) -> dict:
+    """Phase 21: ``resume`` and ``profile_dir`` on the card, on phase 20's
+    graph (its stores built once).  With ``RESUME_RUN``: an uncut run,
+    twice, each in a fresh result root; then a run of ``RESUME_CUT`` epochs
+    and the same configuration resumed from it, in one fresh root.  The
+    resumed run's epoch plans must equal the uncut run's exactly, and its
+    final parameters (its resume file's) be within ``PARAM_ATOL`` of the
+    uncut run's; the two uncut runs' difference is the card's own spread.
+    Then a ``PROFILE_EPOCHS`` run with ``profile_dir`` must write a trace
+    of epochs 2-4 whose kernels hold a window gather on every traced
+    step."""
+    from pcgnn_tpu_torch.train.checkpoint import load_checkpoint
+    from pcgnn_tpu_torch.train.results import ResultManager
+    from pcgnn_tpu_torch.train.trainer import Trainer
+    from pcgnn_tpu_torch.utils.profiling import trace_kernels
+    prefix = os.path.join(work, "data") + "/"
+    cfg = files_config(prefix, **RESUME_RUN)
+    with contextlib.redirect_stdout(sys.stderr):
+        base = Trainer(cfg, graph=graph, device="cuda",
+                       result=ResultManager(cfg, root=os.path.join(work,
+                                                                   "base")))
+    plans, plan = {}, Trainer.epoch_plan
+    running = None
+
+    def recorded_plan(self, epoch):
+        out = plan(self, epoch)
+        plans[running][epoch] = digest(*out)
+        return out
+
+    def run(tag, root, **kw):
+        nonlocal running
+        running = tag
+        plans[tag] = {}
+        c = dict(cfg, **kw)
+        t = Trainer(c, graph=base.graph, device="cuda",
+                    result=ResultManager(c, root=os.path.join(work, root)))
+        t1 = time.time()
+        t.train()
+        return t, time.time() - t1
+
+    Trainer.epoch_plan = recorded_plan
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            (a, a_s), (b, _) = run("uncut", "a"), run("uncut again", "b")
+            run("cut", "c", epochs=RESUME_CUT)
+            r, r_s = run("resumed", "c")
+    finally:
+        Trainer.epoch_plan = plan
+    states = {tag: load_checkpoint(t._resume_path())
+              for tag, t in (("uncut", a), ("uncut again", b), ("resumed", r))}
+    resumed_epochs = sorted(plans["resumed"])
+    if resumed_epochs != list(range(RESUME_CUT, RESUME_RUN["epochs"])):
+        raise AssertionError(f"the resumed run trained epochs "
+                             f"{resumed_epochs}")
+    if any(plans["resumed"][e] != plans["uncut"][e] for e in resumed_epochs):
+        raise AssertionError(f"the resumed run's epoch plans differ from the "
+                             f"uncut run's: {plans}")
+    if not (states["uncut"]["epoch"] == states["resumed"]["epoch"]
+            == RESUME_RUN["epochs"] - 1):
+        raise AssertionError("a resume file is not from the last epoch")
+    out = {"plans": plans, "uncut_s": a_s, "resumed_s": r_s,
+           "resumed_vs_uncut": max_abs_diff(states["resumed"]["params"],
+                                            states["uncut"]["params"]),
+           "uncut_vs_uncut": max_abs_diff(states["uncut again"]["params"],
+                                          states["uncut"]["params"])}
+    if not out["resumed_vs_uncut"] <= PARAM_ATOL:
+        raise AssertionError(f"the resumed run's parameters differ from the "
+                             f"uncut run's by {out['resumed_vs_uncut']}")
+    prof_dir = os.path.join(work, "profile")
+    c = dict(cfg, epochs=PROFILE_EPOCHS, resume=False, profile_dir=prof_dir)
+    t = Trainer(c, graph=base.graph, device="cuda",
+                result=ResultManager(c, root=os.path.join(work, "p")))
+    with contextlib.redirect_stdout(sys.stderr):
+        t.train()
+    (path,) = glob.glob(os.path.join(prof_dir, "trace-*.json"))
+    kernels = trace_kernels(path)
+    gathers = sum(n for k, n in kernels.items() if "window_gather_kernel" in k)
+    out.update(trace_bytes=os.path.getsize(path),
+               trace_kernel_launches=sum(kernels.values()),
+               trace_window_gathers=gathers,
+               traced_steps=3 * t.num_batches)
+    if gathers < out["traced_steps"]:
+        raise AssertionError(f"the profiled run's trace holds {gathers} "
+                             f"window gathers for {out['traced_steps']} "
+                             f"steps: {kernels.most_common(10)}")
+    print(f"phase 21, resume: resumed run's plans equal the uncut run's; "
+          f"final parameters differ by {out['resumed_vs_uncut']:.3g} "
+          f"(two uncut runs: {out['uncut_vs_uncut']:.3g}); profile_dir trace "
+          f"of epochs 2-4: {gathers} window gathers for "
+          f"{out['traced_steps']} steps; on {card}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -1456,6 +1751,18 @@ def main() -> int:
         if not skew_steps[run_name(t)]["hub_rows"]:
             raise AssertionError("no yelp-skew batch has a homo hub row")
     print(f"phase 19 done at {time.time() - t0:.1f} s", file=sys.stderr)
+    # 20-21: yelp from YelpChi-format files through the CLI; resume and
+    # profile_dir on its graph; files, result roots and trace in a fresh
+    # directory, removed after
+    os.makedirs("build", exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_files-", dir="build")
+    try:
+        files, files_graph = files_phase(work, card, trainers[0])
+        print(f"phase 20 done at {time.time() - t0:.1f} s", file=sys.stderr)
+        resume = resume_phase(work, files_graph, card)
+        print(f"phase 21 done at {time.time() - t0:.1f} s", file=sys.stderr)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     # each kernel's launches: the sum over the main paths' runs, each read
     # with every count set to 0 just before it
@@ -1465,6 +1772,8 @@ def main() -> int:
         entry["launches_by_path"] = {
             data: run["main_path"]["launches"][kname]
             for data, run in runs.items()}
+        entry["launches_by_path"]["yelp from files (cli)"] = (
+            files["launches"][kname])
         entry["launches"] = sum(entry["launches_by_path"].values())
     like["entry"]["homo_store"] = {k: homo_window[k] for k in (
         "ms", "widen_ms", "plain_ms", "library_ms", "bound_ms",
@@ -1472,6 +1781,7 @@ def main() -> int:
 
     details = {"card": card, "kind": name, "runs": runs, "turns": turns,
                "homo_window": homo_window, "skew_baseline_steps": skew_steps,
+               "files": files, "resume": resume,
                "seconds": time.time() - t0}
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:
@@ -1531,6 +1841,14 @@ def main() -> int:
             "loss": [v["loss_card"], v["loss_cpu"]],
             "hub_rows": v["hub_rows"], "launches": v["card_launches"]}
         for k, v in skew_steps.items()}
+    summary["files"] = {k: files[k] for k in (
+        "generate_s", "write_s", "load_s", "file_bytes", "steps",
+        "step_ms_median", "launches", "valid_auc", "test_auc", "verify")}
+    summary["files"]["turns_step_ms_median"] = {
+        k: v["step_ms_median"] for k, v in files["turns"].items()}
+    summary["resume"] = {k: resume[k] for k in (
+        "resumed_vs_uncut", "uncut_vs_uncut", "uncut_s", "resumed_s",
+        "trace_window_gathers", "traced_steps", "trace_bytes")}
     summary["seconds"] = details["seconds"]
     print(json.dumps(summary))
     print(json.dumps({"kernels": list(entries.values())}))

@@ -189,6 +189,38 @@ def csr_from_edges(src: np.ndarray, dst: np.ndarray, num_nodes: int, *,
                      window_cap, device)
 
 
+def csr_from_scipy(mat, *, threshold: float = 0.5, add_self_loops: bool = True,
+                   symmetrize: bool = True, edge_pad_multiple: int = 128,
+                   window_cap: int | None = None, device="cpu") -> RelGraph:
+    """Build a RelGraph from a scipy sparse matrix (values ignored)."""
+    coo = mat.tocoo()
+    return csr_from_edges(
+        coo.row, coo.col, mat.shape[0], threshold=threshold,
+        add_self_loops=add_self_loops, symmetrize=symmetrize,
+        edge_pad_multiple=edge_pad_multiple, window_cap=window_cap,
+        device=device)
+
+
+def csr_from_adj_dict(adj: dict, num_nodes: int, *, threshold: float = 0.5,
+                      edge_pad_multiple: int = 128,
+                      window_cap: int | None = None,
+                      device="cpu") -> RelGraph:
+    """Build a RelGraph from a reference-format adjacency dict of sets (the
+    pickled ``defaultdict(set)`` files).  No self-loop or symmetry work is
+    done: those files hold both.  Each row is sorted."""
+    deg = np.zeros(num_nodes, dtype=np.int64)
+    for n, neighs in adj.items():
+        deg[int(n)] = len(neighs)
+    indptr = np.zeros(num_nodes + 1, dtype=np.int64)
+    np.cumsum(deg, out=indptr[1:])
+    col = np.empty(int(indptr[-1]), dtype=np.int64)
+    for n, neighs in adj.items():
+        s, e = indptr[int(n)], indptr[int(n) + 1]
+        col[s:e] = sorted(int(x) for x in neighs)
+    return _finalize(indptr, col, num_nodes, threshold, edge_pad_multiple,
+                     window_cap, device)
+
+
 def _dense_neighbor_table(indptr: np.ndarray, col: np.ndarray,
                           num_nodes: int, width: int) -> np.ndarray | None:
     """[N, width] neighbor table; rows longer than ``width`` keep their

@@ -9,7 +9,9 @@ Counterpart of ``pcgnn_tpu/train/trainer.py``.  Per epoch:
      gradient before the moments (``torch.optim.Adam(weight_decay=...)``,
      the semantics of the JAX package's ``torch_adam``).
 Validation every ``valid_epochs`` with the relative-gain model selection
-rule, patience early stop and a restore-best final test.
+rule, patience early stop and a restore-best final test.  ``resume`` saves
+the run's state at each validation and continues a cut run from it;
+``profile_dir`` traces three epochs with ``torch.profiler``.
 
 The trainer runs on ``cuda`` unless the caller passes ``device="cpu"``; it
 raises when CUDA is asked for and absent.  Random streams come from
@@ -18,7 +20,9 @@ raises when CUDA is asked for and absent.  Random streams come from
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 import time
 from typing import Optional
 
@@ -36,6 +40,7 @@ from pcgnn_tpu_torch.sampling.pick import pick_cdf, pick_probs, pick_step
 from pcgnn_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from pcgnn_tpu_torch.train.metrics import evaluate
 from pcgnn_tpu_torch.train.results import ResultManager
+from pcgnn_tpu_torch.utils.profiling import trace
 
 _EWIN_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -53,22 +58,39 @@ def resolve_device(device=None) -> torch.device:
 
 
 def _reject_unported(cfg: dict) -> None:
-    unported = [
-        (cfg.get("distributed") or int(cfg.get("num_devices") or 1) > 1,
-         "multi-device training (ROADMAP module 13)"),
-        (cfg.get("resume"), "resume (ROADMAP module 5, trainer remainder)"),
-        (cfg.get("profile_dir"), "profile_dir (ROADMAP module 12)"),
-    ]
-    for hit, what in unported:
-        if hit:
-            raise NotImplementedError(f"config asks for {what}, which is "
-                                      f"not ported yet")
+    if cfg.get("distributed") or int(cfg.get("num_devices") or 1) > 1:
+        raise NotImplementedError("config asks for multi-device training "
+                                  "(ROADMAP module 13), which is not "
+                                  "ported yet")
 
 
 def make_optimizer(model: torch.nn.Module, lr: float,
                    weight_decay: float) -> torch.optim.Adam:
     return torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999),
                             eps=1e-8, weight_decay=weight_decay)
+
+
+def adam_state(model: torch.nn.Module, optimizer: torch.optim.Adam) -> dict:
+    """The optimizer's Adam state by parameter name, as numpy: ``step``,
+    ``exp_avg`` and ``exp_avg_sq`` of each parameter that has taken a
+    step."""
+    return {name: {k: v.detach().cpu().numpy().copy()
+                   for k, v in optimizer.state[p].items()}
+            for name, p in model.named_parameters() if optimizer.state.get(p)}
+
+
+def load_adam_state(model: torch.nn.Module, optimizer: torch.optim.Adam,
+                    state: dict) -> None:
+    """Restore ``adam_state``'s output into ``optimizer``, built over
+    ``model.parameters()``.  ``Optimizer.load_state_dict`` places each
+    tensor as torch's Adam keeps it: the moments on the parameter's device
+    in its dtype, ``step`` in the dtype saved."""
+    sd = optimizer.state_dict()
+    sd["state"] = {i: {k: torch.from_numpy(np.array(v))
+                       for k, v in state[name].items()}
+                   for i, (name, _) in enumerate(model.named_parameters())
+                   if name in state}
+    optimizer.load_state_dict(sd)
 
 
 def train_step(model, optimizer, graph: MultiRelGraph, batch: torch.Tensor,
@@ -234,40 +256,81 @@ class Trainer:
             probs, _ = model.to_prob(self.graph, batch.to(self.device))
         return probs
 
+    def _resume_path(self) -> str:
+        """The resume file of this (model, data, seed, train ratio) in the
+        result tree's ``saved_models``, under the JAX package's name.  It
+        holds the port's own Adam state, so it resumes the port only: the
+        JAX package cannot load it."""
+        cfg = self.config
+        tag = (f"resume-{cfg['model']}-{cfg['data_name'].replace(':', '_')}"
+               f"-seed{cfg['seed']}-tr{cfg['train_ratio']}")
+        return os.path.join(self.result.dirs["models"], f"{tag}.ckpt")
+
     def train(self):
         cfg = self.config
         model = self.new_model()
         optimizer = self.new_optimizer(model)
         auc_best, f1_mac_best, epoch_best = 1e-10, 1e-10, 0
+        start_epoch = 0
         select_f1 = cfg.get("select", "gain") == "f1"
         thresh_best = None
+        # mid-training resume: parameters, Adam state and selection state.
+        # The epoch plans and GraphSAGE's draws are seeded from the epoch
+        # and step, so a resumed run replays the uncut run's batches
+        if cfg.get("resume"):
+            try:
+                st = load_checkpoint(self._resume_path())
+            except FileNotFoundError:
+                pass  # no resume file yet: start fresh
+            else:
+                model.load_state_dict(params_from_jax(st["params"]))
+                load_adam_state(model, optimizer, st["opt_state"])
+                auc_best, f1_mac_best = st["auc_best"], st["f1_mac_best"]
+                epoch_best, start_epoch = st["epoch_best"], st["epoch"] + 1
+                thresh_best = st.get("thresh_best")
+                print(f"Resumed from epoch {st['epoch']}")
         best_state = {k: v.clone() for k, v in model.state_dict().items()}
         epoch_times = []
-        for epoch in range(cfg["epochs"]):
-            t0 = time.time()
-            loss = float(self.run_epoch(model, optimizer, epoch))
-            epoch_times.append(time.time() - t0)
-            if (epoch + 1) % cfg["valid_epochs"] == 0:
-                print(f"Valid at epoch {epoch} (loss {loss:.4f}, "
-                      f"epoch_time {epoch_times[-1]*1e3:.1f}ms)")
-                res = evaluate(lambda nodes: self.predict(model, nodes),
-                               self.idx_valid, self.y_valid, self.batch_size,
-                               result=self.result, epoch=epoch,
-                               epoch_best=epoch_best, flag="val",
-                               sweep_thresh=select_f1)
-                gain_auc = (res.auc - auc_best) / auc_best
-                gain_f1 = (res.f1_macro - f1_mac_best) / f1_mac_best
-                if gain_auc + gain_f1 > 0:
-                    auc_best, f1_mac_best, epoch_best = (res.auc, res.f1_macro,
-                                                         epoch)
-                    thresh_best = res.thresh
-                    best_state = {k: v.clone()
-                                  for k, v in model.state_dict().items()}
-                    save_checkpoint(self.result.model_path,
-                                    params_to_jax(model))
-            if (epoch - epoch_best) > cfg["patience"]:
-                print(f"Early stopping at epoch {epoch}")
-                break
+        profile_dir = cfg.get("profile_dir")
+        # the trace spans epochs start+2 to start+4, and closes when the
+        # epochs end first
+        with contextlib.ExitStack() as tracing:
+            for epoch in range(start_epoch, cfg["epochs"]):
+                if profile_dir and epoch == start_epoch + 2:
+                    tracing.enter_context(trace(profile_dir, self.device))
+                t0 = time.time()
+                loss = float(self.run_epoch(model, optimizer, epoch))
+                epoch_times.append(time.time() - t0)
+                if profile_dir and epoch == start_epoch + 4:
+                    tracing.close()
+                if (epoch + 1) % cfg["valid_epochs"] == 0:
+                    print(f"Valid at epoch {epoch} (loss {loss:.4f}, "
+                          f"epoch_time {epoch_times[-1]*1e3:.1f}ms)")
+                    res = evaluate(lambda nodes: self.predict(model, nodes),
+                                   self.idx_valid, self.y_valid,
+                                   self.batch_size, result=self.result,
+                                   epoch=epoch, epoch_best=epoch_best,
+                                   flag="val", sweep_thresh=select_f1)
+                    gain_auc = (res.auc - auc_best) / auc_best
+                    gain_f1 = (res.f1_macro - f1_mac_best) / f1_mac_best
+                    if gain_auc + gain_f1 > 0:
+                        auc_best, f1_mac_best, epoch_best = (
+                            res.auc, res.f1_macro, epoch)
+                        thresh_best = res.thresh
+                        best_state = {k: v.clone()
+                                      for k, v in model.state_dict().items()}
+                        save_checkpoint(self.result.model_path,
+                                        params_to_jax(model))
+                    if cfg.get("resume"):
+                        save_checkpoint(self._resume_path(), dict(
+                            params=params_to_jax(model),
+                            opt_state=adam_state(model, optimizer),
+                            epoch=epoch, auc_best=auc_best,
+                            f1_mac_best=f1_mac_best, epoch_best=epoch_best,
+                            thresh_best=thresh_best))
+                if (epoch - epoch_best) > cfg["patience"]:
+                    print(f"Early stopping at epoch {epoch}")
+                    break
 
         print(f"Restore model from epoch {epoch_best}")
         try:

@@ -716,3 +716,103 @@ def test_pick_repeats_at_stress_size(card):
         g = torch.Generator(device=card).manual_seed(7)
         draws.append(pick_step(g, idx, pick_cdf(weights), 40_000))
     assert all(torch.equal(d, draws[0]) for d in draws)
+
+
+# --------------------------------------------------- resume and profile_dir
+
+def _small_cfg(**kw):
+    cfg = dict(seed=2, data_name="synthetic:small", model="PCGNN",
+               train_ratio=0.4, test_ratio=0.67, emb_size=16, lr=0.01,
+               weight_decay=0.001, alpha=2.0, rho=0.5, epochs=4,
+               valid_epochs=1, batch_size=256, patience=10, exp_num=0)
+    cfg.update(kw)
+    return cfg
+
+
+def test_adam_state_round_trip_on_card(card):
+    """The restored Adam state sits where torch's Adam keeps its own on
+    the card (moments on the parameter's device, ``step`` as torch makes
+    it), equal, and the next step is the same."""
+    from pcgnn_tpu_torch.train.trainer import (adam_state, load_adam_state,
+                                               make_optimizer)
+    gen = torch.Generator(device=card).manual_seed(0)
+    model = torch.nn.Linear(16, 4).to(card)
+    x = torch.randn(64, 16, generator=gen, device=card)
+    opt = make_optimizer(model, 0.01, 0.001)
+
+    def step(m, o):
+        o.zero_grad()
+        m(x).square().sum().backward()
+        o.step()
+
+    step(model, opt)
+    twin = torch.nn.Linear(16, 4).to(card)
+    twin.load_state_dict(model.state_dict())
+    opt2 = make_optimizer(twin, 0.01, 0.001)
+    load_adam_state(twin, opt2, adam_state(model, opt))
+    for p, q in zip(model.parameters(), twin.parameters()):
+        for k, v in opt.state[p].items():
+            w = opt2.state[q][k]
+            assert (w.dtype, w.device) == (v.dtype, v.device), k
+            assert torch.equal(w, v), k
+    step(model, opt)
+    step(twin, opt2)
+    for p, q in zip(model.parameters(), twin.parameters()):
+        torch.testing.assert_close(q, p, rtol=0, atol=1e-6)
+
+
+def test_resume_on_card(card, tmp_path, monkeypatch):
+    """A 4-epoch run cut after 2 and resumed replays the uncut run's epoch
+    plans exactly, and ends within atol 1e-3 of its parameters (the
+    card's step against the CPU's, phase 6 of chip_smoke.py)."""
+    from pcgnn_tpu_torch.train.checkpoint import load_checkpoint
+    from pcgnn_tpu_torch.train.results import ResultManager
+    from pcgnn_tpu_torch.train.trainer import Trainer
+    plans = []
+    plan = Trainer.epoch_plan
+
+    def recorded(self, epoch):
+        out = plan(self, epoch)
+        plans[-1][epoch] = [x.cpu() for x in out]
+        return out
+
+    monkeypatch.setattr(Trainer, "epoch_plan", recorded)
+    cfg = _small_cfg(resume=True)
+    finals = []
+    for tag, cut in (("uncut", None), ("cut", 2)):
+        root = str(tmp_path / tag)
+        if cut:
+            plans.append({})
+            Trainer(dict(cfg, epochs=cut),
+                    result=ResultManager(cfg, root=root)).train()
+        plans.append({})
+        t = Trainer(cfg, result=ResultManager(cfg, root=root))
+        assert t.device.type == "cuda"
+        t.train()
+        finals.append(load_checkpoint(t._resume_path()))
+    uncut, _, resumed = plans
+    assert sorted(resumed) == [2, 3]
+    for e in (2, 3):
+        for a, b in zip(uncut[e], resumed[e]):
+            assert torch.equal(a, b)
+    assert finals[0]["epoch"] == finals[1]["epoch"] == 3
+    a, b = finals[0]["params"], finals[1]["params"]
+    for k in ("label_clf", "inter", "head"):
+        for leaf in a[k]:
+            np.testing.assert_allclose(b[k][leaf], a[k][leaf], rtol=0,
+                                       atol=1e-3, err_msg=k)
+
+
+def test_profile_dir_on_card_traces_the_window_gather(card, tmp_path):
+    """A 5-epoch run with ``profile_dir`` writes a trace of epochs 2-4
+    whose kernels hold a window gather on every traced step."""
+    from pcgnn_tpu_torch.train.results import ResultManager
+    from pcgnn_tpu_torch.train.trainer import Trainer
+    from pcgnn_tpu_torch.utils.profiling import trace_kernels
+    cfg = _small_cfg(epochs=5, profile_dir=str(tmp_path / "prof"))
+    t = Trainer(cfg, result=ResultManager(cfg, root=str(tmp_path / "r")))
+    t.train()
+    (path,) = (tmp_path / "prof").glob("trace-*.json")
+    kernels = trace_kernels(str(path))
+    gathers = sum(n for k, n in kernels.items() if "window_gather_kernel" in k)
+    assert gathers >= 3 * t.num_batches, kernels.most_common(10)

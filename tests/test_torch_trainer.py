@@ -1,6 +1,7 @@
 """Trainer, splits, metrics, pick, checkpoints and config: the port against
 the JAX package (which takes its splits and metrics from scikit-learn)."""
 
+import copy
 import json
 import os
 
@@ -30,6 +31,8 @@ from pcgnn_tpu_torch.train.results import ResultManager as TResults
 from pcgnn_tpu_torch.train.trainer import Trainer as TTrainer
 from pcgnn_tpu_torch.train.trainer import make_optimizer
 from pcgnn_tpu_torch.utils import config as tconfig
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _cfg(**kw):
@@ -302,33 +305,48 @@ def test_config_matches_jax(tmp_path):
 
 @pytest.mark.parametrize("key,value", [("num_devices", 2),
                                        ("edge_windows", False),
-                                       ("resume", True)])
+                                       ("resume", True),
+                                       ("profile_dir", "prof")])
 def test_trainer_rejects_unported_config(tmp_path, key, value):
-    """Multi-device training and resume are refused as not ported.
-    ``edge_windows: false`` is ported: the trainer builds no store and
-    trains on the lanes without them."""
+    """Multi-device training is refused as not ported.  ``edge_windows:
+    false`` is ported: the trainer builds no store and trains on the lanes
+    without them.  ``resume`` and ``profile_dir`` are ported: a trainer
+    takes them and trains."""
+    if key == "profile_dir":
+        value = str(tmp_path / value)
     cfg = _cfg(**{key: value})
     result = TResults(cfg, root=str(tmp_path))
+    if key == "num_devices":
+        with pytest.raises(NotImplementedError, match="not ported"):
+            TTrainer(cfg, device="cpu", result=result)
+        return
+    t = TTrainer(cfg, device="cpu", result=result)
     if key == "edge_windows":
-        t = TTrainer(cfg, device="cpu", result=result)
         g = t.graph
         assert g.fused is None and g.features_pad is None
         assert all(r.ewin is None for r in (*g.relations, g.homo))
         loss = t.run_epoch(t.new_model(), t.new_optimizer(t.model), 0)
         assert torch.isfinite(loss)
         return
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TTrainer(cfg, device="cpu", result=result)
+    auc, _, _ = t.train()
+    assert 0.0 <= auc <= 1.0
+    written = (os.path.exists(t._resume_path()) if key == "resume"
+               else len(os.listdir(value)) == 1)
+    assert written
 
 
 def test_unported_datasets_raise(tmp_path, monkeypatch):
-    """The real-file datasets wait for the loaders (module 12); the stress
-    presets load (cut small here): directed relations and a degree-only
-    homo stub."""
+    """Every dataset of the JAX package loads in the port: an unknown name
+    raises as there, a real dataset whose files are missing raises the
+    file error (``tests/test_torch_loaders.py`` loads fabricated ones);
+    the stress presets load (cut small here): directed relations and a
+    degree-only homo stub."""
     from pcgnn_tpu_torch.data import synthetic
     from pcgnn_tpu_torch.data.loaders import load_data
-    with pytest.raises(NotImplementedError, match="module 12"):
-        load_data("yelp")
+    with pytest.raises(ValueError, match="unknown dataset"):
+        load_data("no-such-dataset")
+    with pytest.raises(FileNotFoundError):
+        load_data("yelp", str(tmp_path) + "/")
     monkeypatch.setitem(synthetic.PRESETS, "stress-1m",
                         (2048, 8, 0.05, (4096, 2048, 1024), 3))
     g = load_data("synthetic:stress-1m")
@@ -345,3 +363,178 @@ def test_cli_runs_on_cpu(tmp_path, monkeypatch, capsys):
     assert 0.0 <= auc <= 1.0
     assert "Test performance" in capsys.readouterr().out
     assert os.path.isdir(tmp_path / "experimental_results" / "test_log")
+
+
+# ------------------------------ resume ------------------------------ #
+
+def _resume_runs(tmp_path, cut, **kw):
+    """An uncut run of ``_cfg(**kw)`` and the same run cut after ``cut``
+    epochs and resumed, each in its own result root; returns the two
+    trainers, their test results and their resume files."""
+    cfg = _cfg(resume=True, **kw)
+    runs = {}
+    for tag in ("uncut", "cut"):
+        root = str(tmp_path / tag)
+        if tag == "cut":
+            TTrainer(dict(cfg, epochs=cut), device="cpu",
+                     result=TResults(cfg, root=root)).train()
+        t = TTrainer(cfg, device="cpu", result=TResults(cfg, root=root))
+        res = t.train()
+        runs[tag] = (t, res, tckpt.load_checkpoint(t._resume_path()))
+    return runs
+
+
+def _assert_tree_equal(a, b, path=""):
+    if isinstance(a, dict):
+        assert sorted(a) == sorted(b), path
+        for k in a:
+            _assert_tree_equal(a[k], b[k], f"{path}/{k}")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            _assert_tree_equal(x, y, f"{path}/{i}")
+    elif isinstance(a, np.ndarray):
+        assert a.dtype == b.dtype, path
+        np.testing.assert_array_equal(a, b, err_msg=path)
+    else:
+        assert a == b, path
+
+
+@pytest.mark.parametrize("kw", [dict(model="PCGNN"), dict(model="GCN"),
+                                dict(model="SAGE", num_sample=4),
+                                dict(model="PCGNN", learn_features=True)],
+                         ids=["PCGNN", "GCN", "SAGE", "learned"])
+def test_resumed_run_equals_uncut_run(tmp_path, kw):
+    """A run cut after epoch 3 and resumed to 6 ends exactly equal to the
+    uncut run on the CPU: the resume file (parameters, Adam state,
+    selection state), the restored model and the test metrics."""
+    runs = _resume_runs(tmp_path, cut=3, **kw)
+    (tu, ru, su), (tc, rc, sc) = runs["uncut"], runs["cut"]
+    assert su["epoch"] == sc["epoch"] == 5
+    _assert_tree_equal(su, sc)
+    assert su["opt_state"] and all(
+        st["step"].dtype == np.float32 and st["step"] == 6 * tu.num_batches
+        for st in su["opt_state"].values())
+    if kw.get("learn_features"):
+        assert "embed" in su["params"] and "embed" in su["opt_state"]
+    assert ru == rc
+    for (k, a), (_, b) in zip(tu.model.state_dict().items(),
+                              tc.model.state_dict().items()):
+        assert torch.equal(a, b), k
+    assert len(tc.epoch_times) == 3
+
+
+def test_adam_state_round_trip():
+    """``adam_state`` / ``load_adam_state`` give torch's Adam back exactly
+    as it keeps its state (dtype and device of every tensor, ``step``
+    included), so the next step is the same."""
+    from pcgnn_tpu_torch.train.trainer import adam_state, load_adam_state
+    gen = torch.Generator().manual_seed(0)
+    model = torch.nn.Sequential(torch.nn.Linear(4, 3), torch.nn.Linear(3, 2))
+    opt = make_optimizer(model, 0.01, 0.001)
+    x = torch.randn(8, 4, generator=gen)
+
+    def step(m, o):
+        o.zero_grad()
+        m(x).square().sum().backward()
+        o.step()
+
+    for _ in range(2):
+        step(model, opt)
+    saved = adam_state(model, opt)
+    twin = copy.deepcopy(model)
+    opt2 = make_optimizer(twin, 0.01, 0.001)
+    load_adam_state(twin, opt2, saved)
+    for p, q in zip(model.parameters(), twin.parameters()):
+        for k, v in opt.state[p].items():
+            w = opt2.state[q][k]
+            assert (w.dtype, w.device, w.shape) == (v.dtype, v.device,
+                                                    v.shape), k
+            assert torch.equal(w, v), k
+    step(model, opt)
+    step(twin, opt2)
+    for p, q in zip(model.parameters(), twin.parameters()):
+        assert torch.equal(p, q)
+
+
+def test_resume_continues_training(tmp_path, monkeypatch):
+    """Mirror of the JAX package's test: a second run resumes from the
+    first run's last epoch (a missing file starts fresh)."""
+    monkeypatch.chdir(tmp_path)
+    cfg = _cfg(epochs=3, valid_epochs=1, resume=True)
+    t1 = TTrainer(cfg, device="cpu")
+    assert not os.path.exists(t1._resume_path())
+    t1.train()
+    t2 = TTrainer(dict(cfg, epochs=5), device="cpu")
+    assert os.path.exists(t2._resume_path())
+    assert t2._resume_path() == JTrainer(cfg)._resume_path()
+    t2.train()
+    st = tckpt.load_checkpoint(t2._resume_path())
+    assert st["epoch"] == 4
+    assert len(t2.epoch_times) == 2
+
+
+# ---------------------------- profile_dir ---------------------------- #
+
+@pytest.mark.parametrize("epochs,traced", [(5, 3), (3, 1)])
+def test_profile_dir_writes_a_trace(tmp_path, epochs, traced):
+    """The trace spans epochs 2-4 (from the start epoch); a run that ends
+    before epoch 4 closes it when its epochs end.  Every traced step runs
+    one Adam step."""
+    prof = tmp_path / "prof"
+    cfg = _cfg(epochs=epochs, valid_epochs=1, profile_dir=str(prof))
+    t = TTrainer(cfg, device="cpu",
+                 result=TResults(cfg, root=str(tmp_path / "r")))
+    t.train()
+    (path,) = prof.glob("trace-*.json")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    steps = sum(1 for e in events if e.get("ph") == "X"
+                and e.get("name", "").startswith("Optimizer.step#Adam"))
+    assert steps == traced * t.num_batches
+
+
+# -------------------------- files and the CLI -------------------------- #
+
+def test_load_native_refuses_a_threshold_list(tmp_path, monkeypatch):
+    """The JAX package's ``load_native`` fails inside numpy on a
+    per-relation list; the port refuses it with its own message, through
+    ``load_data`` and the trainer too."""
+    from pcgnn_tpu.data import loaders as jloaders
+    from pcgnn_tpu_torch.data import loaders as tloaders
+    monkeypatch.chdir(tmp_path)
+    tloaders.save_native("g.npz", torch_graph("tiny", seed=0))
+    thr = [0.3, 0.5, 0.7]
+    with pytest.raises(ValueError, match="broadcast"):
+        jloaders.load_native("g.npz", threshold=thr)
+    for call in (lambda: tloaders.load_native("g.npz", threshold=thr),
+                 lambda: tloaders.load_data("g.npz", threshold=thr),
+                 lambda: TTrainer(_cfg(data_name="g.npz", thresholds=thr),
+                                  device="cpu")):
+        with pytest.raises(ValueError, match="per-relation thresholds"):
+            call()
+    assert tloaders.load_native("g.npz", threshold=0.3).num_relations == 3
+
+
+def test_cli_runs_the_yelpchi_config_on_fabricated_files(tmp_path,
+                                                         monkeypatch, capsys):
+    """``configs/pcgnn_yelpchi.json``'s keys, pointed at tiny YelpChi-format
+    files (``data_prefix``), cut to 2 epochs, through the CLI on the CPU."""
+    from tests.test_torch_loaders import write_pickled
+    write_pickled(str(tmp_path / "data"), "yelp", n=300, f=32,
+                  layout="review")
+    cfg = tconfig.load_config(os.path.join(ROOT, "configs",
+                                           "pcgnn_yelpchi.json"))
+    assert cfg["data_name"] == "yelp"
+    cfg.update(data_prefix=str(tmp_path / "data") + "/", epochs=2,
+               valid_epochs=1, batch_size=64)
+    path = tmp_path / "c.json"
+    path.write_text(json.dumps(cfg))
+    monkeypatch.chdir(tmp_path)
+    auc, recall, f1 = cli.main(["--exp_config_path", str(path),
+                                "--device", "cpu"])
+    assert 0.0 <= auc <= 1.0 and np.isfinite([recall, f1]).all()
+    out = capsys.readouterr().out
+    assert "Valid at epoch 1" in out and "Test performance" in out
+    assert os.listdir(tmp_path / "experimental_results" / "test_df") == [
+        "PCGNN-yelp.csv"]
