@@ -100,7 +100,22 @@ Phase 11 also times the learned steps in the same turns.  Then:
      run resumed to 4, whose epoch plans must equal the uncut run's and
      whose final parameters must be within 1e-3 of them (it prints that
      difference beside the two uncut runs'); and ``profile_dir``: a 5-epoch
-     run whose trace of epochs 2-4 holds a window gather on every step.
+     run whose trace of epochs 2-4 holds a window gather on every step;
+ 22. on every relation of yelp-like's and stress-1m's graphs, the full-graph
+     ops: the three lowerings of ``segment_mean_spmm`` (window, edge-window
+     on the bf16 store, segment with an all-true ``keep``) and the edge
+     scoring (``edge_abs_diff``, its window and edge-window forms,
+     ``edge_ranks_global``), once each with every launch count at 0: each
+     edge-window call launches the window gather once per node chunk; the
+     lowerings agree with one another on the card and with their plain CPU
+     run (stress-1m's on 4,096 seeded rows); the segment form is called
+     twice and whether it repeats bit for bit is printed; then each call is
+     timed with ``utils.roofline.measure`` against its bytes, and the
+     window gather is timed at the path's shape on each graph's largest
+     relation (``chunk_sweep.py`` times the node chunk widths that chose
+     the path's); last, ``Trainer.single_step`` is timed
+     on yelp-like at ``nscan`` 1 and 16 against
+     ``pcgnn_step_streaming_bytes``.
 
 Every profiled run (phases 5, 9, 14, 16-18) counts the host syncs of one
 step; a run whose relations have no hub rows must make none.
@@ -182,17 +197,15 @@ def card_line() -> str:
     return out[0].strip()
 
 
-def memory_rate(name: str) -> float:
-    """The card's published memory rate in bytes/s, from its name."""
-    if "H200" in name:
-        return 4.8e12
-    if "H100" in name:
-        if "PCIe" in name:
-            return 2.0e12
-        if "NVL" in name:
-            return 3.9e12
-        return 3.35e12            # H100 SXM (80GB HBM3)
-    raise RuntimeError(f"no published memory rate known for {name!r}")
+def memory_rate() -> float:
+    """Card 0's published memory rate in bytes/s, from its name
+    (``utils.roofline.chip_peaks``); raises for a card not in its table."""
+    from pcgnn_tpu_torch.utils.roofline import chip_peaks
+    rate, _ = chip_peaks(0)
+    if rate is None:
+        raise RuntimeError(f"no published memory rate known for "
+                           f"{torch.cuda.get_device_name(0)!r}")
+    return rate
 
 
 def host_ops(prof) -> list:
@@ -1327,7 +1340,7 @@ def plan_check(t, picks: int = 20) -> dict:
             "train_nodes": int(w32.numel()), "draws": t.sample_size}
 
 
-def stress_phase(rate: float) -> dict:
+def stress_phase(rate: float) -> tuple:
     """Phase 17: PC-GNN on the 1M-node stress preset.  The graph is built
     on the host (its seconds printed), the relations' bf16 stores on the
     card; one epoch in the per-relation store lane (three window gathers a
@@ -1336,7 +1349,8 @@ def stress_phase(rate: float) -> dict:
     (``stress_window_cases``); then, without stores or the padded table,
     one step in the clamped-id lane against the CPU's, and one forward with
     every dense table dropped (the CSR branch, through the ragged gather),
-    equal to the dense-table forward."""
+    equal to the dense-table forward.  Returns the phase's record and the
+    graph with its stores (phase 22 reuses it)."""
     from pcgnn_tpu_torch.data.loaders import load_data
     from pcgnn_tpu_torch.train.trainer import Trainer
     t1 = time.time()
@@ -1372,7 +1386,7 @@ def stress_phase(rate: float) -> dict:
                              "the clamped-id lane")
     run["clamp_card_vs_cpu"] = card_vs_cpu_phase(tc)
     run["csr_branch"] = csr_branch_phase(tc)
-    return run
+    return run, t.graph
 
 
 # configs/pcgnn_yelpchi.json, cut to 2 epochs with a validation at the end,
@@ -1654,6 +1668,338 @@ def resume_phase(work: str, graph, card: str) -> dict:
     return out
 
 
+# phase 22: the full-graph ops on every relation of yelp-like and stress-1m.
+# stress-1m's results are held against a plain CPU computation on a seeded
+# sample of rows: a CPU segment pass over its 13M x 64 floats takes minutes
+# and gigabytes
+FULL_SAMPLE_ROWS = 4096
+# measure's run length per timed call
+FULL_TARGET_S = 0.05
+# the means are float32 sums taken in another order on each device; the
+# edge-window distances score each neighbor from its window row (float64,
+# rounded once) where the window form gathers the score table's value
+MEAN_TOL = dict(rtol=1e-5, atol=1e-6)
+EWIN_ATOL = 1e-5
+
+
+def full_graph_calls(rel, x, s0, w0, b0) -> list:
+    """[(name, fn, args, bytes)] of one relation's full-graph calls: the
+    three lowerings of the mean (the segment form forced by an all-true
+    ``keep``; the edge-window form on the store, whose snapshot ``x``
+    must be) and the three forms of the edge scoring, on scores ``s0`` of
+    ``x`` by ``w0``, ``b0``.  ``bytes`` is what ``benchmarks/roofline.py``
+    counts for the same call: each gathered row read once with its ids,
+    each output written once."""
+    from pcgnn_tpu_torch.ops import aggregate as agg
+    from pcgnn_tpu_torch.ops import sddmm
+    n, f = x.shape
+    nd = n * max(rel.window_width, 1)
+    spmm_bytes = rel.e_pad * (f * 4 + 8) + n * (f * 4 + 4)
+    keep = torch.ones(rel.e_pad, dtype=torch.bool, device=x.device)
+    return [
+        ("spmm_window", agg.segment_mean_spmm, (rel, x), spmm_bytes),
+        ("spmm_ewin", lambda r, y: agg.segment_mean_spmm(
+            r, y, assume_ewin_features=True), (rel, x), spmm_bytes),
+        ("spmm_segment", agg.segment_mean_spmm, (rel, x, keep), spmm_bytes),
+        ("sddmm_window", sddmm.edge_abs_diff_window, (rel, s0), nd * 13),
+        ("sddmm_ewin", sddmm.edge_abs_diff_window_ewin, (rel, s0, w0, b0),
+         nd * (4 * f + 5)),
+        ("sddmm_flat", sddmm.edge_abs_diff, (rel, s0), rel.e_pad * 12)]
+
+
+def ranks_call(rel, dist) -> tuple:
+    """``edge_ranks_global``'s call, with its bytes (benchmarks/roofline.py
+    counts none): each distance read once, each rank written once, and
+    the row offsets read once."""
+    from pcgnn_tpu_torch.ops.sddmm import edge_ranks_global
+    return ("edge_ranks", edge_ranks_global, (rel, dist),
+            rel.e_pad * 8 + (rel.num_nodes + 1) * 4)
+
+
+def check_mean(name, got, want, errs) -> None:
+    err = float((got.double() - want.double()).abs().max())
+    errs[name] = max(errs.get(name, 0.0), err)
+    torch.testing.assert_close(got.double(), want.double(), **MEAN_TOL,
+                               msg=lambda m: f"{name}: {m}")
+
+
+def check_ewin_dist(name, got, want, errs) -> None:
+    """Edge-window distances against a reference's: the same valid slots,
+    within ``EWIN_ATOL`` there, +inf elsewhere."""
+    (d, v), (dw, vw) = got, want
+    if not torch.equal(v, vw):
+        raise AssertionError(f"{name}: valid masks differ")
+    err = float((d[v] - dw[v]).abs().max()) if v.any() else 0.0
+    errs[name] = max(errs.get(name, 0.0), err)
+    if not err <= EWIN_ATOL or not torch.isinf(d[~v]).all():
+        raise AssertionError(f"{name}: distances differ by {err}")
+
+
+def check_exact(name, got, want, errs) -> None:
+    got, want = (tuple(x) if isinstance(x, tuple) else (x,)
+                 for x in (got, want))
+    for a, b in zip(got, want):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name} differs from its reference")
+    errs.setdefault(name, 0.0)
+
+
+def cpu_full_check(rel, x, s0, w0, b0, got, errs) -> None:
+    """Each call again on the CPU (the plain path), on the whole relation:
+    the means within ``MEAN_TOL``, the window and flat distances and the
+    ranks exactly, the edge-window distances within ``EWIN_ATOL``."""
+    cpu = torch.device("cpu")
+    args = (rel.to(cpu), x.cpu(), s0.cpu(), w0.cpu(), b0.cpu())
+    calls = full_graph_calls(*args)
+    want = {name: fn(*a) for name, fn, a, _ in calls}
+    name, fn, a, _ = ranks_call(args[0], want["sddmm_flat"])
+    want[name] = fn(*a)
+    for name, out in got.items():
+        ref = want[name]
+        out = (tuple(o.cpu() for o in out) if isinstance(out, tuple)
+               else out.cpu())
+        if name.startswith("spmm"):
+            check_mean(name, out, ref, errs)
+        elif name == "sddmm_ewin":
+            check_ewin_dist(name, out, ref, errs)
+        else:
+            check_exact(name, out, ref, errs)
+
+
+def cpu_sample_check(rel, x, s0, w0, b0, got, rows, errs) -> None:
+    """The calls' results at ``rows`` against plain CPU computations of
+    those rows from the CSR: the mean over each row's neighbors (float64),
+    each window and flat distance, each edge-window distance (the
+    neighbors' rows scored as ``selection_score`` scores them) and each
+    edge's rank within its row (a stable argsort).  For a relation without
+    hub rows, whose window holds every edge of a row."""
+    from pcgnn_tpu_torch.ops.aggregate import selection_score
+    if rel.has_hubs:
+        raise ValueError("cpu_sample_check reads whole rows from the window")
+    d = max(rel.window_width, 1)
+    rows_d = rows.to(x.device)
+    nbr = rel.nbr2d[rows_d].cpu().long()
+    deg = rel.deg[rows_d].cpu().long()
+    valid = torch.arange(d)[None, :] < deg[:, None]
+    xc = torch.cat([x.cpu(), x.new_zeros((1, x.shape[1]), device="cpu")])
+    s0c = torch.cat([s0.cpu(), s0.new_zeros(1, device="cpu")])
+    xw = torch.where(valid[..., None], xc[nbr].double(), 0.0)
+    mean = xw.sum(1) / deg.clamp(min=1)[:, None]
+    for name in ("spmm_window", "spmm_ewin", "spmm_segment"):
+        check_mean(name, got[name][rows_d].cpu(), mean, errs)
+    center = s0c[rows][:, None]
+    dist = torch.where(valid, (center - s0c[nbr]).abs(), math.inf)
+    dw, vw = (t[rows_d].cpu() for t in got["sddmm_window"])
+    check_exact("sddmm_window", (dw, vw), (dist, valid), errs)
+    s_n = selection_score(xc[nbr], w0.cpu(), b0.cpu())
+    dist_e = torch.where(valid, (center - s_n).abs(), math.inf)
+    check_ewin_dist("sddmm_ewin",
+                    tuple(t[rows_d].cpu() for t in got["sddmm_ewin"]),
+                    (dist_e, valid), errs)
+    # each row's edges, at its window's valid slots
+    pos = torch.where(valid, rel.indptr[rows_d].cpu().long()[:, None]
+                      + torch.arange(d), 0)
+    flat = got["sddmm_flat"].cpu()
+    check_exact("sddmm_flat", flat[pos][valid], dist[valid], errs)
+    span = torch.where(valid, flat[pos], math.inf)
+    order = torch.argsort(span, dim=1, stable=True)
+    rank = torch.argsort(order, dim=1, stable=True).to(torch.int32)
+    check_exact("edge_ranks", got["edge_ranks"].cpu()[pos][valid],
+                rank[valid], errs)
+
+
+def full_graph_relation(rel, x, s0, w0, b0, rows=None) -> dict:
+    """Phase 22 on one relation: each call once (the path), each
+    edge-window call launching the window gather once per node chunk; the
+    lowerings held against one another on the card; the segment form
+    called again, bit for bit or not; each call against its plain CPU run
+    (whole, or at ``rows``); then each call timed with
+    ``utils.roofline.measure`` against its bytes."""
+    from pcgnn_tpu_torch.ops import aggregate as agg
+    from pcgnn_tpu_torch.ops import sddmm
+    from pcgnn_tpu_torch.ops import window_gather as wg
+    from pcgnn_tpu_torch.utils.roofline import measure
+    n = rel.num_nodes
+    mods = kernel_counters()
+    start = {k: m.launches for k, m in mods.items()}
+    calls = full_graph_calls(rel, x, s0, w0, b0)
+    got, launches = {}, {}
+    for name, fn, args, _ in calls:
+        before = wg.launches
+        got[name] = fn(*args)
+        launches[name] = wg.launches - before
+    name, fn, args, nbytes = ranks_call(rel, got["sddmm_flat"])
+    calls.append((name, fn, args, nbytes))
+    got[name] = fn(*args)
+    torch.cuda.synchronize()
+    # the path's launches; the checks and timings below launch more
+    path = {k: m.launches - start[k] for k, m in mods.items()}
+    want = {"spmm_ewin": -(-n // agg.SPMM_NODE_CHUNK),
+            "sddmm_ewin": -(-n // sddmm.SDDMM_NODE_CHUNK)}
+    for name, count in launches.items():
+        if count != want.get(name, 0) or (name in want and not count):
+            raise AssertionError(f"{name} launched the window gather {count} "
+                                 f"times, expected {want.get(name, 0)}")
+    errs = {}
+    # the lowerings against one another on the card
+    torch.testing.assert_close(got["spmm_window"], got["spmm_segment"],
+                               **MEAN_TOL)
+    if not torch.equal(got["spmm_ewin"], got["spmm_window"]):
+        raise AssertionError("the edge-window mean differs from the window "
+                             "mean on the store's table")
+    check_ewin_dist("sddmm_ewin_vs_window", got["sddmm_ewin"],
+                    got["sddmm_window"], errs)
+    name, fn, args, _ = calls[2]
+    again = fn(*args)
+    segment_repeats = bool(torch.equal(again, got["spmm_segment"]))
+    del again
+    t1 = time.time()
+    if rows is None:
+        cpu_full_check(rel, x, s0, w0, b0, got, errs)
+    else:
+        cpu_sample_check(rel, x, s0, w0, b0, got, rows, errs)
+    cpu_s = time.time() - t1
+    del got
+    timed = {}
+    for name, fn, args, nbytes in calls:
+        r = measure(fn, *args, analytic_bytes=nbytes, target_s=FULL_TARGET_S)
+        timed[name] = {k: r[k] for k in ("wall_ms", "sol_frac", "sol_ms",
+                                          "achieved_gbps", "analytic_bytes")}
+    return {"nodes": n, "edges": rel.num_edges, "e_pad": rel.e_pad,
+            "window_width": rel.window_width, "ewin_dp": rel.ewin_dp,
+            "window_launches": launches, "path_launches": path,
+            "segment_repeats": segment_repeats,
+            "max_abs_err": errs, "cpu_s": cpu_s,
+            "cpu_rows": n if rows is None else len(rows), "timed": timed}
+
+
+def full_graph_window_case(name, rel, rate: float) -> dict:
+    """The window gather at a full-graph call's shape: the starts of
+    ``SPMM_NODE_CHUNK`` consecutive nodes, widened to float32 (the call's
+    fetch), timed as phase 2 times its cases, over ``TIMING_REPS`` calls
+    that take the relation's whole chunks in turn (a profile of yelp-like's
+    two chunks alone recorded no kernel in five tries on an H100).
+    Consecutive nodes' windows overlap in the store, so the bytes the copy
+    must read are the store span the chunk's windows cover, once (not each
+    window): the bounds count that span and each window written once.  The
+    profiler's kernel time undercounts these write-heavy calls (a widened
+    chunk read below its bound), so the back-to-back CUDA-event times are
+    the ones reported, and a copy, widening or ``index_select`` run that
+    reads under its bound (by more than ``SOL_LIMIT``) fails."""
+    from pcgnn_tpu_torch.ops import aggregate as agg
+    from pcgnn_tpu_torch.utils.roofline import SOL_LIMIT
+    c = min(agg.SPMM_NODE_CHUNK, rel.num_nodes)
+    chunks = max(rel.num_nodes // c, 1)
+    starts = [rel.estart[i % chunks * c:(i % chunks + 1) * c]
+              for i in range(TIMING_REPS)]
+    esize = rel.ewin.element_size()
+    a = 16 // esize
+    err = check_gather(rel.ewin, starts[0], rel.ewin_dp,
+                       out_dtype=torch.float32)
+    case = window_case(name, rel.ewin, starts, rel.ewin_dp,
+                       strided_rows(rel.ewin, rel.ewin_dp, a),
+                       [st // a for st in starts], rate=rate)
+    span = float(np.mean([int(st[-1]) + rel.ewin_dp - int(st[0])
+                          for st in starts])) * esize
+    written = c * rel.ewin_dp
+    case.update(bytes=span + written * esize + c * 8,
+                widen_bytes=span + written * 4 + c * 8,
+                span_bytes=span, max_abs_err=err)
+    case["bound_ms"] = case["bytes"] / rate * 1e3
+    case["widen_bound_ms"] = case["widen_bytes"] / rate * 1e3
+    for key, bound in (("run_ms", "bound_ms"), ("library_run_ms", "bound_ms"),
+                       ("widen_run_ms", "widen_bound_ms")):
+        if case[key] * SOL_LIMIT < case[bound]:
+            raise AssertionError(f"{name}: {key} {case[key]:.4f} reads under "
+                                 f"its bound {case[bound]:.4f} ms; the timing "
+                                 f"or the byte count is wrong")
+    return case
+
+
+def full_graph_inputs(g, rel):
+    """(x, s0, w0, b0): the table ``rel``'s store holds (the features,
+    bf16-rounded in a bf16 store), random weights from a seed, and the
+    scores of that table."""
+    from pcgnn_tpu_torch.ops.aggregate import selection_score
+    gen = torch.Generator().manual_seed(22)
+    f = g.feat_dim
+    w0 = (torch.randn(f, generator=gen) / math.sqrt(f)).to(g.features.device)
+    b0 = torch.tensor(0.25, device=g.features.device)
+    x = g.features.to(rel.ewin.dtype).float()
+    return x, selection_score(x, w0, b0), w0, b0
+
+
+def full_graph_phase(graphs: dict, rate: float, card: str) -> dict:
+    """Phase 22: every relation of each graph (``full_graph_relation``;
+    stress-1m's CPU check on ``FULL_SAMPLE_ROWS`` seeded rows), with every
+    kernel count set to 0 just before and its path calls' launches summed;
+    then the window gather at the path's shape, on each graph's largest
+    relation."""
+    mods = kernel_counters()
+    for mod in mods.values():
+        mod.launches = 0
+    out = {"graphs": {}, "launches": dict.fromkeys(mods, 0)}
+    for gname, g in graphs.items():
+        rels = {}
+        for r, rel in enumerate(g.relations):
+            x, s0, w0, b0 = full_graph_inputs(g, rel)
+            rows = None
+            if g.num_nodes > 100_000:
+                gen = torch.Generator().manual_seed(r)
+                rows = torch.randperm(g.num_nodes, generator=gen)[
+                    :FULL_SAMPLE_ROWS]
+            t1 = time.time()
+            rels[r] = full_graph_relation(rel, x, s0, w0, b0, rows)
+            rels[r]["seconds"] = time.time() - t1
+            for k, count in rels[r]["path_launches"].items():
+                out["launches"][k] += count
+            for name, tm in rels[r]["timed"].items():
+                print(f"phase 22, {gname} relation {r} {name}: "
+                      f"{tm['wall_ms']:.4f} ms, sol_frac {tm['sol_frac']:.4f} "
+                      f"(bound {tm['sol_ms']:.4f} ms); on {card}")
+            print(f"phase 22, {gname} relation {r}: segment form repeats bit "
+                  f"for bit: {rels[r]['segment_repeats']}; window gathers "
+                  f"{rels[r]['window_launches']}", file=sys.stderr)
+        out["graphs"][gname] = rels
+    for gname, g in graphs.items():
+        big = max(range(g.num_relations),
+                  key=lambda r: g.relations[r].num_edges)
+        out[gname] = {"relation": big,
+                      "window_case": full_graph_window_case(
+                          f"full_graph_{gname}_relation_{big}",
+                          g.relations[big], rate)}
+    return out
+
+
+def single_step_phase(t, card: str) -> dict:
+    """Phase 22, last: ``Trainer.single_step`` on ``t``'s graph at its
+    configuration, timed with ``utils.roofline.measure`` at ``nscan`` 1
+    and 16 against ``pcgnn_step_streaming_bytes`` (the JAX bench's
+    roofline reading, ``bench.py:116-121``): printed, no claim."""
+    from pcgnn_tpu_torch.utils.roofline import (measure,
+                                                pcgnn_step_streaming_bytes)
+    rng = np.random.default_rng(0)
+    rb = rng.choice(t.idx_train, t.batch_size)
+    ry = t.graph.labels.cpu().numpy()[rb]
+    rw = np.ones(t.batch_size, np.float32)
+    m_max = t.new_model().minor_window(int(t.train_pos_dev.shape[0]),
+                                       t.graph.relations)
+    step_bytes = pcgnn_step_streaming_bytes(t.graph, t.batch_size, m_max,
+                                            t.config["emb_size"])
+    out = {"step_bytes": step_bytes, "m_max": m_max}
+    for nscan in (1, 16):
+        model = t.new_model()
+        fn, args = t.single_step(model, t.new_optimizer(model), rb, ry, rw,
+                                 nscan=nscan)
+        r = measure(fn, *args, analytic_bytes=step_bytes * nscan)
+        out[nscan] = {"step_ms": r["wall_ms"] / nscan,
+                      "sol_frac": r["sol_frac"], "device": r["device"]}
+        print(f"phase 22, single_step nscan {nscan}: "
+              f"{out[nscan]['step_ms']:.4f} ms a step, sol_frac "
+              f"{r['sol_frac']:.6f}; on {card}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -1665,7 +2011,7 @@ def main() -> int:
     t0 = time.time()
     card = card_line()
     name = torch.cuda.get_device_name(0)
-    rate = memory_rate(name)
+    rate = memory_rate()
     for kname, report in kernels.build().items():
         print(f"[build {kname}]\n{report.strip()}", file=sys.stderr)
     print(f"built kernels in {time.time() - t0:.1f} s", file=sys.stderr)
@@ -1725,7 +2071,7 @@ def main() -> int:
     runs[run_name(t16)] = lane_phases(t16)
     print(f"phase 16 done at {time.time() - t0:.1f} s", file=sys.stderr)
     # 17: stress-1m
-    runs[STRESS_CFG["data_name"]] = stress_phase(rate)
+    runs[STRESS_CFG["data_name"]], stress_graph = stress_phase(rate)
     print(f"phase 17 done at {time.time() - t0:.1f} s", file=sys.stderr)
     # 18: GCN and GraphSAGE on amazon_new-like, one graph and homo store
     t1 = time.time()
@@ -1763,6 +2109,13 @@ def main() -> int:
         print(f"phase 21 done at {time.time() - t0:.1f} s", file=sys.stderr)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    # 22: the full-graph ops on yelp-like's and stress-1m's graphs, then
+    # Trainer.single_step timed on yelp-like
+    full = full_graph_phase({"yelp-like": trainers[0].graph,
+                             "stress-1m": stress_graph}, rate, card)
+    del stress_graph
+    full["single_step"] = single_step_phase(trainers[0], card)
+    print(f"phase 22 done at {time.time() - t0:.1f} s", file=sys.stderr)
 
     # each kernel's launches: the sum over the main paths' runs, each read
     # with every count set to 0 just before it
@@ -1774,14 +2127,21 @@ def main() -> int:
             for data, run in runs.items()}
         entry["launches_by_path"]["yelp from files (cli)"] = (
             files["launches"][kname])
+        entry["launches_by_path"]["full graph"] = full["launches"][kname]
         entry["launches"] = sum(entry["launches_by_path"].values())
     like["entry"]["homo_store"] = {k: homo_window[k] for k in (
         "ms", "widen_ms", "plain_ms", "library_ms", "bound_ms",
         "widen_bound_ms", "rows", "dp", "max_abs_err")}
 
+    # back-to-back CUDA-event times (full_graph_window_case)
+    like["entry"]["full_graph"] = {g: {k: full[g]["window_case"][k] for k in (
+        "rows", "dp", "run_ms", "widen_run_ms", "widen_plain_run_ms",
+        "library_run_ms", "bound_ms", "widen_bound_ms")}
+        for g in ("yelp-like", "stress-1m")}
+
     details = {"card": card, "kind": name, "runs": runs, "turns": turns,
                "homo_window": homo_window, "skew_baseline_steps": skew_steps,
-               "files": files, "resume": resume,
+               "files": files, "resume": resume, "full_graph": full,
                "seconds": time.time() - t0}
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:
@@ -1849,6 +2209,16 @@ def main() -> int:
     summary["resume"] = {k: resume[k] for k in (
         "resumed_vs_uncut", "uncut_vs_uncut", "uncut_s", "resumed_s",
         "trace_window_gathers", "traced_steps", "trace_bytes")}
+    summary["full_graph"] = {
+        g: {r: {"timed": {k: [v["wall_ms"], v["sol_frac"]]
+                          for k, v in rec["timed"].items()},
+                "segment_repeats": rec["segment_repeats"],
+                "window_launches": rec["window_launches"],
+                "max_abs_err": rec["max_abs_err"], "cpu_s": rec["cpu_s"],
+                "seconds": rec["seconds"]}
+            for r, rec in rels.items()}
+        for g, rels in full["graphs"].items()}
+    summary["full_graph"]["single_step"] = full["single_step"]
     summary["seconds"] = details["seconds"]
     print(json.dumps(summary))
     print(json.dumps({"kernels": list(entries.values())}))

@@ -116,6 +116,19 @@ class RelGraph:
     def has_hubs(self) -> bool:
         return self.window_width < self.dmax
 
+    @property
+    def e_pad(self) -> int:
+        return int(self.col.shape[0])
+
+    def edge_rows(self) -> torch.Tensor:
+        """[E_pad] int32 CSR row of each edge, ``num_nodes`` on padding
+        edges: row[e] = searchsorted(indptr, e, right) - 1."""
+        e = torch.arange(self.e_pad, dtype=self.indptr.dtype,
+                         device=self.indptr.device)
+        row = torch.searchsorted(self.indptr, e, right=True,
+                                 out_int32=True) - 1
+        return torch.where(e < self.num_edges, row, self.num_nodes)
+
     def to(self, device) -> "RelGraph":
         return dataclasses.replace(
             self, indptr=self.indptr.to(device), col=self.col.to(device),

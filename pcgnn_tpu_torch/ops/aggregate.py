@@ -3,8 +3,8 @@ scatter-free window sums of the PC-GNN training step, the self-union windows
 of the GraphSAGE and GCN baselines, and the dense mask-GEMM aggregation of
 the learned-feature lane.
 
-Counterpart of ``pcgnn_tpu/ops/aggregate.py`` (all but the full-graph
-SpMM).  Selection reproduces the JAX tie rules exactly:
+Counterpart of ``pcgnn_tpu/ops/aggregate.py``, with its full-graph mean
+(``segment_mean_spmm``).  Selection reproduces the JAX tie rules exactly:
 
   * ``keep_nearest`` keeps each row's k nearest, lowest column among ties;
   * candidate orderings are stable sorts, and the (distance, slot)
@@ -174,6 +174,17 @@ def keep_nearest(dist: torch.Tensor, k: torch.Tensor,
     return valid & (k[:, None] > 0) & (less | keep_tie)
 
 
+def choose_keep_mask(rel, batch: torch.Tensor, nbr: torch.Tensor,
+                     valid: torch.Tensor,
+                     s0_padded: torch.Tensor) -> torch.Tensor:
+    """The choose step: [B, D] mask of each row's ``keff`` nearest
+    neighbors by |s0[center] - s0[neighbor]|, from the [N+1] score table
+    ``s0_padded`` (row N for the padding id)."""
+    d = (s0_padded[batch][:, None] - s0_padded[nbr]).abs()
+    d = torch.where(valid, d, _INF)
+    return keep_nearest(d, rel.keff[batch], valid)
+
+
 def _pad_cols(a: torch.Tensor, width: int, value) -> torch.Tensor:
     if a.shape[1] >= width:
         return a
@@ -200,6 +211,25 @@ def oversample_candidates_dense_values(center_s0: torch.Tensor,
     cand_slots = order.to(torch.int32)
     return (_pad_cols(cand_ids, m_max, 0), _pad_cols(cand_valid, m_max, False),
             _pad_cols(cand_dist, m_max, _INF), _pad_cols(cand_slots, m_max, 0))
+
+
+def oversample_candidates_dense(batch: torch.Tensor, s0_padded: torch.Tensor,
+                                train_pos: torch.Tensor,
+                                train_pos_valid: torch.Tensor, m_max: int):
+    """Id form of :func:`oversample_candidates_dense_values`: the scores
+    of the centers and candidates come from the [N+1] table."""
+    return oversample_candidates_dense_values(
+        s0_padded[batch], s0_padded[train_pos], train_pos, train_pos_valid,
+        m_max)
+
+
+def oversample_candidates(batch: torch.Tensor, s0_padded: torch.Tensor,
+                          train_pos: torch.Tensor,
+                          train_pos_valid: torch.Tensor, m_max: int):
+    """Id form of :func:`oversample_candidates_values`."""
+    return oversample_candidates_values(
+        s0_padded[batch], s0_padded[train_pos], train_pos, train_pos_valid,
+        m_max)
 
 
 def oversample_candidates_values(center_s0: torch.Tensor,
@@ -293,6 +323,50 @@ def window_sum_from_gathered(xw: torch.Tensor, keep: torch.Tensor):
     return torch.einsum("bd,bdf->bf", kf, xw), kf.sum(dim=1)
 
 
+def _normalized(num: torch.Tensor, cnt: torch.Tensor,
+                norm: str) -> torch.Tensor:
+    """[B, F] sums divided by their counts (``mean``) or the counts' square
+    root (``sqrt``, GCN's row normalization), counts below 1 taken as 1."""
+    if norm not in ("mean", "sqrt"):
+        raise ValueError(f"unknown norm {norm!r}")
+    denom = cnt.clamp(min=1.0)
+    if norm == "sqrt":
+        denom = denom.sqrt()
+    return num / denom[:, None]
+
+
+def window_mean_from_gathered(xw: torch.Tensor, keep: torch.Tensor,
+                              minor_xw: torch.Tensor | None = None,
+                              keep_minor: torch.Tensor | None = None, *,
+                              norm: str = "mean") -> torch.Tensor:
+    """[B, F] mean of the kept rows of a gathered [B, D, F] window and, if
+    given, of the kept minors' gathered [B, M, F] rows."""
+    num, cnt = window_sum_from_gathered(xw, keep)
+    if minor_xw is not None:
+        mnum, mcnt = window_sum_from_gathered(minor_xw, keep_minor)
+        num, cnt = num + mnum, cnt + mcnt
+    return _normalized(num, cnt, norm)
+
+
+def window_mean_aggregate(nbr: torch.Tensor, keep: torch.Tensor,
+                          features_padded: torch.Tensor,
+                          minor_ids: torch.Tensor | None = None,
+                          keep_minor: torch.Tensor | None = None, *,
+                          norm: str = "mean") -> torch.Tensor:
+    """[B, F] mean of the kept neighbors' rows of the [N+1, F] table (row
+    N zero, the padding id) and the kept minors' rows: ``minor_ids`` [P]
+    shared by every row or [B, M], with ``keep_minor`` [B, P] or [B, M]
+    (deduplicated against the kept neighbors by ``dedup_minor_keep``)."""
+    num, cnt = window_sum_from_gathered(features_padded[nbr], keep)
+    if minor_ids is not None:
+        km = keep_minor.to(features_padded.dtype)
+        xm = features_padded[minor_ids]
+        num = num + (km @ xm if minor_ids.dim() == 1
+                     else torch.einsum("bm,bmf->bf", km, xm))
+        cnt = cnt + km.sum(dim=1)
+    return _normalized(num, cnt, norm)
+
+
 def minor_sum(xs_padded: torch.Tensor, cand_ids: torch.Tensor,
               keep_minor: torch.Tensor, f: int):
     """(num [B, f], cnt [B]) of the selected oversampled minors, gathered
@@ -331,6 +405,37 @@ def minor_sum_compact_multi(tp_feats: torch.Tensor, cand_slots: torch.Tensor,
             out[i] = (num + torch.einsum("bm,bmf->bf", km, xg),
                       cnt + km.sum(dim=1))
     return out
+
+
+def minor_sum_compact(tp_feats: torch.Tensor, cand_slots: torch.Tensor,
+                      keep_minor: torch.Tensor):
+    """:func:`minor_sum_compact_multi` for one keep mask."""
+    return minor_sum_compact_multi(tp_feats, cand_slots, [keep_minor])[0]
+
+
+def dedup_threshold(m: torch.Tensor, fraud: torch.Tensor, n_valid,
+                    cand_dist: torch.Tensor) -> torch.Tensor:
+    """[B] duplicate threshold from each row's minor count ``m`` and its
+    ascending candidate distances ``cand_dist`` [B, W]: the m-th smallest
+    distance, +inf where m reaches the ``n_valid`` valid candidates (all
+    are selected), -inf where the row selects none (not ``fraud``, or
+    m = 0).  A kept neighbor duplicates a selected minor iff it is a valid
+    train positive within this distance (ties count)."""
+    at_m = cand_dist.gather(1, (m - 1).clamp(0, cand_dist.shape[1] - 1)
+                            [:, None])[:, 0]
+    t = torch.where(m >= n_valid, _INF, at_m)
+    return torch.where(fraud & (m > 0), t, -_INF)
+
+
+def minor_dedup_threshold(rel, batch: torch.Tensor, batch_labels: torch.Tensor,
+                          cand_valid: torch.Tensor, cand_dist: torch.Tensor,
+                          rho: float) -> torch.Tensor:
+    """:func:`dedup_threshold` of a batch's compact candidate window, with
+    m = int(ksample * rho) (in float32) and fraud = label 1."""
+    m = torch.floor(rel.ksample[batch].to(torch.float32) * rho).to(
+        torch.int64)
+    return dedup_threshold(m, batch_labels == 1, cand_valid.sum(dim=1),
+                           cand_dist)
 
 
 def scatter_batch_mask_counts(num_nodes: int, nbr: torch.Tensor,
@@ -377,9 +482,98 @@ def masked_mean_aggregate(mask: torch.Tensor, features: torch.Tensor, *,
     to float32 rounding and spares a pass over the [B, N] mask and a scaled
     copy of it held for the backward.  The gradient into ``features`` is
     ``mask^T @ (g / denom)``, another GEMM."""
-    if norm not in ("mean", "sqrt"):
-        raise ValueError(f"unknown norm {norm!r}")
-    denom = (mask.sum(dim=1) if counts is None else counts).clamp(min=1.0)
-    if norm == "sqrt":
-        denom = denom.sqrt()
-    return torch.matmul(mask, features) / denom[:, None]
+    cnt = mask.sum(dim=1) if counts is None else counts
+    return _normalized(torch.matmul(mask, features), cnt, norm)
+
+
+# node-chunk width of the full-graph window mean: each chunk gathers one
+# [C, D, F] float32 block (one window-gather launch in the edge-window form),
+# 445 MB on yelp-like's widest relation.  Each chunk costs about nine
+# launches of host time, so narrow chunks are host-bound: swept on an NVIDIA
+# H100 80GB HBM3 at 700 W (chunk_sweep.py), the edge-window mean took
+# 6.95 / 2.62 / 2.28 / 2.20 ms on yelp-like relation 2 and 243 / 49.3 / 15.5
+# / 13.5 ms on stress-1m relation 0 at 1,024 / 4,096 / 16,384 / 65,536 nodes;
+# 16,384 keeps the block a quarter of the widest one's
+SPMM_NODE_CHUNK = 16384
+
+
+def segment_mean_spmm(rel, features: torch.Tensor,
+                      keep: torch.Tensor | None = None, *,
+                      assume_ewin_features: bool = False) -> torch.Tensor:
+    """[N, F] full-graph neighbor mean, h[v] = mean of x[u] over N(v).
+
+    Three lowerings of the same math, chosen as the JAX package chooses:
+
+      * edge-window form (``assume_ewin_features``, the relation has a
+        store, no ``keep``, no hubs): each node chunk's windows come from
+        the store in one window-gather fetch.  The store is a snapshot of
+        the graph's features (bfloat16-rounded in a bf16 store): the
+        caller asserts that ``features`` is that table;
+      * window form (a dense neighbor table, no ``keep``, no hubs): each
+        chunk gathers ``features[nbr2d]``;
+      * segment form (everything else, including ``keep`` [E_pad] bool and
+        hub relations): a sum over each row's run of the flat edge list,
+        ``torch.segment_reduce`` with the CSR offsets, in place of the JAX
+        package's sorted ``segment_sum``.  On the card it takes one thread
+        per (row, feature) that adds the row's edges in edge order, with no
+        atomics, so its result repeats bit for bit (``index_add_`` would
+        add in the order its atomics land).
+    """
+    if rel.is_stub:
+        raise ValueError("segment_mean_spmm called on a degree-only stub "
+                         "relation (empty edge list); see degree_stub.")
+    n = rel.num_nodes
+    feats_pad = _pad_row(features)
+    if keep is None and rel.nbr2d is not None and not rel.has_hubs:
+        return _window_mean_all_nodes(
+            rel, feats_pad,
+            use_ewin=assume_ewin_features and rel.ewin is not None)
+    e = rel.num_edges
+    ids = rel.col[:e]
+    if keep is not None:
+        ids = torch.where(keep[:e], ids, n)     # dropped edges read row N
+    vals = feats_pad[ids]
+    offsets = rel.indptr.to(torch.int64)
+    seg = torch.segment_reduce(vals, "sum", offsets=offsets, axis=0)
+    cnt = (rel.deg.to(features.dtype) if keep is None else
+           torch.segment_reduce(keep[:e].to(features.dtype), "sum",
+                                offsets=offsets, axis=0))
+    return seg / cnt.clamp(min=1.0)[:, None]
+
+
+def _pad_row(features: torch.Tensor) -> torch.Tensor:
+    """[N+1, F]: the features with the zero row N, the CSR padding id."""
+    return torch.cat([features, features.new_zeros((1, features.shape[1]))])
+
+
+def window_valid(rel, i0: int, i1: int, d: int) -> torch.Tensor:
+    """[i1 - i0, d] window slots of rows i0..i1-1 below their degree
+    (capped at d): the slots of a full-graph window that hold an edge."""
+    cols = torch.arange(d, device=rel.deg.device)
+    return cols < rel.deg[i0:i1].clamp(max=d)[:, None]
+
+
+def _window_mean_all_nodes(rel, feats_pad: torch.Tensor, *,
+                           use_ewin: bool = False) -> torch.Tensor:
+    """[N, F] neighbor mean over every node, ``SPMM_NODE_CHUNK`` nodes at a
+    time: each chunk's [C, D, F] window (from the store when ``use_ewin``,
+    whose width must be F, else gathered from ``feats_pad`` [N+1, F]
+    through ``nbr2d``), masked to
+    each row's first min(deg, D) slots (an edge-window slot past the
+    degree holds the next node's run) and averaged.  The last chunk holds
+    only the remaining nodes (the JAX package clamps its ids and drops the
+    extra rows); a row's value does not depend on its chunk."""
+    n, d = rel.num_nodes, max(rel.window_width, 1)
+    f = feats_pad.shape[1]
+    out = feats_pad.new_empty((n, f))
+    for i0 in range(0, n, SPMM_NODE_CHUNK):
+        i1 = min(i0 + SPMM_NODE_CHUNK, n)
+        valid = window_valid(rel, i0, i1, d)
+        if use_ewin:
+            xw = batch_feature_window(rel, None, f, starts=rel.estart[i0:i1])
+        else:
+            xw = feats_pad.index_select(0, rel.nbr2d[i0:i1].reshape(-1)).view(
+                i1 - i0, d, f)
+        num = torch.where(valid[..., None], xw, 0.0).sum(dim=1)
+        torch.div(num, valid.sum(dim=1).clamp(min=1)[:, None], out=out[i0:i1])
+    return out

@@ -42,7 +42,8 @@ from typing import Optional
 
 import torch
 
-from pcgnn_tpu_torch.ops.aggregate import _INF, keep_nearest, selection_score
+from pcgnn_tpu_torch.ops.aggregate import (_INF, dedup_threshold,
+                                          keep_nearest, selection_score)
 from pcgnn_tpu_torch.ops.ragged_gather import ragged_gather
 
 # chunk: hub rows processed together.  Each chunk reads
@@ -131,15 +132,12 @@ def chunk_minor_band(c_s0, ks_rows, fraud, sp_sorted, slot_sorted,
     JAX lane's ``active`` mask covers padded chunk rows, which the port
     does not make.
     """
-    p = sp_sorted.shape[0]
     m = torch.floor(ks_rows.to(torch.float32) * rho).to(torch.int64)
     act = fraud & (m > 0)
     d = (c_s0[:, None] - sp_sorted[None, :]).abs()
     ds = torch.sort(d, dim=1).values
     n_valid = torch.isfinite(sp_sorted).sum()
-    at_m = ds.gather(1, (m - 1).clamp(0, p - 1)[:, None])[:, 0]
-    t = torch.where(m >= n_valid, _INF, at_m)
-    t = torch.where(act, t, -_INF)
+    t = dedup_threshold(m, fraud, n_valid, ds)
     strict = d < t[:, None]
     tied = d == t[:, None]
     m_eff = torch.minimum(m.clamp(min=0), n_valid)

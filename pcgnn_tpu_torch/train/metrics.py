@@ -93,6 +93,11 @@ def roc_auc_score(labels: np.ndarray, scores: np.ndarray) -> float:
     return float((np.diff(fpr) * (tpr[1:] + tpr[:-1]) / 2.0).sum())
 
 
+def prob2pred(y_prob, thres: float = 0.5) -> np.ndarray:
+    """Class 1 where the probability reaches ``thres``, as int32."""
+    return (np.asarray(y_prob) >= thres).astype(np.int32)
+
+
 def conf_gmean(labels: np.ndarray, preds: np.ndarray) -> float:
     """Geometric mean of the true-positive and true-negative rates."""
     tp, fp, fn = _counts(labels, preds, 1)

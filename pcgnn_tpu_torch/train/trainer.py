@@ -243,6 +243,27 @@ class Trainer:
         return train_step(model, optimizer, self.graph, batch, y, w,
                           self.consts, generator)
 
+    def single_step(self, model, optimizer, batch, y, w, nscan: int = 1):
+        """(fn, args) of the training step, the entry point
+        ``utils.roofline.measure`` times: ``fn(*args)`` runs ``nscan``
+        back-to-back optimizer steps (``train_step``), step i on ``batch``,
+        ``y`` and ``w`` rolled by i, as the JAX package's scan rolls them,
+        and returns the last step's loss.  Every call steps ``model`` and
+        ``optimizer`` on; divide a call's time by ``nscan``."""
+        dev = self.device
+        args = (model, optimizer, torch.as_tensor(batch, device=dev),
+                torch.as_tensor(y, device=dev),
+                torch.as_tensor(w, dtype=torch.float32, device=dev))
+
+        def fn(model, optimizer, batch, y, w):
+            for i in range(nscan):
+                loss = self.step(model, optimizer, torch.roll(batch, i),
+                                 torch.roll(y, i), torch.roll(w, i),
+                                 self.step_generator(0, i))
+            return loss
+
+        return fn, args
+
     def run_epoch(self, model, optimizer, epoch: int) -> torch.Tensor:
         """One epoch of steps; returns the mean loss (on the device)."""
         batches, weights = self.epoch_plan(epoch)

@@ -816,3 +816,146 @@ def test_profile_dir_on_card_traces_the_window_gather(card, tmp_path):
     kernels = trace_kernels(str(path))
     gathers = sum(n for k, n in kernels.items() if "window_gather_kernel" in k)
     assert gathers >= 3 * t.num_batches, kernels.most_common(10)
+
+
+# --------------------------------------------------------- full-graph ops
+
+def _full_graph_calls(rel, x, s0, w0, b0, keep):
+    from pcgnn_tpu_torch.ops import aggregate as agg
+    from pcgnn_tpu_torch.ops import sddmm
+    return {
+        "spmm_window": lambda: agg.segment_mean_spmm(rel, x),
+        "spmm_ewin": lambda: agg.segment_mean_spmm(
+            rel, x, assume_ewin_features=True),
+        "spmm_segment": lambda: agg.segment_mean_spmm(rel, x, keep),
+        "sddmm_window": lambda: sddmm.edge_abs_diff_window(rel, s0),
+        "sddmm_ewin": lambda: sddmm.edge_abs_diff_window_ewin(rel, s0, w0,
+                                                              b0),
+        "sddmm_flat": lambda: sddmm.edge_abs_diff(rel, s0),
+        "edge_ranks": lambda: sddmm.edge_ranks_global(
+            rel, sddmm.edge_abs_diff(rel, s0))}
+
+
+def _full_graph_inputs(g, rel, device, keep_rate):
+    from pcgnn_tpu_torch.ops.aggregate import selection_score
+    gen = torch.Generator().manual_seed(1)
+    w0 = torch.randn(g.feat_dim, generator=gen) / 4
+    b0 = torch.tensor(0.25)
+    x = g.features.to(rel.ewin.dtype).float()
+    keep = torch.rand(rel.e_pad, generator=gen) < keep_rate
+    return [t.to(device) for t in (x, selection_score(x, w0, b0), w0, b0,
+                                   keep)]
+
+
+@pytest.mark.parametrize("keep_rate", [1.0, 0.6])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_full_graph_ops_on_card_equal_cpu(card, dtype, keep_rate):
+    """Each full-graph call on the card against the same call on the CPU
+    (``small``, every relation with a store): the means to rtol 1e-5 /
+    atol 1e-6 (float32 sums in another order), the window and flat
+    distances and the ranks exactly, the edge-window distances to atol
+    1e-5 (float64 scores rounded once); and on the card the edge-window
+    mean equals the window mean on the store's table exactly."""
+    g = synthetic_fraud_graph("small", seed=3)
+    for rel in g.relations:
+        rel = csr.attach_edge_windows(rel, g.features, dtype=dtype)
+        host_in = _full_graph_inputs(g, rel, "cpu", keep_rate)
+        host = {k: f() for k, f in _full_graph_calls(rel, *host_in).items()}
+        dev_in = [t.to(card) for t in host_in]
+        dev = {k: f() for k, f in
+               _full_graph_calls(rel.to(card), *dev_in).items()}
+        assert torch.equal(dev["spmm_ewin"], dev["spmm_window"])
+        for k, want in host.items():
+            got = dev[k]
+            if k.startswith("spmm"):
+                torch.testing.assert_close(got.cpu(), want, rtol=1e-5,
+                                           atol=1e-6)
+            elif k == "sddmm_ewin":
+                (d, v), (dw, vw) = [t.cpu() for t in got], want
+                assert torch.equal(v, vw)
+                torch.testing.assert_close(d[v], dw[v], rtol=0, atol=1e-5)
+                assert torch.isinf(d[~v]).all()
+            else:
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                for a, b in zip(got, want):
+                    assert torch.equal(a.cpu(), b), k
+
+
+def test_edge_window_lowerings_launch_the_window_gather(card, monkeypatch):
+    """The edge-window mean and scoring launch the window gather once per
+    node chunk (100 nodes: 41 chunks of ``small``), the other forms
+    never."""
+    from pcgnn_tpu_torch.ops import aggregate as agg
+    from pcgnn_tpu_torch.ops import sddmm
+    monkeypatch.setattr(agg, "SPMM_NODE_CHUNK", 100)
+    monkeypatch.setattr(sddmm, "SDDMM_NODE_CHUNK", 100)
+    g = synthetic_fraud_graph("small", seed=3)
+    rel = csr.attach_edge_windows(g.relations[1], g.features,
+                                  dtype=torch.bfloat16).to(card)
+    calls = _full_graph_calls(rel, *_full_graph_inputs(g, rel, card, 1.0))
+    for k, f in calls.items():
+        before = wg.launches
+        f()
+        torch.cuda.synchronize()
+        want = -(-g.num_nodes // 100) if "ewin" in k else 0
+        assert wg.launches - before == want, k
+
+
+def test_segment_form_repeats_on_card(card):
+    """The segment form (``torch.segment_reduce`` over each row's run, no
+    atomics) gives the same bits on every call, on a relation with hub
+    rows."""
+    from pcgnn_tpu_torch.ops import aggregate as agg
+    g = synthetic_fraud_graph("skew-tiny", seed=1).to(card)
+    rel = g.relations[0]
+    assert rel.has_hubs
+    first = agg.segment_mean_spmm(rel, g.features)
+    for _ in range(5):
+        assert torch.equal(agg.segment_mean_spmm(rel, g.features), first)
+
+
+def test_measure_anchors(card):
+    """``utils.roofline.measure`` on two calls whose share of the card's
+    peak is known to be high: a 1 GB copy (1 GB read, 1 GB written) and an
+    8192^3 bf16 product (2 * 8192^3 operations); each reads a share in
+    (0.3, 1.05] and names the card."""
+    from pcgnn_tpu_torch.utils.roofline import measure
+    src = torch.empty(1 << 28, device=card)
+    dst = torch.empty_like(src)
+    r = measure(dst.copy_, src, analytic_bytes=2 * src.numel() * 4)
+    assert 0.3 < r["sol_frac"] <= 1.05, r
+    assert r["device"] == torch.cuda.get_device_name(card)
+    a = torch.randn(8192, 8192, device=card, dtype=torch.bfloat16)
+    r = measure(torch.matmul, a, a, analytic_flops=2 * 8192 ** 3)
+    assert 0.3 < r["mfu"] <= 1.05, r
+
+
+def test_single_step_on_card(card, tmp_path):
+    """``Trainer.single_step`` on the card: its loss equals the same steps
+    taken one by one (the card's step repeats bit for bit), and
+    ``measure`` times it below the step's streaming bound share of 1."""
+    from pcgnn_tpu_torch.train.results import ResultManager
+    from pcgnn_tpu_torch.train.trainer import Trainer
+    from pcgnn_tpu_torch.utils.roofline import (measure,
+                                                pcgnn_step_streaming_bytes)
+    cfg = _small_cfg()
+    t = Trainer(cfg, result=ResultManager(cfg, root=str(tmp_path)))
+    rng = np.random.default_rng(0)
+    batch = rng.choice(t.idx_train, t.batch_size)
+    y = t.graph.labels.cpu().numpy()[batch]
+    w = np.ones(t.batch_size, np.float32)
+    m1, m2 = t.new_model(), t.new_model()
+    fn, args = t.single_step(m1, t.new_optimizer(m1), batch, y, w, nscan=3)
+    loss = fn(*args)
+    o2 = t.new_optimizer(m2)
+    b, yy, ww = args[2:]
+    for i in range(3):
+        want = t.step(m2, o2, torch.roll(b, i), torch.roll(yy, i),
+                      torch.roll(ww, i))
+    assert torch.equal(loss, want)
+    m_max = m1.minor_window(int(t.train_pos_dev.shape[0]), t.graph.relations)
+    nbytes = pcgnn_step_streaming_bytes(t.graph, t.batch_size, m_max,
+                                        cfg["emb_size"])
+    r = measure(fn, *args, analytic_bytes=3 * nbytes)
+    assert 0 < r["sol_frac"] < 1 and r["wall_ms"] > 0

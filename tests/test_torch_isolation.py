@@ -31,7 +31,8 @@ def _port_modules():
 
 def _port_sources():
     files = sorted((ROOT / "pcgnn_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py", ROOT / "tests/test_torch_cuda.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "chunk_sweep.py",
+                    ROOT / "tests/test_torch_cuda.py"]
 
 
 def test_every_module_imports_without_jax():
@@ -45,11 +46,12 @@ def test_every_module_imports_without_jax():
             "pcgnn_tpu_torch.train.eval_tools",
             "pcgnn_tpu_torch.train.legacy_log",
             "pcgnn_tpu_torch.utils.expgen", "pcgnn_tpu_torch.utils.fleet",
-            "pcgnn_tpu_torch.utils.profiling"} <= set(mods)
-    assert len(mods) >= 32
+            "pcgnn_tpu_torch.utils.profiling", "pcgnn_tpu_torch.ops.sddmm",
+            "pcgnn_tpu_torch.utils.roofline"} <= set(mods)
+    assert len(mods) >= 34
     code = (
         "import importlib, json, sys\n"
-        f"mods = {mods!r} + ['chip_smoke']\n"
+        f"mods = {mods!r} + ['chip_smoke', 'chunk_sweep']\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r})\n"
@@ -105,3 +107,17 @@ def test_chip_smoke_refuses_without_a_card(monkeypatch, capsys):
         sys.path.remove(str(ROOT))
     assert chip_smoke.main() != 0
     assert '"ok"' not in capsys.readouterr().out
+
+
+def test_chunk_sweep_refuses_without_a_card(monkeypatch, capsys):
+    """chunk_sweep.py, which times the card, exits non-zero and prints no
+    result when torch.cuda.is_available() is false."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(sys, "argv", ["chunk_sweep.py"])
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chunk_sweep
+    finally:
+        sys.path.remove(str(ROOT))
+    assert chunk_sweep.main() != 0
+    assert capsys.readouterr().out == ""
