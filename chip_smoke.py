@@ -115,7 +115,25 @@ Phase 11 also times the learned steps in the same turns.  Then:
      relation (``chunk_sweep.py`` times the node chunk widths that chose
      the path's); last, ``Trainer.single_step`` is timed
      on yelp-like at ``nscan`` 1 and 16 against
-     ``pcgnn_step_streaming_bytes``.
+     ``pcgnn_step_streaming_bytes``;
+ 23. the sharded step (``pcgnn_tpu_torch.parallel``): two gloo ranks,
+     children of this script (``--sharded-rank``), share cuda:0 at
+     (data 1, graph 2).  (b) They train yelp-like for 2 epochs as
+     ``distributed: true`` ranks through ``pcgnn_tpu_torch.cli``: test AUC
+     above 0.5 and equal on both ranks, the first epoch's mean loss within
+     rtol 1e-4 of this process's run.  (a) On graphs this process saves
+     meanwhile, each of ``SHARD_CASES`` (yelp-like fused and per-relation
+     store lanes, yelp-skew with stores and without, GCN and GraphSAGE on
+     amazon_new-like) on the first epoch's batch with the most hub rows:
+     loss and gradients against this process's single-rank step (as in
+     6), parameters bit-equal on both ranks after 3 steps, the lanes'
+     kernels launched (the masked fetch, kernel 1c, counted apart);
+     the masked fetch's skipped rows 0 and owned rows equal to its plain
+     version.  Each rank reports step ms, launches, collectives and bytes
+     by axis, host round trips and peak memory a step.  Kernel 1c is then
+     checked and timed here at that lane's shape, and (c) a 1-rank NCCL
+     group initializes, all-reduces, and steps at (1, 1) exactly as the
+     single-rank step.  Two ranks on one card give no scaling number.
 
 Every profiled run (phases 5, 9, 14, 16-18) counts the host syncs of one
 step; a run whose relations have no hub rows must make none.
@@ -128,6 +146,7 @@ The line before the last is the card's name and power limit; before it, a
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import copy
 import dataclasses
@@ -2000,6 +2019,479 @@ def single_step_phase(t, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------ phase 23: sharded steps
+
+# two gloo ranks share the card at (data 1, graph 2): the only way one card
+# runs a sharded step (NCCL refuses two ranks on one device).  They give no
+# scaling number: both ranks' kernels and the gloo host round trips share
+# one card and one host
+SHARD_RANKS = 2
+SHARD_STEPS = 3
+SHARD_TIMEOUT_S = 600.0
+# case: (graph file, model, edge_windows, fused record table)
+SHARD_CASES = {
+    "yelp-like fused": ("like", "PCGNN", True, True),
+    "yelp-like store lane": ("like", "PCGNN", True, False),
+    "yelp-skew stores": ("skew", "PCGNN", True, True),
+    "yelp-skew no stores": ("skew", "PCGNN", False, False),
+    "amazon_new-like GCN": ("amazon", "GCN", True, False),
+    "amazon_new-like SAGE": ("amazon", "SAGE", True, False),
+}
+
+
+def sharded_reference(t, graph, edge_windows: bool) -> dict:
+    """The single-process step's inputs and values on the card, for one
+    phase-23 case: the initial weights, the first epoch's batch with the
+    most hub rows, the loss and the gradients (no optimizer step)."""
+    batches, weights = t.epoch_plan(0)
+    i = int(np.argmax([hub_rows(t, bt) for bt in batches]))
+    bt, wt = batches[i], weights[i]
+    model = t.new_model()
+    init = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    y = t.labels[bt]
+    if t.is_pcgnn:
+        loss = model.loss(graph, bt, y, wt, train_pos=t.consts["tp"],
+                          train_pos_valid=t.consts["tpv"],
+                          train_pos_feats=t.consts["tpf"])
+    else:
+        loss = model.loss(graph, bt, y, wt)
+    loss.backward()
+    return {"init": init, "batch": bt.cpu(), "y": y.cpu(), "w": wt.cpu(),
+            "tp": t.consts["tp"].cpu(), "tpv": t.consts["tpv"].cpu(),
+            "hub_rows": hub_rows(t, bt), "loss": loss.item(),
+            "grads": {k: p.grad.detach().cpu().clone()
+                      for k, p in model.named_parameters()}}
+
+
+def sharded_cli_config(port: int, rank: int) -> dict:
+    """Phase 23b's run: the bench configuration for 2 epochs, validated
+    after each, as a distributed rank of a gloo group on cuda:0."""
+    return dict(BENCH_CFG, epochs=2, valid_epochs=1, distributed=True,
+                coordinator_address=f"localhost:{port}",
+                num_processes=SHARD_RANKS, process_id=rank, mesh_graph=2,
+                dist_backend="gloo")
+
+
+def sharded_rank_main(argv) -> int:
+    """One rank of phase 23 (``chip_smoke.py --sharded-rank R PORT WORK``):
+    (b) the distributed trainer through the CLI, then (a) each case's
+    sharded loss, gradients and 3 steps on the graphs the parent saved,
+    with kernel launches, collectives, host syncs, step times and peak
+    memory; results to ``WORK/rank<R>.pt``."""
+    from pcgnn_tpu_torch import cli
+    from pcgnn_tpu_torch.models import build_model
+    from pcgnn_tpu_torch.parallel import spmd
+    from pcgnn_tpu_torch.parallel.mesh import make_mesh
+    from pcgnn_tpu_torch.train.trainer import make_optimizer
+    rank, port, work = int(argv[0]), int(argv[1]), argv[2]
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda:0")
+    mods = kernel_counters()
+    from pcgnn_tpu_torch.ops import window_gather as wg
+    out = {"rank": rank}
+
+    def counts():
+        return {"window_gather": wg.launches - wg.masked_launches,
+                "window_gather_masked": wg.masked_launches,
+                "ragged_gather": mods["ragged_gather"].launches,
+                "mask_build": mods["mask_build"].launches}
+
+    def zero_counts():
+        for m in mods.values():
+            m.launches = 0
+        wg.masked_launches = 0
+
+    # (b) the trainer through the CLI's entry, as a distributed rank
+    made = []
+
+    class Recording(cli.Trainer):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+
+    cli.Trainer = Recording
+    rank_dir = os.path.join(work, f"cli{rank}")
+    os.makedirs(rank_dir, exist_ok=True)
+    cfg_path = os.path.join(rank_dir, "config.json")
+    with open(cfg_path, "w") as f:
+        json.dump(sharded_cli_config(port, rank), f)
+    cwd = os.getcwd()
+    os.chdir(rank_dir)
+    t1 = time.time()
+    zero_counts()
+    try:
+        auc, _, _ = cli.main(["--exp_config_path", cfg_path,
+                              "--device", "cuda:0"])
+    finally:
+        os.chdir(cwd)
+    tr = made[0]
+    out["cli"] = {"test_auc": float(auc), "seconds": time.time() - t1,
+                  "epoch_losses": tr.epoch_losses,
+                  "epoch_ms": [s * 1e3 for s in tr.epoch_times],
+                  "steps": tr.num_batches * len(tr.epoch_losses),
+                  "mesh": tr.mesh.shape, "launches": counts()}
+    del tr, made[:]
+
+    # (a) the cases, once the parent has saved the graphs and references
+    ready = os.path.join(work, "ready")
+    while not os.path.exists(ready):
+        time.sleep(0.2)
+    if open(ready).read() != "ok":
+        return 1
+    mesh = make_mesh(data=1, graph=SHARD_RANKS)
+    graphs = {}
+    out["cases"] = {}
+    for name, (gkey, model_name, ew, fused) in SHARD_CASES.items():
+        if gkey not in graphs:
+            graphs[gkey] = torch.load(os.path.join(work, f"graph-{gkey}.pt"),
+                                      weights_only=False)
+        g = graphs[gkey]
+        ref = torch.load(os.path.join(work, f"case-{name}.pt"),
+                         weights_only=False)
+        pcgnn = model_name == "PCGNN"
+        t1 = time.time()
+        sg = spmd.shard_graph(g, mesh, pcgnn=pcgnn, edge_windows=ew,
+                              ewin_dtype=torch.bfloat16, fused=fused,
+                              device=dev)
+        torch.cuda.synchronize()
+        shard_s = time.time() - t1
+        kw = (dict(num_relations=g.num_relations, alpha=BENCH_CFG["alpha"],
+                   rho=BENCH_CFG["rho"]) if pcgnn else {})
+        model = build_model(model_name, feat_dim=g.feat_dim,
+                            emb_dim=BENCH_CFG["emb_size"], **kw).to(dev)
+        model.load_state_dict(ref["init"])
+        cfg = BENCH_CFG if pcgnn else GCN_CFG
+        opt = make_optimizer(model, cfg["lr"], cfg["weight_decay"])
+        bt, y, wt = (ref[k].to(dev) for k in ("batch", "y", "w"))
+        consts = {"tp": ref["tp"].to(dev), "tpv": ref["tpv"].to(dev)}
+        consts["tpf"] = g.features[ref["tp"]].to(dev)
+        torch.cuda.reset_peak_memory_stats()
+        # the phase's main path: one loss and gradients, then 3 steps,
+        # with every count at 0 just before
+        zero_counts()
+        mesh.stats.reset()
+        if pcgnn:
+            loss, local = spmd.spmd_loss(model, sg, bt, y, wt, consts["tp"],
+                                         consts["tpv"],
+                                         train_pos_feats=consts["tpf"],
+                                         fused=fused)
+        else:
+            loss, local = spmd.spmd_homo_loss(model, sg, bt, y, wt)
+        local.backward()
+        spmd.data_sum_grads(model, mesh)
+        grads = {k: p.grad.detach().cpu().clone()
+                 for k, p in model.named_parameters()}
+        step_ms = []
+        for _ in range(SHARD_STEPS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            spmd.spmd_train_step(model, opt, sg, bt, y, wt, consts)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+        calls = SHARD_STEPS + 1
+        launches = counts()
+        stats = mesh.stats.snapshot()
+        params = {k: p.detach().cpu().clone()
+                  for k, p in model.named_parameters()}
+        rec = {"loss": float(loss), "grads": grads, "params": params,
+               "shard_s": shard_s, "step_ms": step_ms,
+               "step_ms_median": float(np.median(step_ms)),
+               "launches": launches,
+               "launches_per_step": {k: v / calls
+                                     for k, v in launches.items()},
+               "collectives_per_step": {
+                   "calls": {a: n / calls for a, n in stats["calls"].items()},
+                   "bytes": {a: n / calls for a, n in stats["bytes"].items()}},
+               "gloo_host_round_trips_per_step": stats["host_syncs"] / calls,
+               "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+               "stores": [sh.ewin is not None for sh in
+                          (sg.shards if pcgnn else (sg.homo,))],
+               "fused": sg.fused is not None}
+        # host reads the step makes itself (outside the counted run)
+        rec["explicit_syncs_per_step"] = count_syncs(
+            lambda: spmd.spmd_train_step(model, opt, sg, bt, y, wt, consts))
+        if not fused and ew and pcgnn:
+            rec["masked_fetch"] = masked_fetch_check(sg, bt, mesh)
+        out["cases"][name] = rec
+        del sg
+        torch.cuda.empty_cache()
+    torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def masked_fetch_check(sg, batch, mesh) -> dict:
+    """Kernel 1c against its plain version on this rank's block of the
+    batch: skipped rows exactly 0 (the memory is filled with NaN and freed
+    first), owned rows equal the plain copy exactly."""
+    from pcgnn_tpu_torch.ops.window_gather import window_gather_plain
+    from pcgnn_tpu_torch.parallel import spmd
+    b = mesh.batch_block(batch)
+    local = b - sg.col_lo
+    mine = (local >= 0) & (local < sg.block)
+    out = {"rows": int(b.shape[0]), "owned": int(mine.sum())}
+    for r, sh in enumerate(sg.shards):
+        starts = sh.estart[local.clamp(0, sg.block - 1)]
+        junk = torch.full((b.shape[0], sh.ewin_dp), float("nan"),
+                          device=b.device)
+        del junk
+        got = spmd.sharded_feature_window(sh, starts, mine)
+        want = window_gather_plain(sh.ewin, starts, sh.ewin_dp,
+                                   out_dtype=torch.float32)
+        want = want[:, : got.shape[1] * got.shape[2]].view_as(got)
+        torch.cuda.synchronize()
+        zero = bool((got[~mine] == 0).all())
+        err = float((got[mine] - want[mine]).abs().max())
+        if not zero or err != 0.0:
+            raise AssertionError(f"masked fetch of relation {r}: skipped "
+                                 f"rows zero {zero}, owned rows differ by "
+                                 f"{err}")
+        out[f"rel{r}_max_abs_err"] = err
+    return out
+
+
+def nccl_phase(t, card: str) -> dict:
+    """Phase 23c: a 1-rank NCCL group on cuda:0 initializes and
+    all-reduces once; a Trainer joined to it trains at the (1, 1) mesh,
+    where every collective is elided, and its step equals the single-rank
+    step exactly (loss and parameters)."""
+    import torch.distributed as dist
+
+    from pcgnn_tpu_torch.parallel.distributed import init_distributed
+    from pcgnn_tpu_torch.train.trainer import Trainer
+    from pcgnn_tpu_torch.utils.multiproc import free_port
+    torch.cuda.set_device(0)
+    t1 = time.time()
+    init_distributed(f"localhost:{free_port()}", 1, 0, backend="nccl")
+    try:
+        x = torch.full((1024,), 2.0, device="cuda:0")
+        dist.all_reduce(x)
+        if not bool((x == 2.0).all()):
+            raise AssertionError("the 1-rank NCCL all-reduce changed values")
+        init_s = time.time() - t1
+        rank = Trainer(dict(t.config, distributed=True), device="cuda:0",
+                       graph=without_stores(t.graph))
+        if rank.mesh.backend != "nccl" or rank.mesh.size != 1:
+            raise AssertionError(f"the NCCL rank's mesh is {rank.mesh}")
+        got = []
+        for tr in (t, rank):
+            model = tr.new_model()
+            opt = tr.new_optimizer(model)
+            batches, weights = tr.epoch_plan(0)
+            loss = tr.step(model, opt, batches[0], tr.labels[batches[0]],
+                           weights[0])
+            got.append((loss, [p.detach() for p in model.parameters()]))
+        exact = bool(torch.equal(got[0][0], got[1][0]) and all(
+            torch.equal(a, b) for a, b in zip(got[0][1], got[1][1])))
+        if not exact:
+            raise AssertionError(f"the (1, 1) NCCL step differs from the "
+                                 f"single-rank step: loss {got[1][0]} vs "
+                                 f"{got[0][0]}")
+        calls = rank.mesh.stats.snapshot()
+    finally:
+        dist.destroy_process_group()
+    return {"init_s": init_s, "loss": float(got[0][0]), "exact": exact,
+            "collectives": calls, "card": card}
+
+
+def masked_window_case(t, refs, rate: float) -> dict:
+    """Kernel 1c at the sharded store lane's shape, as phase 2 times a
+    window: graph rank 0's block store of yelp-like's largest relation
+    (dg = 2, bf16), the batches' starts in it, ``active`` = the rows the
+    rank owns (about half); checked against the plain version, then
+    timed with reads from memory (``window_case``)."""
+    from pcgnn_tpu_torch.parallel import spmd
+    dg = SHARD_RANKS
+    g = t.graph
+    rel = without_stores(g).relations[-1]
+    mesh = single_rank_like(dg)
+    n_pad = -(-g.num_nodes // dg) * dg
+    sh = spmd.shard_relation(rel, mesh, n_pad, g.features,
+                             ewin_dtype=torch.bfloat16, device=t.device)
+    block = n_pad // dg
+    gen = torch.Generator(device=t.device).manual_seed(1)
+    batches = [refs["yelp-like store lane"]["batch"].to(t.device)] + [
+        t.idx_train_dev[torch.randint(len(t.idx_train), (t.batch_size,),
+                                      generator=gen, device=t.device)]
+        for _ in range(TIMING_REPS - 1)]
+    mine = [(bt < block) for bt in batches]
+    starts = [sh.estart[bt.clamp(max=block - 1)] for bt in batches]
+    # one active mask for the timed calls (the first batch's), as the
+    # kernel takes one per call
+    active = mine[0].to(torch.int32)
+    err = max(check_gather(sh.ewin, s, sh.ewin_dp, m.to(torch.int32),
+                           torch.float32) for s, m in zip(starts, mine))
+    a = 16 // sh.ewin.element_size()
+    # reads from memory, as a training step's are: a 256 MB overwrite
+    # before each call (left out of the device time), as phase 18 times
+    # the homo store; a warm L2 holds much of the 6.6 MB a call reads
+    flush = torch.empty(1 << 26, device=t.device)
+    c = window_case("sharded_store_masked", sh.ewin, starts, sh.ewin_dp,
+                    strided_rows(sh.ewin, sh.ewin_dp, a),
+                    [s // a for s in starts], rate=rate, active=active,
+                    flush=flush)
+    c["max_abs_err"] = err
+    return c
+
+
+def single_rank_like(dg: int):
+    """Graph rank 0 of a (1, dg) mesh, for building one block's shards in
+    this process (no collective is called)."""
+    from pcgnn_tpu_torch.parallel.mesh import RankMesh
+    return RankMesh(shape={"dcn": 1, "data": 1, "graph": dg}, rank=0,
+                    host=0, data_index=0, graph_index=0)
+
+
+def sharded_phase(trainers, gcn, sage, card: str, rate: float) -> dict:
+    """Phase 23: the sharded step on the card.  Two gloo ranks share
+    cuda:0 at (data 1, graph 2) (children of this process; the kernels are
+    built here first): (b) the distributed trainer through the CLI, AUC
+    above 0.5 and the same on both ranks, the first epoch's mean loss
+    within rtol 1e-4 of the single-process run (phase 3's); (a) each case
+    of ``SHARD_CASES``: loss (rtol 1e-5) and gradients (rtol 1e-4, atol
+    1e-6) equal to the single-process step's, parameters bit-equal across
+    the ranks after 3 steps, the kernels of its lanes launched; the masked
+    fetch checked (phase 23a's store lane).  Then (c), ``nccl_phase``."""
+    from pcgnn_tpu_torch.utils.multiproc import (gang_with_fresh_port,
+                                                 run_workers, worker_env)
+    like, skew = trainers[0], trainers[1]
+    os.makedirs("build", exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_sharded-", dir="build")
+    t0 = time.time()
+    try:
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            gang = pool.submit(gang_with_fresh_port, lambda port: run_workers(
+                [os.path.abspath(__file__), "--sharded-rank"],
+                [(r, port, work) for r in range(SHARD_RANKS)],
+                env=worker_env(), timeout=SHARD_TIMEOUT_S))
+            status = "abort"
+            try:
+                refs = sharded_references(like, skew, gcn, sage, work)
+                status = "ok"
+            finally:
+                with open(os.path.join(work, "ready"), "w") as f:
+                    f.write(status)
+            logs = gang.result()
+        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"),
+                            weights_only=False) for r in range(SHARD_RANKS)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out = {"seconds_gang": time.time() - t0, "card": card,
+           "scaling": "none: two gloo ranks share one card and one host",
+           "cli": sharded_cli_check(ranks, like), "cases": {}}
+    for name, (gkey, model_name, ew, fused) in SHARD_CASES.items():
+        out["cases"][name] = sharded_case_check(name, refs[name],
+                                                [r["cases"][name]
+                                                 for r in ranks])
+    out["rank_log_tail"] = logs[0][-1500:]
+    out["masked_case"] = masked_window_case(like, refs, rate)
+    # the phase's launches by kernel, both ranks: the CLI run and every
+    # case's counted run
+    out["launches"] = {k: sum(r["cli"]["launches"][k]
+                              + sum(c["launches"][k]
+                                    for c in r["cases"].values())
+                              for r in ranks)
+                       for k in ranks[0]["cli"]["launches"]}
+    t1 = time.time()
+    out["nccl"] = nccl_phase(like, card)
+    out["nccl"]["seconds"] = time.time() - t1
+    return out
+
+
+def sharded_references(like, skew, gcn, sage, work) -> dict:
+    """Save phase 23's graphs (without stores, on the host) and each
+    case's single-process inputs and values for the ranks."""
+    owners = {"like": like, "skew": skew, "amazon": gcn}
+    for key, t in owners.items():
+        torch.save(without_stores(t.graph).to("cpu"),
+                   os.path.join(work, f"graph-{key}.pt"))
+    baselines = {"GCN": gcn, "SAGE": sage}
+    refs = {}
+    for name, (gkey, model_name, ew, fused) in SHARD_CASES.items():
+        t = baselines.get(model_name) or owners[gkey]
+        graph = t.graph
+        if not ew:
+            graph = without_stores(graph)
+        elif not fused:
+            graph = dataclasses.replace(graph, fused=None, fused_off=())
+        refs[name] = sharded_reference(t, graph, ew)
+        torch.save({k: v for k, v in refs[name].items()
+                    if k not in ("loss", "grads", "hub_rows")},
+                   os.path.join(work, f"case-{name}.pt"))
+    return refs
+
+
+def sharded_cli_check(ranks, like) -> dict:
+    """Phase 23b's checks on the ranks' reports."""
+    clis = [r["cli"] for r in ranks]
+    aucs = [c["test_auc"] for c in clis]
+    if not all(a > 0.5 for a in aucs) or len(set(aucs)) != 1:
+        raise AssertionError(f"the distributed trainer's AUC per rank: "
+                             f"{aucs}")
+    losses = like_epoch_losses(like)
+    got = clis[0]["epoch_losses"][0]
+    if not math.isclose(got, losses[0], rel_tol=1e-4):
+        raise AssertionError(f"first epoch mean loss {got}, single process "
+                             f"{losses[0]}")
+    if any(c["launches"]["window_gather"] < c["steps"] for c in clis):
+        raise AssertionError(f"a distributed step launched no fused fetch: "
+                             f"{[c['launches'] for c in clis]}")
+    return {"test_auc": aucs, "first_epoch_loss": got,
+            "single_first_epoch_loss": losses[0],
+            "epoch_ms": [c["epoch_ms"] for c in clis],
+            "steps": clis[0]["steps"], "mesh": clis[0]["mesh"],
+            "launches": [c["launches"] for c in clis],
+            "seconds": [c["seconds"] for c in clis]}
+
+
+def like_epoch_losses(t) -> list:
+    """Epoch mean losses of the single-process run of phase 23b's
+    configuration (2 epochs), from a fresh model."""
+    model = t.new_model()
+    opt = t.new_optimizer(model)
+    return [float(t.run_epoch(model, opt, e)) for e in range(2)]
+
+
+def sharded_case_check(name, ref, ranks) -> dict:
+    """Phase 23a's checks on one case: values against the single-process
+    step, replicas bit-equal, the lanes' kernels launched."""
+    for r, rec in enumerate(ranks):
+        if not math.isclose(rec["loss"], ref["loss"], rel_tol=LOSS_RTOL):
+            raise AssertionError(f"{name} rank {r}: loss {rec['loss']} vs "
+                                 f"single {ref['loss']}")
+        for k, g in ref["grads"].items():
+            if not torch.allclose(rec["grads"][k], g, rtol=GRAD_RTOL,
+                                  atol=GRAD_ATOL):
+                raise AssertionError(f"{name} rank {r}: gradient of {k} "
+                                     f"differs by "
+                                     f"{float((rec['grads'][k] - g).abs().max())}")
+        for k, p in rec["params"].items():
+            if not torch.equal(p, ranks[0]["params"][k]):
+                raise AssertionError(f"{name}: parameter {k} differs "
+                                     f"between the ranks after "
+                                     f"{SHARD_STEPS} steps")
+    per = ranks[0]["launches_per_step"]
+    gkey, model_name, ew, fused = SHARD_CASES[name]
+    if ew and fused and ranks[0]["fused"] and per["window_gather"] < 1:
+        raise AssertionError(f"{name}: no fused fetch (kernel 1a) a step")
+    if ew and not fused and per["window_gather_masked"] < 1:
+        raise AssertionError(f"{name}: no masked fetch (kernel 1c) a step")
+    if ref["hub_rows"] and per["ragged_gather"] < 1:
+        raise AssertionError(f"{name}: {ref['hub_rows']} hub rows and no "
+                             f"ragged gather")
+    keys = ("step_ms_median", "launches_per_step", "collectives_per_step",
+            "gloo_host_round_trips_per_step", "explicit_syncs_per_step",
+            "peak_mem_bytes", "shard_s", "stores", "fused")
+    return {"loss": ref["loss"], "hub_rows": ref["hub_rows"],
+            "loss_ranks": [r["loss"] for r in ranks],
+            "max_grad_diff": max(float((r["grads"][k] - g).abs().max())
+                                 for r in ranks
+                                 for k, g in ref["grads"].items()),
+            "launches": [r["launches"] for r in ranks],
+            "masked_fetch": [r.get("masked_fetch") for r in ranks],
+            "ranks": [{k: r[k] for k in keys} for r in ranks]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -2116,6 +2608,10 @@ def main() -> int:
     del stress_graph
     full["single_step"] = single_step_phase(trainers[0], card)
     print(f"phase 22 done at {time.time() - t0:.1f} s", file=sys.stderr)
+    # 23: the sharded step on the card (two gloo ranks on cuda:0), the
+    # distributed trainer through the CLI, and a 1-rank NCCL group
+    sharded = sharded_phase(trainers, gcn, sage, card, rate)
+    print(f"phase 23 done at {time.time() - t0:.1f} s", file=sys.stderr)
 
     # each kernel's launches: the sum over the main paths' runs, each read
     # with every count set to 0 just before it
@@ -2128,7 +2624,32 @@ def main() -> int:
         entry["launches_by_path"]["yelp from files (cli)"] = (
             files["launches"][kname])
         entry["launches_by_path"]["full graph"] = full["launches"][kname]
+        entry["launches_by_path"]["sharded (phase 23, both ranks)"] = (
+            sharded["launches"][kname]
+            + (sharded["launches"]["window_gather_masked"]
+               if kname == "window_gather" else 0))
         entry["launches"] = sum(entry["launches_by_path"].values())
+    # kernel 1c (the window gather with ``active``) apart: its only path is
+    # the sharded store lane
+    entries["window_gather"]["masked_launches"] = (
+        sharded["launches"]["window_gather_masked"])
+    # kernel 1c, the same kernel with ``active``, at its sharded shape: its
+    # own entry, widened as the path calls it (no one PyTorch call copies
+    # only the active rows, or widens)
+    mc = sharded["masked_case"]
+    entries["window_gather_masked"] = {
+        "name": "window_gather (active: kernel 1c)", "route": "cuda",
+        "source": "pcgnn_tpu_torch/csrc/window_gather.cu",
+        "replaces": "pcgnn_tpu/ops/pallas/window_gather.py:196",
+        "launches": sharded["launches"]["window_gather_masked"],
+        "launches_by_path": {"sharded (phase 23, both ranks)":
+                             sharded["launches"]["window_gather_masked"]},
+        "max_abs_err": mc["max_abs_err"], "ms": mc["widen_ms"],
+        "plain_ms": mc["widen_plain_ms"], "bound_ms": mc["widen_bound_ms"],
+        "bound_by": "bytes", "library_ms": None, "copy_ms": mc["ms"],
+        "copy_bound_ms": mc["bound_ms"],
+        "copy_library_ms": mc["library_ms"], "rows": mc["rows"],
+        "copied_rows": mc["copied_rows"], "dp": mc["dp"]}
     like["entry"]["homo_store"] = {k: homo_window[k] for k in (
         "ms", "widen_ms", "plain_ms", "library_ms", "bound_ms",
         "widen_bound_ms", "rows", "dp", "max_abs_err")}
@@ -2142,6 +2663,7 @@ def main() -> int:
     details = {"card": card, "kind": name, "runs": runs, "turns": turns,
                "homo_window": homo_window, "skew_baseline_steps": skew_steps,
                "files": files, "resume": resume, "full_graph": full,
+               "sharded": sharded,
                "seconds": time.time() - t0}
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:
@@ -2219,7 +2741,22 @@ def main() -> int:
             for r, rec in rels.items()}
         for g, rels in full["graphs"].items()}
     summary["full_graph"]["single_step"] = full["single_step"]
+    summary["sharded"] = {
+        "scaling": sharded["scaling"], "cli": sharded["cli"],
+        "nccl": {k: sharded["nccl"][k] for k in ("init_s", "exact",
+                                                 "collectives", "seconds")},
+        "launches": sharded["launches"],
+        "cases": {case: {k: c[k] for k in ("loss", "hub_rows",
+                                           "max_grad_diff", "masked_fetch")}
+                  for case, c in sharded["cases"].items()}}
     summary["seconds"] = details["seconds"]
+    # phase 23 per rank, one line each: step ms, launches a step by kernel
+    # (the masked fetch apart), collectives a step by axis, host syncs a
+    # step, peak memory
+    for case, c in sharded["cases"].items():
+        for r, rk in enumerate(c["ranks"]):
+            print(json.dumps({"phase23": case, "rank": r, **rk,
+                              "card": card}))
     print(json.dumps(summary))
     print(json.dumps({"kernels": list(entries.values())}))
     print(card)
@@ -2230,4 +2767,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sharded-rank"]:
+        sys.exit(sharded_rank_main(sys.argv[2:]))
     sys.exit(main())

@@ -16,7 +16,8 @@ on a bfloat16 store widens in the same pass (exactly), which is what every
 consumer of a bf16 window computes right after the fetch.
 
 ``launches`` counts kernel launches, so a run can show that its main path
-went through the kernel.
+went through the kernel; ``masked_launches`` counts those of them made with
+``active`` (the sharded store lane's masked fetch).
 """
 
 from __future__ import annotations
@@ -27,8 +28,10 @@ import torch
 
 from pcgnn_tpu_torch.ops import kernels
 
-# kernel launches in this process; the only writer is ``launch``
+# kernel launches in this process, and those with ``active``; the only
+# writer is ``launch``
 launches = 0
+masked_launches = 0
 
 _VEC_BYTES = 16
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -121,7 +124,7 @@ def launch(store: torch.Tensor, starts: torch.Tensor,
     [B, dp] of the store's dtype or float32, B > 0.  ``window_gather``
     checks them; a caller that times the kernel alone calls this
     directly."""
-    global launches
+    global launches, masked_launches
     lib = kernels.load("window_gather")
     fn = _bind(lib)
     b, dp = out.shape
@@ -136,3 +139,4 @@ def launch(store: torch.Tensor, starts: torch.Tensor,
         raise RuntimeError(f"window_gather launch failed: "
                            f"{msg.decode()} (cudaError {rc})")
     launches += 1
+    masked_launches += active is not None

@@ -1,4 +1,4 @@
-"""The training orchestrator, single device.
+"""The training orchestrator, on one device or sharded over ranks.
 
 Counterpart of ``pcgnn_tpu/train/trainer.py``.  Per epoch:
   1. PC-GNN: *pick* a label-balanced sample of 2·|train_pos| training nodes;
@@ -16,6 +16,20 @@ the run's state at each validation and continues a cut run from it;
 The trainer runs on ``cuda`` unless the caller passes ``device="cpu"``; it
 raises when CUDA is asked for and absent.  Random streams come from
 ``torch.Generator``s seeded from the config's seed and the epoch.
+
+Sharded training (``parallel.spmd``): the process is one rank of a
+``torch.distributed`` group and trains over a mesh of ranks.
+``distributed: true`` joins the group named by ``coordinator_address``,
+``num_processes`` and ``process_id`` (or ``PCGNN_PROCESS_ID``; without an
+address, the ``env://`` variables) and arranges it as the
+('dcn', 'data', 'graph') mesh (``mesh_graph``, ``mesh_data`` per host of
+``ranks_per_host`` ranks); its device defaults to ``cuda:<local rank>``.
+``num_devices: N > 1`` arranges an initialized group of N ranks as the
+('data', 'graph') mesh (``mesh_graph``, else ``factor_mesh``); the CLI
+starts those ranks (``cli.py``).  The backend is ``dist_backend`` or, by
+default, nccl on CUDA and gloo on the CPU.  Every rank loads the graph on
+the host and keeps only its shard on its device; every rank draws the same
+epoch plans, and only rank 0 writes results and checkpoints.
 """
 
 from __future__ import annotations
@@ -55,13 +69,6 @@ def resolve_device(device=None) -> torch.device:
             "CUDA was requested (the default device) but no GPU is "
             "available; pass device='cpu' to run the plain CPU path")
     return dev
-
-
-def _reject_unported(cfg: dict) -> None:
-    if cfg.get("distributed") or int(cfg.get("num_devices") or 1) > 1:
-        raise NotImplementedError("config asks for multi-device training "
-                                  "(ROADMAP module 13), which is not "
-                                  "ported yet")
 
 
 def make_optimizer(model: torch.nn.Module, lr: float,
@@ -116,18 +123,38 @@ class Trainer:
                  result: Optional[ResultManager] = None, device=None):
         self.config = dict(config)
         cfg = self.config
-        _reject_unported(cfg)
+        self.learn_features = bool(cfg.get("learn_features"))
+        self.distributed = bool(cfg.get("distributed"))
+        self.num_devices = int(cfg.get("num_devices") or 1)
+        sharded = self.distributed or self.num_devices > 1
+        if self.learn_features and sharded:
+            raise NotImplementedError(
+                "learn_features trains the node table through the dense "
+                "mask-GEMM lane, which is single-device only (the sharded "
+                "lanes assume a frozen sharded table); drop num_devices/"
+                "distributed or learn_features")
         self.device = resolve_device(device)
+        self.mesh = self._join_mesh(device) if sharded else None
+        if self.mesh is not None and device is None and self.distributed:
+            self.device = resolve_device(
+                f"cuda:{self.mesh.rank % self._ranks_per_host()}")
+        if (self.mesh is not None and self.device.type == "cuda"
+                and self.device.index is not None):
+            # a rank's collectives and kernels run on its own card
+            torch.cuda.set_device(self.device)
         self.result = result if result is not None else ResultManager(cfg)
         np.random.seed(cfg["seed"])
 
+        # sharded: the graph stays on the host, each rank's shard goes to
+        # its device (parallel.spmd.shard_graph)
+        graph_dev = "cpu" if sharded else self.device
         if graph is None:
             thr = cfg.get("thresholds") or cfg.get("threshold", 0.5)
             graph = load_data(cfg["data_name"], cfg.get("data_prefix", "data/"),
                               threshold=thr, graph_id=cfg.get("graph_id"),
-                              seed=cfg["seed"], device=self.device)
+                              seed=cfg["seed"], device=graph_dev)
         else:
-            graph = graph.to(self.device)
+            graph = graph.to(graph_dev)
         labels = graph.labels.cpu().numpy()
 
         idx_train, idx_valid, idx_test = stratified_splits(
@@ -140,7 +167,7 @@ class Trainer:
             # amazon-family features are row-normalized
             feats = normalize_features(graph.features.cpu().numpy())
             graph = dataclasses.replace(
-                graph, features=torch.as_tensor(feats, device=self.device),
+                graph, features=torch.as_tensor(feats, device=graph_dev),
                 features_pad=None)
         # the stores snapshot the features: built after any transform, for
         # the model that reads them (PC-GNN the relations', GCN and
@@ -148,11 +175,10 @@ class Trainer:
         # trainable table itself, and edge_windows: false builds nothing
         self.model_name = cfg["model"].upper()
         self.is_pcgnn = self.model_name == "PCGNN"
-        self.learn_features = bool(cfg.get("learn_features"))
         has_stores = graph.fused is not None or any(
             r.ewin is not None for r in (*graph.relations, graph.homo))
         if (cfg.get("edge_windows", True) and not self.learn_features
-                and not has_stores):
+                and not has_stores and not sharded):
             graph = materialize_edge_windows(
                 graph, dtype=_EWIN_DTYPES[cfg.get("ewin_dtype", "bfloat16")],
                 relations=self.is_pcgnn, homo=not self.is_pcgnn,
@@ -166,6 +192,11 @@ class Trainer:
         self.model = self.new_model()
 
         b = int(cfg["batch_size"])
+        if self.mesh is not None and b % self.mesh.dd:
+            # batches shard over the data axes; padded slots weigh 0
+            b = -(-b // self.mesh.dd) * self.mesh.dd
+            print(f"Rounded batch_size up to {b} (divisible by the data "
+                  f"axes {self.mesh.dd})")
         self.sample_size = max(2 * len(train_pos) if self.is_pcgnn
                                else len(idx_train), 1)
         self.num_batches = max(-(-self.sample_size // b), 1)
@@ -173,8 +204,9 @@ class Trainer:
 
         dev = self.device
         self.idx_train_dev = torch.as_tensor(idx_train, device=dev)
+        self.labels = graph.labels.to(dev)
         self.pick_weights = pick_probs(
-            graph.homo.deg[self.idx_train_dev],
+            graph.homo.deg.to(dev)[self.idx_train_dev],
             torch.as_tensor(y_train, device=dev))
         # the weights are fixed for the run: their CDF is summed once
         self.pick_cdf = pick_cdf(self.pick_weights)
@@ -186,7 +218,66 @@ class Trainer:
         if not self.learn_features:
             # features[train_pos] is constant for the run (frozen features,
             # fixed split); the learned lane scores the current table
-            self.consts["tpf"] = graph.features[self.train_pos_dev]
+            self.consts["tpf"] = graph.features[tp].to(dev)
+        self.sharded = None
+        if self.mesh is not None:
+            from pcgnn_tpu_torch.parallel.spmd import shard_graph
+            m = self.mesh
+            print(f"Sharded over the mesh {m.shape}: rank {m.rank}, data "
+                  f"block {m.data_rank}, graph block {m.graph_index}, "
+                  f"{m.backend} on {dev}")
+            self.sharded = shard_graph(
+                graph, self.mesh, pcgnn=self.is_pcgnn,
+                edge_windows=bool(cfg.get("edge_windows", True)),
+                ewin_dtype=_EWIN_DTYPES[cfg.get("ewin_dtype", "bfloat16")],
+                device=dev)
+
+    def _ranks_per_host(self) -> int:
+        import torch.distributed as dist
+        rph = self.config.get("ranks_per_host") or os.environ.get(
+            "LOCAL_WORLD_SIZE")
+        return int(rph) if rph else dist.get_world_size()
+
+    def _join_mesh(self, device):
+        """Join the process group (``distributed``) or take the one this
+        process is a rank of (``num_devices``), and arrange it as the
+        mesh."""
+        import torch.distributed as dist
+
+        from pcgnn_tpu_torch.parallel.distributed import (
+            default_backend, ensure_initialized, make_multihost_mesh)
+        from pcgnn_tpu_torch.parallel.mesh import factor_mesh, make_mesh
+        cfg = self.config
+        backend = cfg.get("dist_backend") or default_backend(self.device)
+        if self.distributed:
+            pid = cfg.get("process_id")
+            if pid is None and os.environ.get("PCGNN_PROCESS_ID") is not None:
+                pid = int(os.environ["PCGNN_PROCESS_ID"])
+            ensure_initialized(cfg.get("coordinator_address"),
+                               cfg.get("num_processes"), pid, backend=backend)
+            return make_multihost_mesh(
+                graph=int(cfg.get("mesh_graph") or 1),
+                data=int(cfg["mesh_data"]) if cfg.get("mesh_data") else None,
+                ranks_per_host=self._ranks_per_host())
+        n = self.num_devices
+        if self.device.type == "cuda" and n > torch.cuda.device_count():
+            raise ValueError(f"num_devices={n} but only "
+                             f"{torch.cuda.device_count()} devices are "
+                             f"visible")
+        if not dist.is_initialized() or dist.get_world_size() != n:
+            raise RuntimeError(
+                f"num_devices={n} runs one process per device: start the "
+                f"ranks with pcgnn_tpu_torch.cli, or join a group of {n} "
+                f"ranks (torch.distributed) before building the Trainer")
+        dg = cfg.get("mesh_graph")
+        dd, dg = (n // int(dg), int(dg)) if dg else factor_mesh(n)
+        return make_mesh(data=dd, graph=dg)
+
+    @property
+    def is_main(self) -> bool:
+        """Whether this process writes results and checkpoints: the only
+        one, or rank 0 of the mesh."""
+        return self.mesh is None or self.mesh.rank == 0
 
     def new_model(self):
         """A freshly initialized model, from the config's seed; a learned
@@ -240,6 +331,12 @@ class Trainer:
 
     def step(self, model, optimizer, batch, y, w,
              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """One optimizer step on the full batch; sharded, each rank
+        computes its block and every rank returns the same loss."""
+        if self.sharded is not None:
+            from pcgnn_tpu_torch.parallel.spmd import spmd_train_step
+            return spmd_train_step(model, optimizer, self.sharded, batch, y,
+                                   w, self.consts, generator)
         return train_step(model, optimizer, self.graph, batch, y, w,
                           self.consts, generator)
 
@@ -249,7 +346,12 @@ class Trainer:
         back-to-back optimizer steps (``train_step``), step i on ``batch``,
         ``y`` and ``w`` rolled by i, as the JAX package's scan rolls them,
         and returns the last step's loss.  Every call steps ``model`` and
-        ``optimizer`` on; divide a call's time by ``nscan``."""
+        ``optimizer`` on; divide a call's time by ``nscan``.  Single device
+        only, as in the JAX package."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "single_step is the single-device roofline entry point; a "
+                "sharded step is timed through parallel.spmd.spmd_train_step")
         dev = self.device
         args = (model, optimizer, torch.as_tensor(batch, device=dev),
                 torch.as_tensor(y, device=dev),
@@ -267,14 +369,23 @@ class Trainer:
     def run_epoch(self, model, optimizer, epoch: int) -> torch.Tensor:
         """One epoch of steps; returns the mean loss (on the device)."""
         batches, weights = self.epoch_plan(epoch)
-        losses = [self.step(model, optimizer, bt, self.graph.labels[bt], wt,
+        losses = [self.step(model, optimizer, bt, self.labels[bt], wt,
                             self.step_generator(epoch, i))
                   for i, (bt, wt) in enumerate(zip(batches, weights))]
         return torch.stack(losses).mean()
 
     def predict(self, model, batch: torch.Tensor) -> torch.Tensor:
+        """[B, 2] probabilities; sharded, the full batch on every rank."""
+        batch = batch.to(self.device)
+        if self.sharded is not None:
+            from pcgnn_tpu_torch.parallel.spmd import (spmd_homo_predict,
+                                                       spmd_predict)
+            if self.is_pcgnn:
+                return spmd_predict(model, self.sharded, batch,
+                                    self.consts["tp"], self.consts["tpv"])
+            return spmd_homo_predict(model, self.sharded, batch)
         with torch.no_grad():
-            probs, _ = model.to_prob(self.graph, batch.to(self.device))
+            probs, _ = model.to_prob(self.graph, batch)
         return probs
 
     def _resume_path(self) -> str:
@@ -311,8 +422,14 @@ class Trainer:
                 thresh_best = st.get("thresh_best")
                 print(f"Resumed from epoch {st['epoch']}")
         best_state = {k: v.clone() for k, v in model.state_dict().items()}
-        epoch_times = []
-        profile_dir = cfg.get("profile_dir")
+        epoch_times, epoch_losses = [], []
+        # sharded: every rank runs the same control flow (the metrics are
+        # the same on every rank), but only rank 0 writes results,
+        # checkpoints and the trace; the others keep the best state in
+        # memory
+        is_main = self.is_main
+        result = self.result if is_main else None
+        profile_dir = cfg.get("profile_dir") if is_main else None
         # the trace spans epochs start+2 to start+4, and closes when the
         # epochs end first
         with contextlib.ExitStack() as tracing:
@@ -322,6 +439,7 @@ class Trainer:
                 t0 = time.time()
                 loss = float(self.run_epoch(model, optimizer, epoch))
                 epoch_times.append(time.time() - t0)
+                epoch_losses.append(loss)
                 if profile_dir and epoch == start_epoch + 4:
                     tracing.close()
                 if (epoch + 1) % cfg["valid_epochs"] == 0:
@@ -329,7 +447,7 @@ class Trainer:
                           f"epoch_time {epoch_times[-1]*1e3:.1f}ms)")
                     res = evaluate(lambda nodes: self.predict(model, nodes),
                                    self.idx_valid, self.y_valid,
-                                   self.batch_size, result=self.result,
+                                   self.batch_size, result=result,
                                    epoch=epoch, epoch_best=epoch_best,
                                    flag="val", sweep_thresh=select_f1)
                     gain_auc = (res.auc - auc_best) / auc_best
@@ -340,9 +458,10 @@ class Trainer:
                         thresh_best = res.thresh
                         best_state = {k: v.clone()
                                       for k, v in model.state_dict().items()}
-                        save_checkpoint(self.result.model_path,
-                                        params_to_jax(model))
-                    if cfg.get("resume"):
+                        if is_main:
+                            save_checkpoint(self.result.model_path,
+                                            params_to_jax(model))
+                    if cfg.get("resume") and is_main:
                         save_checkpoint(self._resume_path(), dict(
                             params=params_to_jax(model),
                             opt_state=adam_state(model, optimizer),
@@ -354,19 +473,22 @@ class Trainer:
                     break
 
         print(f"Restore model from epoch {epoch_best}")
-        try:
-            best_state = params_from_jax(
-                load_checkpoint(self.result.model_path))
-        except FileNotFoundError:
-            pass  # no validation improvement was ever recorded
+        if is_main:
+            try:
+                best_state = params_from_jax(
+                    load_checkpoint(self.result.model_path))
+            except FileNotFoundError:
+                pass  # no validation improvement was ever recorded
         model.load_state_dict(best_state)
         res = evaluate(lambda nodes: self.predict(model, nodes),
                        self.idx_test, self.y_test, self.batch_size,
-                       result=self.result, epoch_best=epoch_best, flag="test",
+                       result=result, epoch_best=epoch_best, flag="test",
                        valid_thresh=thresh_best if select_f1 else None)
-        self.result.save_predictions(res.anomaly_confidence,
-                                     "anomaly_confidence")
+        if is_main:
+            self.result.save_predictions(res.anomaly_confidence,
+                                         "anomaly_confidence")
         self.model = model
         self.epoch_times = epoch_times
+        self.epoch_losses = epoch_losses
         self.valid_thresh = thresh_best
         return res.auc, res.recall, res.f1_macro

@@ -1,8 +1,9 @@
 """Experiment configuration: schema defaults, validation, grid expansion.
 
 Counterpart of ``pcgnn_tpu/utils/config.py`` with the same keys and
-defaults.  Keys for lanes the port does not have yet are rejected by the
-trainer (``train.trainer.Trainer``) rather than ignored.  GraphSAGE's
+defaults.  The trainer also reads two keys of its own for its
+one-rank-per-process model, ``dist_backend`` and ``ranks_per_host``
+(``train.trainer``), with no default here.  GraphSAGE's
 ``num_sample`` is read when present; it has no default here, as in the JAX
 package.
 """

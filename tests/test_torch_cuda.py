@@ -959,3 +959,164 @@ def test_single_step_on_card(card, tmp_path):
                                         cfg["emb_size"])
     r = measure(fn, *args, analytic_bytes=3 * nbytes)
     assert 0 < r["sol_frac"] < 1 and r["wall_ms"] > 0
+
+
+# ------------------------------------------------- sharded step (module 13)
+
+def _rank_mesh(dd, dg, g):
+    from pcgnn_tpu_torch.parallel.mesh import RankMesh
+    return RankMesh(shape={"dcn": 1, "data": dd, "graph": dg}, rank=g,
+                    host=0, data_index=0, graph_index=g)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_masked_fetch_zeroes_skipped_rows(card, dtype):
+    """The sharded store lane's fetch (kernel 1c): rows the rank does not
+    own are not copied, and are 0 when the fetch returns, whatever the
+    memory held before (it is filled with NaN and freed first); owned rows
+    equal the plain version exactly."""
+    from pcgnn_tpu_torch.parallel import spmd
+    g = synthetic_fraud_graph("small", seed=1)
+    dg = 2
+    block = g.num_nodes // dg
+    gen = torch.Generator().manual_seed(0)
+    batch = torch.randint(0, g.num_nodes, (1024,), generator=gen).to(card)
+    for gi in range(dg):
+        sh = spmd.shard_relation(g.relations[2], _rank_mesh(1, dg, gi),
+                                 g.num_nodes, g.features, ewin_dtype=dtype,
+                                 device=card)
+        local = batch - gi * block
+        mine = (local >= 0) & (local < block)
+        starts = sh.estart[local.clamp(0, block - 1)]
+        junk = torch.full((1024, sh.ewin_dp), float("nan"), device=card)
+        del junk
+        before = (wg.launches, wg.masked_launches)
+        got = spmd.sharded_feature_window(sh, starts, mine)
+        torch.cuda.synchronize()
+        assert (wg.launches, wg.masked_launches) == (before[0] + 1,
+                                                     before[1] + 1)
+        assert bool((got[~mine] == 0).all())
+        want = wg.window_gather_plain(sh.ewin, starts, sh.ewin_dp,
+                                      out_dtype=torch.float32)
+        want = want[:, : got.shape[1] * got.shape[2]].view_as(got)
+        assert torch.equal(got[mine], want[mine])
+
+
+_GLOO_CARD_WORKER = r'''
+import sys
+import numpy as np
+import torch
+rank, port, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+from pcgnn_tpu_torch.data.synthetic import synthetic_fraud_graph
+from pcgnn_tpu_torch.models import build_model
+from pcgnn_tpu_torch.parallel import spmd
+from pcgnn_tpu_torch.parallel.distributed import init_distributed
+from pcgnn_tpu_torch.parallel.mesh import make_mesh
+torch.cuda.set_device(0)
+init_distributed(f"localhost:{port}", 2, rank, backend="gloo")
+mesh = make_mesh(data=1, graph=2)
+g = synthetic_fraud_graph("skew-tiny", seed=4)
+model = build_model("PCGNN", feat_dim=g.feat_dim, emb_dim=16,
+                    num_relations=3, alpha=2.0, rho=0.5,
+                    generator=torch.Generator().manual_seed(0)).cuda()
+sg = spmd.shard_graph(g, mesh, ewin_dtype=torch.bfloat16, device="cuda:0")
+tp = torch.nonzero(g.labels == 1)[:48, 0].cuda()
+tpv = torch.ones(len(tp), dtype=torch.bool, device="cuda")
+batch = torch.arange(64, device="cuda")
+y = g.labels.cuda()[batch]
+w = torch.ones(64, device="cuda")
+res = {}
+for fused in (True, False):
+    model.zero_grad()
+    loss, local = spmd.spmd_loss(model, sg, batch, y, w, tp, tpv,
+                                 fused=fused)
+    local.backward()
+    res[f"loss{int(fused)}"] = np.float32(loss.item())
+    for n, p in model.named_parameters():
+        res[f"{int(fused)}.{n}"] = p.grad.cpu().numpy()
+res["masked"] = np.int64(__import__(
+    "pcgnn_tpu_torch.ops.window_gather",
+    fromlist=["x"]).masked_launches)
+np.savez(out, **res)
+torch.distributed.destroy_process_group()
+'''
+
+
+def test_two_gloo_ranks_on_one_card_equal_the_single_rank_step(card,
+                                                                tmp_path):
+    """Two gloo ranks sharing the card at (data 1, graph 2), on the hub
+    graph with bf16 stores: the sharded loss and gradients, fused and
+    per-relation store lanes, equal the single-device step's; the store
+    lane launched the masked fetch."""
+    from pcgnn_tpu_torch.models import build_model
+    from pcgnn_tpu_torch.ops import kernels
+    from pcgnn_tpu_torch.utils.multiproc import (gang_with_fresh_port,
+                                                 run_workers, worker_env)
+    kernels.build()
+    worker = tmp_path / "worker.py"
+    worker.write_text(_GLOO_CARD_WORKER)
+    outs = [tmp_path / f"r{r}.npz" for r in range(2)]
+    gang_with_fresh_port(lambda port: run_workers(
+        str(worker), [(r, port, outs[r]) for r in range(2)],
+        env=worker_env(), timeout=300))
+    g = synthetic_fraud_graph("skew-tiny", seed=4, device=card)
+    model = build_model("PCGNN", feat_dim=g.feat_dim, emb_dim=16,
+                        num_relations=3, alpha=2.0, rho=0.5,
+                        generator=torch.Generator().manual_seed(0)).to(card)
+    tp = torch.nonzero(g.labels == 1)[:48, 0]
+    tpv = torch.ones(len(tp), dtype=torch.bool, device=card)
+    batch = torch.arange(64, device=card)
+    for fused in (True, False):
+        gs = csr.materialize_edge_windows(g, dtype=torch.bfloat16,
+                                          fused=fused)
+        model.zero_grad()
+        loss = model.loss(gs, batch, g.labels[batch],
+                          torch.ones(64, device=card), train_pos=tp,
+                          train_pos_valid=tpv)
+        loss.backward()
+        for out in outs:
+            res = np.load(out)
+            np.testing.assert_allclose(res[f"loss{int(fused)}"], loss.item(),
+                                       rtol=1e-5)
+            for n, p in model.named_parameters():
+                np.testing.assert_allclose(res[f"{int(fused)}.{n}"],
+                                           p.grad.cpu().numpy(), rtol=1e-4,
+                                           atol=1e-6, err_msg=n)
+    assert all(int(np.load(o)["masked"]) == 3 for o in outs)
+
+
+def test_one_rank_nccl_group(card, tmp_path, monkeypatch):
+    """A 1-rank NCCL group initializes and all-reduces; its (1, 1) mesh
+    elides every collective and steps exactly as the single device."""
+    import torch.distributed as dist
+
+    from pcgnn_tpu_torch.parallel.distributed import init_distributed
+    from pcgnn_tpu_torch.train.trainer import Trainer
+    from pcgnn_tpu_torch.utils.multiproc import free_port
+    monkeypatch.chdir(tmp_path)
+    torch.cuda.set_device(0)
+    init_distributed(f"localhost:{free_port()}", 1, 0, backend="nccl")
+    try:
+        t = torch.full((8,), 3.0, device=card)
+        dist.all_reduce(t)
+        assert t.tolist() == [3.0] * 8
+        cfg = dict(seed=2, data_name="synthetic:skew-tiny", model="PCGNN",
+                   train_ratio=0.4, test_ratio=0.67, emb_size=16, lr=0.01,
+                   weight_decay=0.001, alpha=2.0, rho=0.5, epochs=1,
+                   valid_epochs=1, batch_size=128, patience=10, exp_num=0)
+        single = Trainer(cfg, device=card)
+        rank = Trainer(dict(cfg, distributed=True), device="cuda:0",
+                       graph=single.graph)
+        assert rank.mesh.backend == "nccl" and rank.mesh.size == 1
+        got = []
+        for tr in (single, rank):
+            model = tr.new_model()
+            opt = tr.new_optimizer(model)
+            batches, weights = tr.epoch_plan(0)
+            loss = tr.step(model, opt, batches[0], tr.labels[batches[0]],
+                           weights[0])
+            got.append((loss, list(model.parameters())))
+        assert torch.equal(got[0][0], got[1][0])
+        assert all(torch.equal(a, b) for a, b in zip(got[0][1], got[1][1]))
+    finally:
+        dist.destroy_process_group()

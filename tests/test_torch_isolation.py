@@ -47,7 +47,11 @@ def test_every_module_imports_without_jax():
             "pcgnn_tpu_torch.train.legacy_log",
             "pcgnn_tpu_torch.utils.expgen", "pcgnn_tpu_torch.utils.fleet",
             "pcgnn_tpu_torch.utils.profiling", "pcgnn_tpu_torch.ops.sddmm",
-            "pcgnn_tpu_torch.utils.roofline"} <= set(mods)
+            "pcgnn_tpu_torch.utils.roofline",
+            "pcgnn_tpu_torch.parallel.mesh",
+            "pcgnn_tpu_torch.parallel.distributed",
+            "pcgnn_tpu_torch.parallel.spmd",
+            "pcgnn_tpu_torch.utils.multiproc"} <= set(mods)
     assert len(mods) >= 34
     code = (
         "import importlib, json, sys\n"

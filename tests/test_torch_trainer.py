@@ -308,16 +308,18 @@ def test_config_matches_jax(tmp_path):
                                        ("resume", True),
                                        ("profile_dir", "prof")])
 def test_trainer_rejects_unported_config(tmp_path, key, value):
-    """Multi-device training is refused as not ported.  ``edge_windows:
-    false`` is ported: the trainer builds no store and trains on the lanes
-    without them.  ``resume`` and ``profile_dir`` are ported: a trainer
-    takes them and trains."""
+    """Multi-device training is ported with one process per rank: a
+    trainer asked for 2 devices in a process that is not one of 2 ranks
+    refuses (the CLI starts the ranks; ``tests/test_torch_spmd_trainer.py``
+    trains them).  ``edge_windows: false`` is ported: the trainer builds no
+    store and trains on the lanes without them.  ``resume`` and
+    ``profile_dir`` are ported: a trainer takes them and trains."""
     if key == "profile_dir":
         value = str(tmp_path / value)
     cfg = _cfg(**{key: value})
     result = TResults(cfg, root=str(tmp_path))
     if key == "num_devices":
-        with pytest.raises(NotImplementedError, match="not ported"):
+        with pytest.raises(RuntimeError, match="one process per device"):
             TTrainer(cfg, device="cpu", result=result)
         return
     t = TTrainer(cfg, device="cpu", result=result)
