@@ -7,7 +7,9 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); exits non-zero, with no
 result line, on any failure.  In order:
 
   1. builds every CUDA kernel of the package from ``pcgnn_tpu_torch/csrc``
-     (one ``nvcc`` per source, all at once) and prints the compiler report;
+     (one ``nvcc`` per source, all at once) and prints the compiler report,
+     and the native graph core (``g++``, meanwhile), which must load: every
+     graph below is built through it, and each build says so;
   2. builds the ``synthetic:yelp-like`` graph (no hub rows) and its bf16
      edge-window and fused record stores on the card, then holds the
      window-gather kernel against its plain PyTorch version on the card at
@@ -133,10 +135,26 @@ Phase 11 also times the learned steps in the same turns.  Then:
      by axis, host round trips and peak memory a step.  Kernel 1c is then
      checked and timed here at that lane's shape, and (c) a 1-rank NCCL
      group initializes, all-reduces, and steps at (1, 1) exactly as the
-     single-rank step.  Two ranks on one card give no scaling number.
+     single-rank step.  Two ranks on one card give no scaling number;
+ 24. ``synthetic:stress-10m`` (BASELINE.json config 5: 10M nodes, F = 64,
+     directed relations of 130M / 70M / 30M CSR edges), built on the host
+     through the native graph core, and trained at full width for one
+     epoch and one validation in the clamped CSR lane: no relation has a
+     dense table or a store and there is no padded table, so every step
+     reads each relation's window from the CSR through the ragged gather
+     (three launches, no window gather) and gathers rows with ids clamped
+     to N-1.  It checks the lane, the launches of every step, the
+     validation AUC (above 0.5) and the card's step against the CPU's on
+     the first batch, as in 6; and prints the build's seconds by step, the
+     set-up's, a profiled span of 20 steps (launches, syncs, kernel ms,
+     busy share), ``single_step`` through ``utils.roofline.measure``, the
+     ragged gather at the three relations' calls against its plain version
+     (exactly), its bound and an indexing gather, the oversample
+     candidates and the row gathers timed alone, and peak device memory
+     and host RSS.
 
-Every profiled run (phases 5, 9, 14, 16-18) counts the host syncs of one
-step; a run whose relations have no hub rows must make none.
+Every profiled run (phases 5, 9, 14, 16-18, 24) counts the host syncs of
+one step; a run whose relations have no hub rows must make none.
 
 The line before the last is the card's name and power limit; before it, a
 ``{"kernels": [...]}`` line; the last line is
@@ -155,6 +173,7 @@ import hashlib
 import json
 import math
 import os
+import resource
 import shutil
 import subprocess
 import sys
@@ -524,6 +543,32 @@ def hub_chunk_calls(t) -> list:
     return calls
 
 
+def ragged_case(name, col, starts_list, d, fill, rate: float) -> dict:
+    """Times one ragged-gather shape over the calls in ``starts_list``
+    (each [B]): the kernel alone (``launch`` on checked arguments), the
+    plain version, and one PyTorch advanced-indexing gather of the same
+    windows from ``col.unfold(0, d, 1)``.  ``*_ms`` is device time per
+    call, ``*_run_ms`` the back-to-back run time.  The bound counts what a
+    call must move: each id read once and written once, and the starts."""
+    from pcgnn_tpu_torch.ops import ragged_gather as rg
+    rows = len(starts_list[0])
+    out = torch.empty((rows, d), dtype=torch.int32, device=col.device)
+    table = col.unfold(0, d, 1)
+    inside = [s.to(torch.int64).clamp(0, col.numel() - d)
+              for s in starts_list]
+    nbytes = 2 * rows * d * 4 + rows * starts_list[0].element_size()
+    c = {"name": name, "rows": rows, "d": d, "bytes": nbytes,
+         "bound_ms": nbytes / rate * 1e3}
+    for key, fn, args in (
+            ("ms", lambda s: rg.launch(col, s, out, fill),
+             [(s,) for s in starts_list]),
+            ("plain_ms", lambda s: rg.ragged_gather_plain(col, s, d, fill),
+             [(s,) for s in starts_list]),
+            ("library_ms", lambda i: table[i], [(i,) for i in inside])):
+        c[key], c[key.replace("ms", "run_ms")] = time_ms(fn, args)
+    return c
+
+
 def ragged_phase(t, rate: float) -> tuple[dict, dict]:
     """Phase 7: the ragged-gather kernel against its plain version at the
     hub lane's real calls on yelp-skew and at edge cases, and its timings.
@@ -552,27 +597,8 @@ def ragged_phase(t, rate: float) -> tuple[dict, dict]:
                "widths": sorted({w for _, _, w in calls}), "cases": []}
 
     def case(name, col, starts, d):
-        """Times one call shape: the kernel alone (``launch`` on checked
-        arguments), the plain version, and one PyTorch advanced-indexing
-        gather of the same windows from ``col.unfold(0, d, 1)``.  ``*_ms``
-        is device time per call, ``*_run_ms`` the back-to-back run time."""
-        rows = len(starts)
-        out = torch.empty((rows, d), dtype=torch.int32, device=dev)
-        table = col.unfold(0, d, 1)
-        inside = starts.to(torch.int64).clamp(0, col.numel() - d)
-        # bytes the copy must move: each id read once and written once,
-        # plus the starts
-        nbytes = 2 * rows * d * 4 + rows * starts.element_size()
-        c = {"name": name, "rows": rows, "d": d, "bytes": nbytes,
-             "bound_ms": nbytes / rate * 1e3}
-        reps = [(starts,)] * TIMING_REPS
-        for key, fn, args in (
-                ("ms", lambda s: rg.launch(col, s, out, g.num_nodes), reps),
-                ("plain_ms", lambda s: rg.ragged_gather_plain(
-                    col, s, d, g.num_nodes), reps),
-                ("library_ms", lambda i: table[i],
-                 [(inside,)] * TIMING_REPS)):
-            c[key], c[key.replace("ms", "run_ms")] = time_ms(fn, args)
+        c = ragged_case(name, col, [starts] * TIMING_REPS, d, g.num_nodes,
+                        rate)
         details["cases"].append(c)
         return c
 
@@ -908,8 +934,10 @@ def main_path_phase(t) -> dict:
                 raise AssertionError(f"a training step with {hubs[-1]} hub "
                                      f"rows launched no ragged_gather")
     train_launches = {k: m.launches for k, m in mods.items()}
+    t_eval = time.time()
     res = evaluate(lambda nodes: t.predict(model, nodes), t.idx_valid,
                    t.y_valid, t.batch_size, print_line=False)
+    eval_s = time.time() - t_eval
     launches = {k: m.launches for k, m in mods.items()}
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite training loss: {losses}")
@@ -939,7 +967,8 @@ def main_path_phase(t) -> dict:
             "window_launches_per_step": want_wg,
             "train_launches": train_launches, "launches": launches,
             "valid_auc": res.auc, "valid_f1_macro": res.f1_macro,
-            "eval_batches": eval_batches(t), "embed_moved": embed_moved,
+            "eval_batches": eval_batches(t), "eval_s": eval_s,
+            "embed_moved": embed_moved,
             "edges_per_s": edges_per_epoch(t)
             / (steady * 1e-3 * t.num_batches),
             "peak_mem_bytes": torch.cuda.max_memory_allocated(),
@@ -964,15 +993,17 @@ def count_syncs(fn) -> int:
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
-def profile_phase(t) -> dict:
+def profile_phase(t, steps: int | None = None) -> dict:
     """Where a training step's time goes: one epoch of fused-lane steps
-    under torch.profiler, after a warm-up step.  Device time by kernel, the
-    count of kernel launches, the share of the epoch's wall time the card
-    was busy, and (outside the profile) the host syncs of one step."""
+    (or its first ``steps``) under torch.profiler, after a warm-up step.
+    Device time by kernel, the count of kernel launches, the share of the
+    profiled wall time the card was busy, and (outside the profile) the
+    host syncs of one step."""
     from torch.profiler import ProfilerActivity, profile
     model = t.new_model()
     opt = t.new_optimizer(model)
     batches, weights = t.epoch_plan(0)
+    batches, weights = batches[:steps], weights[:steps]
     labels = [t.graph.labels[bt] for bt in batches]
     t.step(model, opt, batches[0], labels[0], weights[0])
     syncs = count_syncs(lambda: t.step(model, opt, batches[0], labels[0],
@@ -1375,12 +1406,13 @@ def stress_phase(rate: float) -> tuple:
     t1 = time.time()
     g = load_data(STRESS_CFG["data_name"], seed=STRESS_CFG["seed"])
     build_s = time.time() - t1
-    print(f"stress-1m graph built on the host in {build_s:.1f} s",
-          file=sys.stderr)
+    print(f"stress-1m graph built on the host in {build_s:.1f} s (CSR: "
+          f"{csr_path()})", file=sys.stderr)
     t2 = time.time()
     t = Trainer(STRESS_CFG, graph=g, device="cuda")
     torch.cuda.synchronize()
-    run = {"host_build_s": build_s, "setup_s": time.time() - t2,
+    run = {"host_build_s": build_s, "csr_path": csr_path(),
+           "setup_s": time.time() - t2,
            "graph": graph_shape(t.graph), "plan": plan_check(t)}
     plan = run["plan"]
     print(f"stress-1m epoch_plan(0): equal when built twice in this "
@@ -1406,6 +1438,217 @@ def stress_phase(rate: float) -> tuple:
     run["clamp_card_vs_cpu"] = card_vs_cpu_phase(tc)
     run["csr_branch"] = csr_branch_phase(tc)
     return run, t.graph
+
+
+# ------------------------------------------------ phase 24: stress-10m
+# BASELINE.json config 5, "PC-GNN on synthetic 10M-node/200M-edge
+# multi-relation graph": the bench configuration on synthetic:stress-10m at
+# full width (10M nodes, F = 64, emb 64, B = 1024), cut to one epoch and one
+# validation.  At that size no relation has a dense neighbor table, so none
+# has a store, and the features are over the padded table's budget: every
+# step reads each relation's neighbor ids from the CSR through the ragged
+# gather and gathers feature rows with ids clamped to N-1
+STRESS10M_CFG = dict(BENCH_CFG, data_name="synthetic:stress-10m", epochs=1)
+# steps of the profiled span
+STRESS10M_PROFILE_STEPS = 20
+# first-epoch batches whose CSR windows are held against the plain version
+STRESS10M_CHECKED_BATCHES = 20
+
+
+def csr_path() -> str:
+    """What builds this process's CSRs: the native graph core (its file)
+    or the numpy version."""
+    from pcgnn_tpu_torch import native
+    return (f"native core {native.loaded_path()}" if native.available()
+            else "numpy")
+
+
+def peak_rss_bytes() -> int:
+    """This process's peak resident memory so far."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def stress10m_build(seed: int) -> tuple:
+    """(host graph, record): ``synthetic:stress-10m`` built on the host
+    with the seconds of each step, the CSR path and the peak host
+    memory."""
+    from pcgnn_tpu_torch.data.synthetic import synthetic_fraud_graph
+    timings = {}
+    t0 = time.time()
+    g = synthetic_fraud_graph("stress-10m", seed=seed, timings=timings)
+    return g, {"build_s": time.time() - t0, "steps_s": timings,
+               "csr_path": csr_path(),
+               "peak_rss_bytes": peak_rss_bytes()}
+
+
+def stress10m_lane(t) -> dict:
+    """The lane stress-10m's scale forces, checked: no dense table, store
+    or fused record on any relation, no padded table, the degree stub, no
+    hub row, scores from the gathered rows, and so clamped ids."""
+    from pcgnn_tpu_torch.models.pcgnn import SCORE_FROM_WINDOW_MIN_NODES
+    g = t.graph
+    lane = {"tables": [r.nbr2d is not None for r in g.relations],
+            "stores": [r.ewin is not None for r in g.relations],
+            "fused": g.fused is not None,
+            "features_pad": g.features_pad is not None,
+            "homo_stub": g.homo.is_stub,
+            "hubs": [r.has_hubs for r in g.relations],
+            "score_from_window": g.num_nodes >= SCORE_FROM_WINDOW_MIN_NODES}
+    want = {"tables": [False] * 3, "stores": [False] * 3, "fused": False,
+            "features_pad": False, "homo_stub": True, "hubs": [False] * 3,
+            "score_from_window": True}
+    if lane != want:
+        raise AssertionError(f"stress-10m is not in the clamped CSR lane: "
+                             f"{lane}")
+    lane["clamped_ids"] = True
+    return lane
+
+
+def stress10m_ragged_cases(t, rate: float) -> tuple:
+    """Kernel 2 at the path's calls: each relation's [B, dcap] CSR windows
+    at ``indptr[batch]`` (int32 starts into a column of 130M / 70M / 30M
+    ids), held against the plain version exactly on the first epoch's
+    first batches, then timed over distinct random training batches (their
+    reads are spread over the whole column) with the launch floor (1 row
+    of 1 id).  Returns (cases, max |err|)."""
+    g, dev = t.graph, t.device
+    batches, _ = t.epoch_plan(0)
+    errs = [check_ragged(rel.col, rel.indptr[bt], rel.window_width,
+                         g.num_nodes)
+            for bt in batches[:STRESS10M_CHECKED_BATCHES]
+            for rel in g.relations]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    timed = [t.idx_train_dev[torch.randint(len(t.idx_train),
+                                           (t.batch_size,), generator=gen,
+                                           device=dev)]
+             for _ in range(TIMING_REPS)]
+    cases = [ragged_case(f"stress_10m_relation_{r}", rel.col,
+                         [rel.indptr[bt] for bt in timed], rel.window_width,
+                         g.num_nodes, rate)
+             for r, rel in enumerate(g.relations)]
+    rel0 = g.relations[0]
+    cases.append(ragged_case("stress_10m_launch_floor", rel0.col,
+                             [rel0.indptr[bt[:1]] for bt in timed], 1,
+                             g.num_nodes, rate))
+    for c, rel in zip(cases, g.relations):
+        c["col_entries"] = rel.col.numel()
+    return cases, max(errs)
+
+
+def stress10m_op_cases(t) -> list:
+    """Two PyTorch ops of the lane timed alone (``time_ms``) at the path's
+    inputs over distinct random training batches: the oversample
+    candidates, which sort every train positive's score each step (work
+    that follows P, not B), and each relation's gather of table rows by
+    clamped neighbor id, ``x[nbr.clamp(max=N-1)]`` (1,024 x dcap rows of
+    256 B spread over the 2.56 GB table)."""
+    from pcgnn_tpu_torch.ops.aggregate import (batch_neighbor_window,
+                                               oversample_candidates_values,
+                                               selection_score)
+    g, dev = t.graph, t.device
+    x, n = g.features, g.num_nodes
+    model = t.new_model()
+    w0 = model.label_clf.w[:, 0].detach()
+    b0 = model.label_clf.b[0].detach()
+    tp, tpv = t.consts["tp"], t.consts["tpv"]
+    tp_s0 = selection_score(t.consts["tpf"], w0, b0)
+    m_max = model.minor_window(int(tp.shape[0]), g.relations)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batches = [t.idx_train_dev[torch.randint(len(t.idx_train),
+                                             (t.batch_size,), generator=gen,
+                                             device=dev)]
+               for _ in range(TIMING_REPS)]
+    cases = []
+    ms, run_ms = time_ms(
+        lambda c: oversample_candidates_values(c, tp_s0, tp, tpv, m_max),
+        [(selection_score(x[bt], w0, b0),) for bt in batches])
+    cases.append({"name": "oversample_candidates_values", "positives":
+                  int(tp.shape[0]), "m_max": m_max, "ms": ms,
+                  "run_ms": run_ms})
+    for r, rel in enumerate(g.relations):
+        ids = [(batch_neighbor_window(rel, bt)[0].clamp(max=n - 1),)
+               for bt in batches]
+        ms, run_ms = time_ms(lambda i: x[i], ids)
+        cases.append({"name": f"row_gather_relation_{r}",
+                      "rows": list(ids[0][0].shape), "ms": ms,
+                      "run_ms": run_ms})
+    return cases
+
+
+def stress10m_phase(g, build: dict, rate: float, card: str) -> dict:
+    """Phase 24: PC-GNN on ``synthetic:stress-10m`` (``g``, built on the
+    host; ``build`` its record) on the card.  The lane checked
+    (``stress10m_lane``); one epoch through ``Trainer`` with three ragged
+    gathers and no window gather on every step, then one validation
+    (``main_path_phase``: AUC above 0.5); a profiled span of steps (no host
+    sync a step); the card's step against the CPU's on the first batch;
+    ``single_step`` timed with ``utils.roofline.measure``; kernel 2 at the
+    path's shapes, and two PyTorch ops of the lane alone
+    (``stress10m_op_cases``); peak device and host memory, and the seconds
+    of each part."""
+    from pcgnn_tpu_torch.train.trainer import Trainer
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.time()
+    t = Trainer(STRESS10M_CFG, graph=g, device="cuda")
+    torch.cuda.synchronize()
+    run = {"build": build, "setup_s": time.time() - t1,
+           "graph": graph_shape(t.graph), "lane": stress10m_lane(t),
+           "batches": t.num_batches, "card": card}
+    sec = {}
+    for name, fn in (
+            ("main_path", lambda: main_path_phase(t)),
+            ("profile", lambda: profile_phase(t, STRESS10M_PROFILE_STEPS)),
+            ("card_vs_cpu", lambda: card_vs_cpu_phase(t)),
+            ("single_step", lambda: single_step_phase(t, card,
+                                                      "phase 24"))):
+        t2 = time.time()
+        run[name] = fn()
+        sec[name] = time.time() - t2
+    mp = run["main_path"]
+    nrel = t.graph.num_relations
+    bad = [i for i, n in enumerate(mp["ragged_launches_per_step"])
+           if n != nrel]
+    if bad:
+        raise AssertionError(f"stress-10m steps {bad[:5]} did not launch "
+                             f"one ragged gather per relation")
+    if mp["launches"]["ragged_gather"] != nrel * (mp["steps"]
+                                                  + mp["eval_batches"]):
+        raise AssertionError(f"the stress-10m validation did not launch one "
+                             f"ragged gather per relation and batch: "
+                             f"{mp['launches']}")
+    if mp["train_launches"]["window_gather"]:
+        raise AssertionError("a stress-10m step launched a window gather")
+    t2 = time.time()
+    run["ragged_cases"], run["ragged_max_abs_err"] = (
+        stress10m_ragged_cases(t, rate))
+    run["op_cases"] = stress10m_op_cases(t)
+    sec["kernel_cases"] = time.time() - t2
+    run["seconds"] = sec
+    run["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    run["peak_host_rss_bytes"] = peak_rss_bytes()
+    pr = run["profile"]
+    print(f"phase 24, stress-10m: host build {build['build_s']:.1f} s "
+          f"({', '.join(f'{k} {v:.1f}' for k, v in build['steps_s'].items())}"
+          f"; {build['csr_path']}), setup {run['setup_s']:.1f} s; "
+          f"{mp['steps']} steps, median {mp['step_ms_median']:.2f} ms, "
+          f"validation ({mp['eval_batches']} batches) {mp['eval_s']:.1f} s, "
+          f"AUC {mp['valid_auc']:.4f}; ragged gathers a step "
+          f"{pr['ragged_gather_launches_per_step']:.0f}, window gathers "
+          f"{pr['window_gather_launches_per_step']:.0f}, launches "
+          f"{pr['kernel_launches_per_step']:.0f}, host syncs "
+          f"{pr['host_syncs_per_step']}, kernel ms "
+          f"{pr['device_ms_per_step']:.3f}, busy {pr['busy_share']:.3f}; "
+          f"peak device {run['peak_device_bytes'] / 2**30:.2f} GiB, host "
+          f"RSS {run['peak_host_rss_bytes'] / 2**30:.2f} GiB; on {card}")
+    for c in run["op_cases"]:
+        print(f"phase 24, {c['name']}: {c['ms'] * 1e3:.2f} us of kernels a "
+              f"call, {c['run_ms'] * 1e3:.2f} us back to back; on {card}")
+    for c in run["ragged_cases"]:
+        print(f"phase 24, ragged gather {c['name']} [{c['rows']}, {c['d']}]: "
+              f"{c['ms'] * 1e3:.3f} us against a {c['bound_ms'] * 1e3:.3f} "
+              f"us bound; plain {c['plain_ms'] * 1e3:.3f} us, indexing "
+              f"{c['library_ms'] * 1e3:.3f} us; on {card}")
+    return run
 
 
 # configs/pcgnn_yelpchi.json, cut to 2 epochs with a validation at the end,
@@ -1990,7 +2233,7 @@ def full_graph_phase(graphs: dict, rate: float, card: str) -> dict:
     return out
 
 
-def single_step_phase(t, card: str) -> dict:
+def single_step_phase(t, card: str, label: str = "phase 22") -> dict:
     """Phase 22, last: ``Trainer.single_step`` on ``t``'s graph at its
     configuration, timed with ``utils.roofline.measure`` at ``nscan`` 1
     and 16 against ``pcgnn_step_streaming_bytes`` (the JAX bench's
@@ -2013,7 +2256,7 @@ def single_step_phase(t, card: str) -> dict:
         r = measure(fn, *args, analytic_bytes=step_bytes * nscan)
         out[nscan] = {"step_ms": r["wall_ms"] / nscan,
                       "sol_frac": r["sol_frac"], "device": r["device"]}
-        print(f"phase 22, single_step nscan {nscan}: "
+        print(f"{label}, single_step nscan {nscan}: "
               f"{out[nscan]['step_ms']:.4f} ms a step, sol_frac "
               f"{r['sol_frac']:.6f}; on {card}")
     return out
@@ -2497,6 +2740,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this check "
               "needs a CUDA card", file=sys.stderr)
         return 1
+    from pcgnn_tpu_torch import native
     from pcgnn_tpu_torch.ops import kernels
     from pcgnn_tpu_torch.train.trainer import Trainer
 
@@ -2504,9 +2748,17 @@ def main() -> int:
     card = card_line()
     name = torch.cuda.get_device_name(0)
     rate = memory_rate()
-    for kname, report in kernels.build().items():
-        print(f"[build {kname}]\n{report.strip()}", file=sys.stderr)
-    print(f"built kernels in {time.time() - t0:.1f} s", file=sys.stderr)
+    # the graph core (g++) builds while the kernels (nvcc) do
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        core = pool.submit(native.available)
+        for kname, report in kernels.build().items():
+            print(f"[build {kname}]\n{report.strip()}", file=sys.stderr)
+        if not core.result():
+            raise AssertionError(f"the native graph core is not loaded: "
+                                 f"{native.load_error()}")
+    print(f"built kernels and the graph core ({native.loaded_path()}) in "
+          f"{time.time() - t0:.1f} s; every graph below is built through "
+          f"it", file=sys.stderr)
 
     runs, trainers = {}, []
     for cfg in (BENCH_CFG, SKEW_CFG, LEARNED_CFG):
@@ -2523,8 +2775,8 @@ def main() -> int:
         stores = (f"fused={tuple(g.fused.shape)} {g.fused.dtype} "
                   f"dps={[r.ewin_dp for r in g.relations]} "
                   if g.fused is not None else "no stores ")
-        print(f"{run_name(t)} graph on the card in {run['setup_s']:.1f} s: "
-              f"N={g.num_nodes} {stores}"
+        print(f"{run_name(t)} graph on the card in {run['setup_s']:.1f} s "
+              f"(CSR: {csr_path()}): N={g.num_nodes} {stores}"
               f"dcap/dmax={[(r.window_width, r.dmax) for r in g.relations]}",
               file=sys.stderr)
         if cfg is BENCH_CFG:
@@ -2612,6 +2864,12 @@ def main() -> int:
     # distributed trainer through the CLI, and a 1-rank NCCL group
     sharded = sharded_phase(trainers, gcn, sage, card, rate)
     print(f"phase 23 done at {time.time() - t0:.1f} s", file=sys.stderr)
+    # 24: stress-10m, built here on the host, in the clamped CSR lane
+    g10, build10 = stress10m_build(STRESS10M_CFG["seed"])
+    runs[STRESS10M_CFG["data_name"]] = stress10m_phase(g10, build10, rate,
+                                                       card)
+    del g10
+    print(f"phase 24 done at {time.time() - t0:.1f} s", file=sys.stderr)
 
     # each kernel's launches: the sum over the main paths' runs, each read
     # with every count set to 0 just before it
@@ -2650,6 +2908,12 @@ def main() -> int:
         "copy_bound_ms": mc["bound_ms"],
         "copy_library_ms": mc["library_ms"], "rows": mc["rows"],
         "copied_rows": mc["copied_rows"], "dp": mc["dp"]}
+    # kernel 2 at stress-10m's calls (phase 24): [1024, dcap] CSR windows
+    skew["entry"]["stress_10m"] = [
+        {k: c[k] for k in ("name", "rows", "d", "col_entries", "ms",
+                           "plain_ms", "bound_ms", "library_ms", "run_ms")
+         if k in c}
+        for c in runs[STRESS10M_CFG["data_name"]]["ragged_cases"]]
     like["entry"]["homo_store"] = {k: homo_window[k] for k in (
         "ms", "widen_ms", "plain_ms", "library_ms", "bound_ms",
         "widen_bound_ms", "rows", "dp", "max_abs_err")}
@@ -2716,6 +2980,18 @@ def main() -> int:
     summary["stress"]["clamp_card_vs_cpu_loss"] = [
         stress["clamp_card_vs_cpu"]["loss_card"],
         stress["clamp_card_vs_cpu"]["loss_cpu"]]
+    s10 = runs[STRESS10M_CFG["data_name"]]
+    summary["stress_10m"] = {
+        "build": s10["build"], "setup_s": s10["setup_s"],
+        "lane": s10["lane"], "graph": s10["graph"],
+        "seconds": s10["seconds"], "eval_s": s10["main_path"]["eval_s"],
+        "peak_device_bytes": s10["peak_device_bytes"],
+        "peak_host_rss_bytes": s10["peak_host_rss_bytes"],
+        "single_step": s10["single_step"],
+        "top_device_ms_per_step": s10["profile"]["top_device_ms_per_step"],
+        "op_cases": s10["op_cases"],
+        "ragged_max_abs_err": s10["ragged_max_abs_err"],
+        "card_vs_cpu_max_abs_diff": s10["card_vs_cpu"]["max_abs_diff"]}
     summary["homo_window"] = {k: homo_window[k] for k in (
         "checked_calls", "setup_s", "window_width", "dmax", "hub_rows")}
     summary["skew_baseline_steps"] = {

@@ -8,10 +8,13 @@ homophilous with probability ``homophily``, else uniform.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 
 from pcgnn_tpu_torch.graph.csr import (MultiRelGraph, build_multirel,
-                                       csr_from_edges, degree_stub,
+                                       csr_arrays, csr_from_edges,
+                                       degree_stub, finalize_csr,
                                        rel_threshold)
 
 # shape statistics of the reference datasets
@@ -40,6 +43,16 @@ SKEW = {
 _DIRECTED_PRESETS = {"stress-10m", "stress-1m"}
 
 
+def stub_degrees(srcs, dsts, n: int) -> np.ndarray:
+    """[n] degrees of the directed union of the edge lists with a self-loop
+    on every node, duplicates counted once: the degrees of the homo graph
+    that ``csr_from_edges(symmetrize=False)`` would build, through the same
+    CSR builder (the native core when it loads), without the graph."""
+    indptr, _ = csr_arrays(np.concatenate(srcs), np.concatenate(dsts), n,
+                           symmetrize=False, add_self_loops=True)
+    return np.diff(indptr)
+
+
 def synthetic_fraud_graph(preset: str | None = "tiny", *,
                           num_nodes: int | None = None,
                           feat_dim: int | None = None,
@@ -48,7 +61,21 @@ def synthetic_fraud_graph(preset: str | None = "tiny", *,
                           homophily: float = 0.5,
                           feature_separation: float = 1.0, seed: int = 0,
                           threshold: float | list = 0.5,
-                          device="cpu") -> MultiRelGraph:
+                          device="cpu",
+                          timings: dict | None = None) -> MultiRelGraph:
+    """The preset's graph (or one of the given shape) from ``seed``.
+    ``timings``, if given, receives the host seconds of each build step:
+    ``draws`` (every random draw and index pass), ``relation r csr`` (the
+    deduplicated CSR, native core or numpy), ``relation r finalize``
+    (``finalize_csr``), ``homo`` and ``assemble``."""
+    last = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        if timings is not None:
+            now = time.perf_counter()
+            timings[name] = timings.get(name, 0.0) + now - last[0]
+            last[0] = now
+
     if preset is not None:
         n, f, rate, epr, _ = PRESETS[preset]
         num_nodes = num_nodes or n
@@ -95,9 +122,13 @@ def synthetic_fraud_graph(preset: str | None = "tiny", *,
         dst = np.where(homo_edge, dst_same, dst_uniform)
         src = np.concatenate([src, hub_src])
         dst = np.concatenate([dst, hub_dst])
-        rels.append(csr_from_edges(src, dst, n,
-                                   threshold=rel_threshold(threshold, r),
-                                   symmetrize=symmetrize, device=device))
+        lap("draws")
+        indptr, col = csr_arrays(src, dst, n, symmetrize=symmetrize)
+        lap(f"relation {r} csr")
+        rels.append(finalize_csr(indptr, col, n,
+                                 threshold=rel_threshold(threshold, r),
+                                 device=device))
+        lap(f"relation {r} finalize")
         all_src.append(src)
         all_dst.append(dst)
 
@@ -106,13 +137,14 @@ def synthetic_fraud_graph(preset: str | None = "tiny", *,
         # the homo graph feeds only the pick weights: its degrees, with the
         # set semantics csr_from_edges would apply (the (src, dst) pairs of
         # all relations deduplicated, the self-loop folded into the set)
-        loops = np.arange(n, dtype=np.int64)
-        key = np.unique(np.concatenate(
-            [s * n + d for s, d in zip(all_src, all_dst)] + [loops * n + loops]))
-        deg = np.bincount((key // n).astype(np.int64), minlength=n)
-        homo = degree_stub(deg, threshold=homo_thr, device=device)
+        homo = degree_stub(stub_degrees(all_src, all_dst, n),
+                           threshold=homo_thr, device=device)
     else:
         homo = csr_from_edges(np.concatenate(all_src),
                               np.concatenate(all_dst), n, threshold=homo_thr,
                               symmetrize=symmetrize, device=device)
-    return build_multirel(rels, homo, feats, labels, device=device)
+    lap("homo")
+    g = build_multirel(rels, homo, feats, labels, device=device)
+    lap("assemble")
+    return g
+

@@ -31,6 +31,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from pcgnn_tpu_torch import native
+
 # the window-gather kernel copies 16-byte vectors: runs, windows and starts
 # are multiples of this many bytes
 VEC_BYTES = 16
@@ -65,6 +67,8 @@ _REF_SLACK = 3072
 _REF_BUILD_CHUNK = 4 * 1024 * 1024
 _REF_SECTION = 128
 _REF_FUSED_CHUNK = 2048
+# offsets and ids are stored as int32, as in the JAX package
+_INT32_MAX = 2**31 - 1
 
 
 def _round_up(x: int, m: int) -> int:
@@ -177,15 +181,17 @@ class MultiRelGraph:
             features_pad=_to(self.features_pad, device))
 
 
-def csr_from_edges(src: np.ndarray, dst: np.ndarray, num_nodes: int, *,
-                   threshold: float = 0.5, add_self_loops: bool = True,
-                   symmetrize: bool = True, edge_pad_multiple: int = 128,
-                   window_cap: int | None = None,
-                   device="cpu") -> RelGraph:
-    """Build a RelGraph from a raw edge list: add self-loops, symmetrize,
-    dedupe (set semantics), and lay the result out as padded CSR."""
+def csr_arrays_plain(src: np.ndarray, dst: np.ndarray, num_nodes: int, *,
+                     symmetrize: bool = True, add_self_loops: bool = True):
+    """(indptr [N+1], col [E]) int64 of the deduplicated CSR of an edge
+    list, rows sorted: the numpy version of ``native.csr_arrays``, which
+    gives the same arrays (edges with an end outside [0, N) dropped,
+    optional reversed copies and self-loops, set semantics)."""
     src = np.asarray(src, dtype=np.int64)
     dst = np.asarray(dst, dtype=np.int64)
+    inside = (src >= 0) & (src < num_nodes) & (dst >= 0) & (dst < num_nodes)
+    if not inside.all():
+        src, dst = src[inside], dst[inside]
     if symmetrize:
         src, dst = np.concatenate([src, dst]), np.concatenate([dst, src])
     if add_self_loops:
@@ -193,13 +199,34 @@ def csr_from_edges(src: np.ndarray, dst: np.ndarray, num_nodes: int, *,
         src = np.concatenate([src, loops])
         dst = np.concatenate([dst, loops])
     key = np.unique(src * num_nodes + dst)      # sorted: CSR order
-    src = key // num_nodes
-    dst = key % num_nodes
-    deg = np.bincount(src, minlength=num_nodes).astype(np.int64)
+    deg = np.bincount(key // num_nodes, minlength=num_nodes)
     indptr = np.zeros(num_nodes + 1, dtype=np.int64)
     np.cumsum(deg, out=indptr[1:])
-    return _finalize(indptr, dst, num_nodes, threshold, edge_pad_multiple,
-                     window_cap, device)
+    return indptr, key % num_nodes
+
+
+def csr_arrays(src: np.ndarray, dst: np.ndarray, num_nodes: int, *,
+               symmetrize: bool = True, add_self_loops: bool = True):
+    """(indptr, col) through the native graph core (``native``) when it
+    loads, else through ``csr_arrays_plain``; the two are equal."""
+    if native.available():
+        return native.csr_arrays(src, dst, num_nodes, symmetrize=symmetrize,
+                                 add_self_loops=add_self_loops)
+    return csr_arrays_plain(src, dst, num_nodes, symmetrize=symmetrize,
+                            add_self_loops=add_self_loops)
+
+
+def csr_from_edges(src: np.ndarray, dst: np.ndarray, num_nodes: int, *,
+                   threshold: float = 0.5, add_self_loops: bool = True,
+                   symmetrize: bool = True, edge_pad_multiple: int = 128,
+                   window_cap: int | None = None,
+                   device="cpu") -> RelGraph:
+    """Build a RelGraph from a raw edge list: add self-loops, symmetrize,
+    dedupe (set semantics), and lay the result out as padded CSR."""
+    indptr, col = csr_arrays(src, dst, num_nodes, symmetrize=symmetrize,
+                             add_self_loops=add_self_loops)
+    return finalize_csr(indptr, col, num_nodes, threshold,
+                        edge_pad_multiple, window_cap, device)
 
 
 def csr_from_scipy(mat, *, threshold: float = 0.5, add_self_loops: bool = True,
@@ -230,8 +257,8 @@ def csr_from_adj_dict(adj: dict, num_nodes: int, *, threshold: float = 0.5,
     for n, neighs in adj.items():
         s, e = indptr[int(n)], indptr[int(n) + 1]
         col[s:e] = sorted(int(x) for x in neighs)
-    return _finalize(indptr, col, num_nodes, threshold, edge_pad_multiple,
-                     window_cap, device)
+    return finalize_csr(indptr, col, num_nodes, threshold,
+                        edge_pad_multiple, window_cap, device)
 
 
 def _dense_neighbor_table(indptr: np.ndarray, col: np.ndarray,
@@ -261,10 +288,18 @@ def _window_cap(deg: np.ndarray, dmax: int, window_cap: int | None) -> int:
     return dmax if dmax <= 2 * cap else cap
 
 
-def _finalize(indptr: np.ndarray, col: np.ndarray, num_nodes: int,
-              threshold: float, edge_pad_multiple: int,
-              window_cap: int | None = None, device="cpu") -> RelGraph:
+def finalize_csr(indptr: np.ndarray, col: np.ndarray, num_nodes: int,
+                 threshold: float = 0.5, edge_pad_multiple: int = 128,
+                 window_cap: int | None = None, device="cpu") -> RelGraph:
+    """The RelGraph of a deduplicated CSR (``csr_arrays``): degrees, the
+    keep counts, the window cap, ``col`` padded with N, the dense table
+    under ``NBR2D_BUDGET_BYTES``.  Offsets are stored as int32, as in the
+    JAX package, so a relation holds fewer than 2^31 edges."""
     num_edges = int(indptr[-1])
+    if num_edges > _INT32_MAX or num_nodes > _INT32_MAX:
+        raise ValueError(
+            f"a relation of {num_edges} edges over {num_nodes} nodes: its "
+            f"int32 offsets and ids hold fewer than 2^31 of each")
     deg = np.diff(indptr).astype(np.int32)
     k = np.ceil(threshold * deg).astype(np.int32)
     keff = np.where(deg <= k + 1, deg, k).astype(np.int32)

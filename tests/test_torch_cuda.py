@@ -307,6 +307,44 @@ def test_ragged_kernel_every_alignment(card, d):
     assert out[13, 1:].eq(-7).all() and out[14].eq(-7).all()
 
 
+@pytest.mark.parametrize("d", [36, 23, 14])
+def test_ragged_kernel_at_stress_10m_width(card, d):
+    """Stress-10m's path calls: [1024, dcap] windows at int32 starts into
+    a column of 130M ids (its relation 0), and int64 starts past 2^31,
+    which read the fill (a start wrapped to 32 bits would read ids):
+    the kernel equals the plain version bit for bit."""
+    gen = torch.Generator(device=card).manual_seed(d)
+    e = 130_000_000
+    col = torch.randint(0, 10_000_000, (e,), generator=gen, device=card,
+                        dtype=torch.int32)
+    starts = torch.randint(0, e, (1024,), generator=gen, device=card,
+                           dtype=torch.int32)
+    starts[:3] = torch.tensor([0, e - d, e - 5], dtype=torch.int32)
+    far = starts.to(torch.int64)
+    far[3:6] = torch.tensor([2**31, 2**32 + 3, -(2**32) + 3])
+    for st in (starts, far):
+        ref = rg.ragged_gather_plain(col, st, d, 10_000_000)
+        out = rg.ragged_gather(col, st, d, 10_000_000)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref)
+    assert out[3:6].eq(10_000_000).all() and out[2, 5:].eq(10_000_000).all()
+
+
+def test_native_core_on_the_card_machine(card):
+    """The native graph core builds and loads on the card machine's host
+    and gives what the numpy version gives."""
+    from pcgnn_tpu_torch import native
+    assert native.available(), native.load_error()
+    rng = np.random.default_rng(0)
+    n = 200_000
+    src, dst = rng.integers(0, n, 2_000_000), rng.integers(0, n, 2_000_000)
+    for sym in (True, False):
+        got = native.csr_arrays(src, dst, n, symmetrize=sym)
+        want = csr.csr_arrays_plain(src, dst, n, symmetrize=sym)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+
+
 def _skew_pair(card, dtype):
     g = synthetic_fraud_graph("skew-tiny", seed=3)
     host = csr.materialize_edge_windows(g, dtype=dtype)

@@ -32,6 +32,7 @@ def _port_modules():
 def _port_sources():
     files = sorted((ROOT / "pcgnn_tpu_torch").rglob("*.py"))
     return files + [ROOT / "chip_smoke.py", ROOT / "chunk_sweep.py",
+                    ROOT / "build_profile.py",
                     ROOT / "tests/test_torch_cuda.py"]
 
 
@@ -51,11 +52,12 @@ def test_every_module_imports_without_jax():
             "pcgnn_tpu_torch.parallel.mesh",
             "pcgnn_tpu_torch.parallel.distributed",
             "pcgnn_tpu_torch.parallel.spmd",
-            "pcgnn_tpu_torch.utils.multiproc"} <= set(mods)
-    assert len(mods) >= 34
+            "pcgnn_tpu_torch.utils.multiproc",
+            "pcgnn_tpu_torch.native"} <= set(mods)
+    assert len(mods) >= 35
     code = (
         "import importlib, json, sys\n"
-        f"mods = {mods!r} + ['chip_smoke', 'chunk_sweep']\n"
+        f"mods = {mods!r} + ['chip_smoke', 'chunk_sweep', 'build_profile']\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r})\n"

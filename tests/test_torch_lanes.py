@@ -539,3 +539,142 @@ def test_materialize_builds_what_the_model_reads():
                               homo=gt.relations[0])
     both = tcsr.materialize_edge_windows(one, homo=True)
     assert both.homo is both.relations[0] and both.homo.ewin is not None
+
+
+# ---------------------------------- stress-10m's lane, at a patched size
+
+# stress-10m cut to test size, directed, F = 16
+SMALL_10M = (6000, 16, 0.05, (30000, 15000, 5000), 3)
+
+
+def _stress_10m_lane(monkeypatch):
+    """Both packages patched so that the cut stress-10m preset lands in the
+    real one's lane: every dense neighbor table over NBR2D_BUDGET_BYTES (so
+    no edge-window store either), the features over FPAD_BUDGET_BYTES (no
+    sentinel-padded table, clamped ids), N over
+    SCORE_FROM_WINDOW_MIN_NODES (scores from the gathered rows)."""
+    for syn in (jsyn, tsyn):
+        monkeypatch.setitem(syn.PRESETS, "stress-10m", SMALL_10M)
+    for mod, name, value in ((jcsr, "NBR2D_BUDGET_BYTES", 8),
+                             (tcsr, "NBR2D_BUDGET_BYTES", 8),
+                             (jcsr, "FPAD_BUDGET_BYTES", 0),
+                             (tcsr, "FPAD_BUDGET_BYTES", 0),
+                             (jpcgnn, "SCORE_FROM_WINDOW_MIN_NODES", 6000),
+                             (tpcgnn, "SCORE_FROM_WINDOW_MIN_NODES", 6000)):
+        monkeypatch.setattr(mod, name, value)
+
+
+STRESS_10M_CFG = dict(seed=2, data_name="synthetic:stress-10m",
+                      model="PCGNN", train_ratio=0.4, test_ratio=0.67,
+                      emb_size=16, lr=0.01, weight_decay=0.001, alpha=2.0,
+                      rho=0.5, epochs=1, valid_epochs=1, batch_size=96,
+                      patience=100, exp_num=0)
+
+
+def _lane(g, n_min) -> dict:
+    """The lane decisions that stress-10m's scale forces, as both packages'
+    graphs show them."""
+    return {"tables": [r.nbr2d is not None for r in g.relations],
+            "stores": [r.ewin is not None for r in g.relations],
+            "fused": getattr(g, "fused", None) is not None,
+            "features_pad": g.features_pad is not None,
+            "homo_stub": bool(g.homo.is_stub),
+            "score_from_window": g.num_nodes >= n_min,
+            "hubs": [bool(r.has_hubs) for r in g.relations],
+            "dcap": [r.window_width for r in g.relations]}
+
+
+def test_stress_10m_lane_matches_jax(monkeypatch, tmp_path):
+    """The cut stress-10m preset, built through the port's native core,
+    equals the JAX package's graph array for array, and both trainers
+    decide stress-10m's lane: no table, no store, no padded table, the
+    degree stub, scores from the rows, clamped ids."""
+    from pcgnn_tpu_torch import native
+    _stress_10m_lane(monkeypatch)
+    assert native.available()
+    jt = JTrainer(STRESS_10M_CFG,
+                  result=JResults(STRESS_10M_CFG, root=str(tmp_path / "j")))
+    tt = TTrainer(STRESS_10M_CFG, device="cpu",
+                  result=TResults(STRESS_10M_CFG, root=str(tmp_path / "t")))
+    gj, gt = jt.graph, tt.graph
+    want = {"tables": [False] * 3, "stores": [False] * 3, "fused": False,
+            "features_pad": False, "homo_stub": True,
+            "score_from_window": True, "hubs": [False] * 3}
+    lane_t = _lane(gt, tpcgnn.SCORE_FROM_WINDOW_MIN_NODES)
+    lane_j = _lane(gj, jpcgnn.SCORE_FROM_WINDOW_MIN_NODES)
+    assert lane_t == lane_j
+    assert {k: lane_t[k] for k in want} == want
+    np.testing.assert_array_equal(gt.features.numpy(),
+                                  np.asarray(gj.features))
+    np.testing.assert_array_equal(gt.labels.numpy(), np.asarray(gj.labels))
+    for rt, rj in zip((*gt.relations, gt.homo), (*gj.relations, gj.homo)):
+        assert (rt.num_edges, rt.dmax) == (rj.num_edges, rj.dmax)
+        for name in ("indptr", "deg", "keff", "ksample"):
+            np.testing.assert_array_equal(getattr(rt, name).numpy(),
+                                          np.asarray(getattr(rj, name)))
+        e = rt.num_edges
+        np.testing.assert_array_equal(rt.col.numpy()[:e],
+                                      np.asarray(rj.col)[:e])
+    np.testing.assert_array_equal(tt.idx_train, jt.idx_train)
+
+
+def test_stress_10m_lane_trainer_steps_match_jax(monkeypatch, tmp_path):
+    """Three Adam steps of each trainer in stress-10m's lane (the CSR read
+    through the ragged gather's plain version, rows gathered with clamped
+    ids) on the same batches: at each step both start from the JAX
+    package's parameters, and the loss, every gradient and the parameters
+    after Adam agree (tolerances of
+    test_trainer_step_without_stores_matches_jax); near-tie rows weigh 0."""
+    from pcgnn_tpu_torch.ops import ragged_gather as rg
+    _stress_10m_lane(monkeypatch)
+    jt = JTrainer(STRESS_10M_CFG,
+                  result=JResults(STRESS_10M_CFG, root=str(tmp_path / "j")))
+    tt = TTrainer(STRESS_10M_CFG, device="cpu",
+                  result=TResults(STRESS_10M_CFG, root=str(tmp_path / "t")))
+    calls = []
+    plain = rg.ragged_gather_plain
+    monkeypatch.setattr(rg, "ragged_gather_plain",
+                        lambda *a: calls.append(a[2]) or plain(*a))
+    c = jt._step_consts
+    params = jt.model.init(jax.random.key(1))
+    opt_j = jt.tx.init(params)
+    model = tt.new_model()
+    opt_t = tt.new_optimizer(model)
+    grad_fn = jax.jit(jax.grad(lambda p, jb, jy, jw: jt.model.loss(
+        p, jt._step_graph, jb, jy, jw, train_pos=c["tp"],
+        train_pos_valid=c["tpv"], train_pos_feats=c["tpf"])))
+    x = tt.graph.features.numpy()
+    rng = np.random.default_rng(11)
+    for step in range(3):
+        batch = np.concatenate([rng.choice(jt.idx_train, 90), [0] * 6])
+        y = tt.graph.labels.numpy()[batch]
+        sc = _scores64(x, jax.tree.map(np.asarray, params))
+        ties = _near_tie_rows(sc, tt.graph, batch, y, tt.train_pos, True)
+        assert ties.sum() <= 3, (step, ties.sum())
+        w = np.where(ties, 0, np.r_[np.ones(90), np.zeros(6)]).astype(
+            np.float32)
+        jb, jy, jw = (jnp.asarray(batch, jnp.int32),
+                      jnp.asarray(y, jnp.int32), jnp.asarray(w))
+        grads_j = grad_fn(params, jb, jy, jw)
+        new_j, opt_j, loss_j = jt._step1_jit(
+            params, opt_j, jb, jy, jw, jax.random.key(step),
+            jt._step_graph, c)
+        with torch.no_grad():
+            for k, v in params_from_jax(
+                    jax.tree.map(np.asarray, params)).items():
+                dict(model.named_parameters())[k].copy_(v)
+        calls.clear()
+        loss_t = tt.step(model, opt_t, torch.from_numpy(batch),
+                         torch.from_numpy(y), torch.from_numpy(w))
+        # one CSR window read per relation, at its full dcap
+        assert calls == [r.window_width for r in tt.graph.relations]
+        np.testing.assert_allclose(loss_t.item(), float(loss_j), rtol=1e-5)
+        gj = params_from_jax(jax.tree.map(np.asarray, grads_j))
+        pj = params_from_jax(jax.tree.map(np.asarray, new_j))
+        for k, p in model.named_parameters():
+            np.testing.assert_allclose(p.grad.numpy(), gj[k].numpy(), **GRAD,
+                                       err_msg=f"step {step} {k}")
+            np.testing.assert_allclose(p.detach().numpy(), pj[k].numpy(),
+                                       rtol=0, atol=1e-5,
+                                       err_msg=f"step {step} {k}")
+        params = new_j
