@@ -151,7 +151,22 @@ Phase 11 also times the learned steps in the same turns.  Then:
      ragged gather at the three relations' calls against its plain version
      (exactly), its bound and an indexing gather, the oversample
      candidates and the row gathers timed alone, and peak device memory
-     and host RSS.
+     and host RSS;
+ 25. the probe path of ``benchmarks/`` (``pcgnn_tpu_torch.benchmarks``),
+     with every kernel count at 0 before and read after:
+     ``gather_kernel_probe`` at its defaults ([1024, 7,040] int32 windows
+     of a 902 MB array through kernel 2, kernel 1's copy, the shift probe
+     P-s at the JAX probe's (rows, slots) sweep, the aligned probe P-a at
+     rows 8-64, the ``unfold`` indexing yardstick and the plain versions),
+     every variant exact against its plain version and timed (calls
+     queued ahead of the card over eight sets of starts, the output's
+     write-back included) beside the read+write bound, a time under it
+     failing; ``gather_probe`` (the five gather strategies at the
+     JAX script's defaults, each exact against the first that computes its
+     values); ``roofline``'s rows on yelp-like's graph from phase 3 (a
+     share above ``SOL_LIMIT`` fails); then ``spmd_overhead`` in a process
+     of its own (a 1-rank NCCL group, whose sharded step's loss must equal
+     the single step's).
 
 Every profiled run (phases 5, 9, 14, 16-18, 24) counts the host syncs of
 one step; a run whose relations have no hub rows must make none.
@@ -2735,6 +2750,113 @@ def sharded_case_check(name, ref, ranks) -> dict:
             "ranks": [{k: r[k] for k in keys} for r in ranks]}
 
 
+
+# ------------------------------------- phase 25: probes and measurement
+
+# the TPU probe kernels this slice ports: (kernel of the probe's rows, entry
+# key, file:line of the Pallas call)
+PROBE_KERNELS = (("P-a", "gather_probe_aligned",
+                  "benchmarks/gather_kernel_probe.py:71"),
+                 ("P-s", "gather_probe_shift",
+                  "benchmarks/gather_kernel_probe.py:133"))
+
+
+def probe_entries(kp: dict, launches: dict) -> dict:
+    """The kernels-line entries of P-a and P-s from the probe's run
+    (``gather_kernel_probe.run``): the time at the JAX probe's first
+    setting (rows 8; slots 4 for P-s), every setting's beside it, the plain
+    version's and the library yardstick's (``flat.unfold(0, dp, 1)
+    [starts]``), and the read+write bound the probe computed from its
+    inputs.  Each time is the median of ``utils.roofline.kernel_ms``'s
+    readings (queued calls over eight sets of starts, the output's
+    write-back included; ``*_range_ms`` their spread), and ``run`` raised
+    on any that read under the bound by more than ``SOL_LIMIT``."""
+    by = {r["kernel"]: r for r in kp["rows"]}
+    spread = lambda r: [min(r["readings_ms"]), max(r["readings_ms"])]
+    out = {}
+    for kind, key, replaces in PROBE_KERNELS:
+        rows = [r for r in kp["rows"] if r["kernel"] == kind]
+        first, plain, lib = rows[0], by[f"plain {kind}"], by["library"]
+        out[key] = {
+            "name": f"gather probe {kind} ({key})", "route": "cuda",
+            "source": "pcgnn_tpu_torch/csrc/gather_probe.cu",
+            "replaces": replaces, "launches": launches[key],
+            "launches_by_path": {"probe (phase 25)": launches[key]},
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": first["wall_ms"], "plain_ms": plain["wall_ms"],
+            "bound_ms": kp["rw_bound_ms"], "bound_by": "bytes",
+            "library_ms": lib["wall_ms"], "range_ms": spread(first),
+            "plain_range_ms": spread(plain),
+            "library_range_ms": spread(lib),
+            "setting": {k: first.get(k) for k in ("rows", "slots",
+                                                  "slots_applied")},
+            "sweep": [{k: r.get(k) for k in ("rows", "slots",
+                                             "slots_applied", "wall_ms",
+                                             "readings_ms")}
+                      for r in rows],
+            "rows": kp["b"], "dp": kp["dp"]}
+    return out
+
+
+def spmd_overhead_run() -> dict:
+    """``pcgnn_tpu_torch.benchmarks.spmd_overhead`` at its defaults, as a
+    process of its own (its 1-rank NCCL group ends with it); its JSON."""
+    from pcgnn_tpu_torch.utils.multiproc import worker_env
+    out = subprocess.run(
+        [sys.executable, "-m", "pcgnn_tpu_torch.benchmarks.spmd_overhead"],
+        env=worker_env(), capture_output=True, text=True, timeout=600)
+    if out.returncode:
+        raise AssertionError(f"spmd_overhead exited {out.returncode}:\n"
+                             f"{out.stderr[-4000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def probe_phase(like_graph, card: str) -> dict:
+    """Phase 25: with every kernel count at 0, the gather-kernel probe and
+    the gather strategies at their defaults (each variant exact against
+    its plain version, and the probe's times not under their read+write
+    bound, else they raise) and the roofline rows on yelp-like's
+    graph from phase 3 (``measure`` raises on a share above
+    ``SOL_LIMIT``); the counts are read after.  Then the 1-rank sharded
+    step's overhead in its own process (its loss equal to the single
+    step's, else it exits non-zero)."""
+    from pcgnn_tpu_torch.benchmarks import gather_kernel_probe, gather_probe
+    from pcgnn_tpu_torch.benchmarks import roofline as bench_roofline
+    from pcgnn_tpu_torch.ops import gather_probe as gp
+    mods = kernel_counters()
+    for mod in mods.values():
+        mod.launches = 0
+    gp.aligned_launches = gp.shift_launches = 0
+    t1 = time.time()
+    kp = gather_kernel_probe.run()
+    launches = {"gather_probe_aligned": gp.aligned_launches,
+                "gather_probe_shift": gp.shift_launches}
+    if not all(launches.values()):
+        raise AssertionError(f"the probe launched no P-a or P-s: {launches}")
+    strategies = gather_probe.run()
+    t2 = time.time()
+    rows = bench_roofline.bench_relation_kernels(like_graph, 1024)
+    rows += bench_roofline.bench_train_step("yelp-like", 1024, 64, "cuda",
+                                            graph=like_graph)
+    for r in rows:
+        print(json.dumps({"phase25_roofline": r["kernel"],
+                          "shape": r["shape"], "wall_ms": r["wall_ms"],
+                          "sol_frac": r.get("sol_frac"), "mfu": r["mfu"],
+                          "analytic_bytes": r.get("analytic_bytes"),
+                          "card": card}))
+    launches.update({k: m.launches for k, m in mods.items()})
+    t3 = time.time()
+    spmd = spmd_overhead_run()
+    print(json.dumps({"phase25_spmd_overhead": spmd}))
+    t4 = time.time()
+    return {"kernel_probe": kp, "gather_probe": strategies,
+            "roofline": rows, "spmd_overhead": spmd,
+            "launches": launches,
+            "entries": probe_entries(kp, launches),
+            "seconds": {"probes": t2 - t1, "roofline": t3 - t2,
+                        "spmd_overhead": t4 - t3}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -2870,6 +2992,10 @@ def main() -> int:
                                                        card)
     del g10
     print(f"phase 24 done at {time.time() - t0:.1f} s", file=sys.stderr)
+    # 25: the gather-kernel probes (P-a, P-s), the gather strategies, the
+    # roofline rows on yelp-like's graph, the 1-rank sharded step's overhead
+    probes = probe_phase(trainers[0].graph, card)
+    print(f"phase 25 done at {time.time() - t0:.1f} s", file=sys.stderr)
 
     # each kernel's launches: the sum over the main paths' runs, each read
     # with every count set to 0 just before it
@@ -2886,6 +3012,8 @@ def main() -> int:
             sharded["launches"][kname]
             + (sharded["launches"]["window_gather_masked"]
                if kname == "window_gather" else 0))
+        entry["launches_by_path"]["probes and roofline (phase 25)"] = (
+            probes["launches"][kname])
         entry["launches"] = sum(entry["launches_by_path"].values())
     # kernel 1c (the window gather with ``active``) apart: its only path is
     # the sharded store lane
@@ -2914,6 +3042,8 @@ def main() -> int:
                            "plain_ms", "bound_ms", "library_ms", "run_ms")
          if k in c}
         for c in runs[STRESS10M_CFG["data_name"]]["ragged_cases"]]
+    # P-a and P-s (phase 25), after the three kernels and kernel 1c
+    entries.update(probes["entries"])
     like["entry"]["homo_store"] = {k: homo_window[k] for k in (
         "ms", "widen_ms", "plain_ms", "library_ms", "bound_ms",
         "widen_bound_ms", "rows", "dp", "max_abs_err")}
@@ -2927,7 +3057,7 @@ def main() -> int:
     details = {"card": card, "kind": name, "runs": runs, "turns": turns,
                "homo_window": homo_window, "skew_baseline_steps": skew_steps,
                "files": files, "resume": resume, "full_graph": full,
-               "sharded": sharded,
+               "sharded": sharded, "probes": probes,
                "seconds": time.time() - t0}
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:
@@ -3025,6 +3155,20 @@ def main() -> int:
         "cases": {case: {k: c[k] for k in ("loss", "hub_rows",
                                            "max_grad_diff", "masked_fetch")}
                   for case, c in sharded["cases"].items()}}
+    summary["probes"] = {
+        "kernel_probe": [{k: r.get(k) for k in (
+            "name", "wall_ms", "readings_ms", "sol_frac", "rw_frac",
+            "exact")}
+            for r in probes["kernel_probe"]["rows"]],
+        "rw_bound_ms": probes["kernel_probe"]["rw_bound_ms"],
+        "gather_probe": [{k: r[k] for k in ("name", "wall_ms", "readings_ms",
+                                            "sol_frac")}
+                         for r in probes["gather_probe"]["rows"]],
+        "roofline": [{k: r.get(k) for k in ("kernel", "wall_ms", "sol_frac",
+                                            "mfu")}
+                     for r in probes["roofline"]],
+        "spmd_overhead": probes["spmd_overhead"],
+        "launches": probes["launches"], "seconds": probes["seconds"]}
     summary["seconds"] = details["seconds"]
     # phase 23 per rank, one line each: step ms, launches a step by kernel
     # (the masked fetch apart), collectives a step by axis, host syncs a

@@ -45,7 +45,9 @@
 // A variant with TMA bulk copies (cp.async.bulk into shared memory on an
 // mbarrier, then a bulk store or a widening pass) copied the wide rows
 // faster but widened them slower (31.6 against 27.2 us at the fused records
-// on an H100 80GB HBM3), and the path widens, so it was dropped.
+// on an H100 80GB HBM3), and the path widens, so it was dropped.  The
+// copy-mode TMA readings it lacked are the gather probes' (csrc/
+// gather_probe.cu): PERF.md section 6, rows P-a and P-s of the kernel table.
 
 #include <cuda_runtime.h>
 

@@ -346,12 +346,9 @@ class Trainer:
         back-to-back optimizer steps (``train_step``), step i on ``batch``,
         ``y`` and ``w`` rolled by i, as the JAX package's scan rolls them,
         and returns the last step's loss.  Every call steps ``model`` and
-        ``optimizer`` on; divide a call's time by ``nscan``.  Single device
-        only, as in the JAX package."""
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "single_step is the single-device roofline entry point; a "
-                "sharded step is timed through parallel.spmd.spmd_train_step")
+        ``optimizer`` on; divide a call's time by ``nscan``.  On a sharded
+        trainer each step is the sharded step, as ``step`` takes it (the
+        JAX package's ``single_step`` is single-device only)."""
         dev = self.device
         args = (model, optimizer, torch.as_tensor(batch, device=dev),
                 torch.as_tensor(y, device=dev),

@@ -6,6 +6,9 @@ Counterpart of ``pcgnn_tpu/utils/roofline.py``:
     its name (NVIDIA's data sheets, at the card's full power limit);
   * ``timed_ms``    - milliseconds per call of a run of back-to-back calls
     between two CUDA events;
+  * ``kernel_ms``   - device milliseconds per call of back-to-back calls
+    queued before the card starts them, cycling through argument sets, the
+    outputs' write-back included (not in the JAX package);
   * ``measure``     - that time against ``analytic_bytes`` (the least bytes
     the call must move, with no credit for cache reuse) and
     ``analytic_flops``: ``sol_frac`` is the bytes' time at the peak rate
@@ -20,7 +23,8 @@ bound), so ``measure`` raises rather than report it.
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import time
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -84,15 +88,104 @@ def timed_ms(call: Callable[[], object], *, target_s: float = 0.15,
                                                              1e-4))))
 
 
+# calls of one ``kernel_ms`` reading, and its readings after a warm-up run
+KERNEL_CALLS = 32
+KERNEL_READINGS = 5
+# runs a reading may take to queue all its calls before the card starts it
+QUEUE_TRIES = 4
+# ``torch.cuda._sleep`` cycles per millisecond, by device index
+_SLEEP_RATE: dict = {}
+
+
+def _sleep_cycles_per_ms(dev: torch.device) -> float:
+    """Cycles of ``torch.cuda._sleep`` the card spins per millisecond
+    (measured once per device, on the second of two spins)."""
+    if dev.index not in _SLEEP_RATE:
+        cycles = 1 << 22
+        for _ in range(2):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            torch.cuda._sleep(cycles)
+            end.record()
+            end.synchronize()
+        _SLEEP_RATE[dev.index] = cycles / start.elapsed_time(end)
+    return _SLEEP_RATE[dev.index]
+
+
+def kernel_ms(fn: Callable, arg_sets: Sequence[tuple]) -> list:
+    """Device milliseconds per call of ``fn``, the write-back of its outputs
+    to memory included: ``KERNEL_READINGS`` readings, sorted, each the time
+    of a run of ``KERNEL_CALLS`` back-to-back calls between two CUDA
+    events, after a warm-up run.  The calls take ``arg_sets`` in turn, so
+    sets whose reads together exceed the card's L2 (50 MB) find their
+    inputs in memory, and every output stays alive until the run after
+    next ends, so no call writes where the last two runs wrote: the lines
+    a call leaves dirty in the L2 go to memory while later calls of the
+    run execute (the kernel's own time, as the profiler reads it, can end
+    before they do).  Each run is queued behind a ``torch.cuda._sleep``
+    longer than the host takes to issue it, so no launch gap of the host
+    enters the time (the host can take longer to issue a call of a few
+    tens of microseconds than the card to run it); a run whose start the
+    card reached before the host had queued it is taken again with twice
+    the sleep, up to ``QUEUE_TRIES`` times, then this raises.  Raises on a
+    CPU device."""
+    dev = _card()
+    n_sets = len(arg_sets)
+
+    def run(sleep_ms: float):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        if sleep_ms:
+            torch.cuda._sleep(int(sleep_ms * _sleep_cycles_per_ms(dev)))
+        start.record()
+        t = time.perf_counter()
+        outs = [fn(*arg_sets[i % n_sets]) for i in range(KERNEL_CALLS)]
+        host_ms = (time.perf_counter() - t) * 1e3
+        queued = not start.query()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / KERNEL_CALLS, host_ms, queued, outs
+
+    _, host_ms, _, outs = run(0.0)
+    alive = [outs]          # the last two runs' outputs
+    sleep_ms = 2 * host_ms + 1.0
+    out = []
+    for _ in range(KERNEL_READINGS):
+        for _ in range(QUEUE_TRIES):
+            ms, _, queued, outs = run(sleep_ms)
+            alive = [alive[-1], outs]
+            if queued:
+                break
+            sleep_ms *= 2
+        else:
+            raise RuntimeError(f"kernel_ms: the card reached a run of {fn} "
+                               f"before the host had queued it, {QUEUE_TRIES}"
+                               f" times (last sleep {sleep_ms / 2:.1f} ms)")
+        out.append(ms)
+    return sorted(out)
+
+
 def measure(fn: Callable, *args, analytic_bytes: Optional[float] = None,
             analytic_flops: Optional[float] = None, device=None,
-            target_s: float = 0.15) -> dict:
+            target_s: float = 0.15,
+            arg_sets: Optional[Sequence[tuple]] = None) -> dict:
     """Time ``fn(*args)`` on the card and report its roofline shares: the
     JAX package's keys, and ``device``, the card's name.  Each call runs
     ``fn`` again on the same arguments, so ``fn`` must take them more than
-    once.  Raises on a CPU device and on a share above ``SOL_LIMIT``."""
+    once.  With ``arg_sets`` (and no ``args``) the time is instead the
+    median of ``kernel_ms(fn, arg_sets)``, its readings in
+    ``readings_ms``.  Raises on a CPU device and on a share above
+    ``SOL_LIMIT``."""
     dev = _card(device)
-    wall_ms = timed_ms(lambda: fn(*args), target_s=target_s)
+    readings = None
+    if arg_sets is None:
+        wall_ms = timed_ms(lambda: fn(*args), target_s=target_s)
+    else:
+        if args:
+            raise ValueError("measure takes args or arg_sets, not both")
+        readings = kernel_ms(fn, arg_sets)
+        wall_ms = readings[len(readings) // 2]
     dt = wall_ms / 1e3
     peak_bw, peak_flops = chip_peaks(dev)
     flops = None if analytic_flops is None else float(analytic_flops)
@@ -106,6 +199,8 @@ def measure(fn: Callable, *args, analytic_bytes: Optional[float] = None,
         else None,
         "device": torch.cuda.get_device_name(dev),
     }
+    if readings is not None:
+        res["readings_ms"] = readings
     if analytic_bytes is not None:
         res["analytic_bytes"] = float(analytic_bytes)
         res["achieved_gbps"] = analytic_bytes / dt / 1e9

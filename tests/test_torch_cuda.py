@@ -25,6 +25,7 @@ import torch
 from pcgnn_tpu_torch.data.synthetic import synthetic_fraud_graph
 from pcgnn_tpu_torch.graph import csr
 from pcgnn_tpu_torch.models.pcgnn import PCGNN
+from pcgnn_tpu_torch.ops import gather_probe as gp
 from pcgnn_tpu_torch.ops import hub
 from pcgnn_tpu_torch.ops import mask_build as mb
 from pcgnn_tpu_torch.ops import ragged_gather as rg
@@ -969,6 +970,36 @@ def test_measure_anchors(card):
     assert 0.3 < r["mfu"] <= 1.05, r
 
 
+def test_kernel_ms_reads_a_copy_near_its_time(card):
+    """``utils.roofline.kernel_ms`` of a 1 GB copy: sorted readings, the
+    median at most 1.05 of the bytes' share of the peak and within a factor
+    of 2 of the back-to-back CUDA-event time (a call long against its host
+    overhead)."""
+    from pcgnn_tpu_torch.utils.roofline import (KERNEL_READINGS, chip_peaks,
+                                                kernel_ms, timed_ms)
+    src = torch.empty(1 << 28, device=card)
+    dst = torch.empty_like(src)
+    readings = kernel_ms(dst.copy_, [(src,)])
+    run_ms = timed_ms(lambda: dst.copy_(src))
+    rate, _ = chip_peaks(card)
+    assert readings == sorted(readings) and len(readings) == KERNEL_READINGS
+    dev_ms = readings[len(readings) // 2]
+    assert 2 * src.numel() * 4 / rate * 1e3 <= dev_ms * 1.05
+    assert run_ms / 2 < dev_ms < run_ms * 2
+
+
+def test_kernel_ms_includes_the_write_back(card):
+    """A 28.8 MB fill, whose output fits the 50 MB L2, written to fresh
+    memory each call: ``kernel_ms`` reads no call under the time its bytes
+    take to reach memory (by more than 1.05)."""
+    from pcgnn_tpu_torch.utils.roofline import chip_peaks, kernel_ms
+    n = 1024 * 7040
+    readings = kernel_ms(lambda: torch.zeros(n, dtype=torch.int32,
+                                             device=card), [()])
+    rate, _ = chip_peaks(card)
+    assert n * 4 / rate * 1e3 <= readings[0] * 1.05, readings
+
+
 def test_single_step_on_card(card, tmp_path):
     """``Trainer.single_step`` on the card: its loss equals the same steps
     taken one by one (the card's step repeats bit for bit), and
@@ -1158,3 +1189,102 @@ def test_one_rank_nccl_group(card, tmp_path, monkeypatch):
         assert all(torch.equal(a, b) for a, b in zip(got[0][1], got[1][1]))
     finally:
         dist.destroy_process_group()
+
+
+# ------------------------------------------------- gather-kernel probes
+
+def _probe_flat(card, length, seed):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    return torch.randint(-2 ** 30, 2 ** 30, (length,), generator=gen,
+                         dtype=torch.int32, device=card)
+
+
+def _probe_starts(card, b, length, dp, seed):
+    """B starts in [0, L - dp]: the first min(B, 1024) at every value mod
+    1024 (so every mod 4 class), the rest random."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    blocks = (length - dp) // 1024
+    k = min(b, 1024)
+    res = torch.randperm(1024, generator=gen, device=card)[:k]
+    extra = torch.randint(0, 1024, (b - k,), generator=gen, device=card)
+    base = torch.randint(0, blocks, (b,), generator=gen, device=card) * 1024
+    return (base + torch.cat([res, extra])).to(torch.int32)
+
+
+PROBE_DPS = [128, 132, 2048, 7040]
+
+
+@pytest.mark.parametrize("rows,slots", [(8, 4), (16, 8), (32, 8), (32, 16),
+                                        (64, 16), (1, 1), (3, 2)])
+@pytest.mark.parametrize("dp", PROBE_DPS)
+@pytest.mark.parametrize("b", [1, 37, 1027])
+def test_shift_probe_equals_plain(card, rows, slots, dp, b):
+    """P-s at every (rows, slots) of the probe's sweep (slots capped at 8
+    for dp = 7,040), every start mod 1024, B not a multiple of rows."""
+    length = 1 << 22
+    flat = _probe_flat(card, length, dp + b)
+    starts = _probe_starts(card, b, length, dp, rows * slots + b)
+    before = gp.shift_launches
+    out = gp.shift_gather(flat, starts, dp, rows, slots)
+    assert gp.shift_launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(out, gp.shift_gather_plain(flat, starts, dp))
+
+
+@pytest.mark.parametrize("rows", [1, 2, 8, 16, 32, 64])
+@pytest.mark.parametrize("dp", PROBE_DPS)
+@pytest.mark.parametrize("b", [1, 37, 1027])
+def test_aligned_probe_equals_plain(card, rows, dp, b):
+    length = 1 << 22
+    flat = _probe_flat(card, length, dp + b + 1)
+    starts = _probe_starts(card, b, length, dp, rows + b)
+    before = gp.aligned_launches
+    out = gp.aligned_gather(flat, starts, dp, rows)
+    assert gp.aligned_launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(out, gp.aligned_gather_plain(flat, starts, dp))
+
+
+@pytest.mark.parametrize("length", [16384, 16388 + 128])
+def test_probes_clamp_starts_past_the_end(card, length):
+    """Starts past L - dp and negative ones are clamped into [0, L - dp]
+    (no read past flat; P-s's cover is cut at its end), as on the CPU."""
+    dp = 128
+    flat = _probe_flat(card, length, length)
+    s = length - dp
+    starts = torch.tensor([s, s - 1, s - 2, s - 3, s + 1, length, 10 ** 9,
+                           -1, -5000, 0, 3], dtype=torch.int32, device=card)
+    for got, want in (
+            (gp.shift_gather(flat, starts, dp, 8, 4),
+             gp.shift_gather_plain(flat, starts, dp)),
+            (gp.aligned_gather(flat, starts, dp, 8),
+             gp.aligned_gather_plain(flat, starts, dp))):
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert torch.equal(gp.shift_gather(flat, starts[:1], dp, 8, 4)[0],
+                       flat[-dp:])
+
+
+def test_probes_refuse_on_card(card):
+    """A row too wide for 2 slots is refused with the limit named, and a
+    misaligned flat, before any launch; B = 0 launches nothing."""
+    flat = _probe_flat(card, 1 << 16, 5)
+    starts = torch.zeros(4, dtype=torch.int32, device=card)
+    before = (gp.aligned_launches, gp.shift_launches)
+    with pytest.raises(ValueError, match="232448 bytes of shared"):
+        gp.aligned_gather(flat, starts, 29044)
+    with pytest.raises(ValueError, match="232448 bytes of shared"):
+        gp.shift_gather(flat, starts, 29040, 8, 4)
+    with pytest.raises(ValueError, match="16-byte"):
+        gp.shift_gather(flat[1:(1 << 16) - 3], starts, 128, 8, 4)
+    empty = torch.zeros(0, dtype=torch.int32, device=card)
+    assert gp.aligned_gather(flat, empty, 128).shape == (0, 128)
+    assert (gp.aligned_launches, gp.shift_launches) == before
+    # the widest rows that 2 slots fit run and are exact
+    for fn, dp in ((lambda d: gp.aligned_gather(flat, starts, d, 8), 29040),
+                   (lambda d: gp.shift_gather(flat, starts + 3, d, 8, 4),
+                    29036)):
+        out = fn(dp)
+        torch.cuda.synchronize()
+        off = 0 if dp == 29040 else 3
+        assert torch.equal(out, flat[off:off + dp].expand(4, dp))

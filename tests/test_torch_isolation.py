@@ -18,10 +18,10 @@ from pcgnn_tpu_torch import cli
 from pcgnn_tpu_torch.train.trainer import Trainer, resolve_device
 
 ROOT = Path(__file__).resolve().parents[1]
-# JAX, the JAX package, and the libraries its numpy helpers import that the
-# GPU machine does not have
-FORBIDDEN = {"jax", "jaxlib", "pcgnn_tpu", "optax", "flax", "sklearn",
-             "pandas", "ml_dtypes"}
+# JAX, the JAX package and its measurement scripts (``benchmarks/``), and
+# the libraries its numpy helpers import that the GPU machine does not have
+FORBIDDEN = {"jax", "jaxlib", "pcgnn_tpu", "benchmarks", "optax", "flax",
+             "sklearn", "pandas", "ml_dtypes"}
 
 
 def _port_modules():
@@ -53,8 +53,14 @@ def test_every_module_imports_without_jax():
             "pcgnn_tpu_torch.parallel.distributed",
             "pcgnn_tpu_torch.parallel.spmd",
             "pcgnn_tpu_torch.utils.multiproc",
-            "pcgnn_tpu_torch.native"} <= set(mods)
-    assert len(mods) >= 35
+            "pcgnn_tpu_torch.native", "pcgnn_tpu_torch.ops.gather_probe",
+            "pcgnn_tpu_torch.benchmarks",
+            "pcgnn_tpu_torch.benchmarks.gather_kernel_probe",
+            "pcgnn_tpu_torch.benchmarks.gather_probe",
+            "pcgnn_tpu_torch.benchmarks.roofline",
+            "pcgnn_tpu_torch.benchmarks.spmd_overhead",
+            "pcgnn_tpu_torch.benchmarks.measure_reference"} <= set(mods)
+    assert len(mods) >= 53
     code = (
         "import importlib, json, sys\n"
         f"mods = {mods!r} + ['chip_smoke', 'chunk_sweep', 'build_profile']\n"
