@@ -166,7 +166,34 @@ Phase 11 also times the learned steps in the same turns.  Then:
      values); ``roofline``'s rows on yelp-like's graph from phase 3 (a
      share above ``SOL_LIMIT`` fails); then ``spmd_overhead`` in a process
      of its own (a 1-rank NCCL group, whose sharded step's loss must equal
-     the single step's).
+     the single step's);
+ 26. the port's harnesses, each timed: ``measure_reference`` on this
+     host (written to a file of the phase, never
+     ``BASELINE_MEASURED.json``); the bench (``pcgnn_tpu_torch.bench``)
+     at its defaults on yelp-like's graph from phase 3, with every count
+     at 0 before and read after: ``bench.py``'s 13 keys, its
+     ``vs_baseline`` against this host's reference and against the
+     repository's file, one window gather a step; BASELINE.json config 3
+     (PC-GNN on amazon-like at batch 256, lr 0.005, weight decay 0.0005):
+     kernel 1 at its widened fused records, exact against the plain
+     version and timed queued (below); ``quality_run`` cut in depth only
+     (seed 2, 20 epochs, all five settings at full width, counts from 0):
+     every test AUC above 0.5, peak device memory per run;
+     ``quality_protocol`` on amazon-like, one seed, 2 epochs, through the
+     CLI: rc 0 and a table of one row; ``spmd_scaling`` at (1, 1) over
+     NCCL, then (2, 1) and (1, 2) over gloo ranks sharing cuda:0: every
+     warm loss within ``LOSS_RTOL`` of the (1, 1) loss on its batch,
+     kernel 1c launched at (1, 2); ``multihost_scaling`` with 1 and 2
+     processes on ``small`` for 1 epoch.  The protocol and the two
+     scaling harnesses run side by side, sharing the card and the host:
+     one card gives no scaling number.
+
+Phases 2, 7, 12 and 23 also time each kernel at the path's call with
+``utils.roofline.kernel_ms`` (``queued_ms``: calls queued ahead of the
+card, taking argument sets whose reads together exceed the L2 in turn,
+every output's write-back inside the run), beside the plain version and
+the library call; the kernels line carries those times, the profiler's
+beside them, and a queued time under its bound fails.
 
 Every profiled run (phases 5, 9, 14, 16-18, 24) counts the host syncs of
 one step; a run whose relations have no hub rows must make none.
@@ -438,6 +465,62 @@ def window_case(name, store, starts_list, dp, table, rows_list, *,
     return c
 
 
+def queued_ms(fn, arg_sets, bound_ms: float | None = None,
+              what: str = "") -> dict:
+    """``utils.roofline.kernel_ms`` of ``fn`` over ``arg_sets`` (calls
+    queued ahead of the card, taking the sets in turn, every output's
+    write-back inside the run): the median and the readings.  Raises when
+    the median reads under ``bound_ms`` by more than ``SOL_LIMIT`` (the
+    timing or the byte count would be wrong)."""
+    from pcgnn_tpu_torch.utils import roofline
+    readings = roofline.kernel_ms(fn, arg_sets)
+    ms = readings[len(readings) // 2]
+    if bound_ms is not None and ms * roofline.SOL_LIMIT < bound_ms:
+        raise AssertionError(f"{what}: {ms * 1e3:.2f} us reads under its "
+                             f"bound {bound_ms * 1e3:.2f} us")
+    return {"ms": ms, "readings_ms": readings}
+
+
+def queued_window(store, starts_list, dp, table, rows_list, *,
+                  rate: float, active=None) -> dict:
+    """One window shape timed by ``queued_ms`` over the calls of
+    ``starts_list`` (whose reads together exceed the L2): the kernel alone
+    (``launch`` into a fresh output) widening to float32 (``ms``) and
+    copying (``copy_ms``), the plain version widening (``plain_ms``), and
+    one ``index_select`` copy of the same windows from ``table``
+    (``library_ms``); the bounds as ``window_case`` counts them."""
+    from pcgnn_tpu_torch.ops import window_gather as wg
+    rows = len(starts_list[0])
+    dev = store.device
+    copied = rows if active is None else int(active.sum())
+    esize = store.element_size()
+    extra = rows * 8 + (0 if active is None else rows * 4)
+    bound = (2 * copied * dp * esize + extra) / rate * 1e3
+    widen_bound = (copied * dp * (esize + 4) + extra) / rate * 1e3
+
+    def kernel(dtype):
+        def call(s):
+            out = torch.empty((rows, dp), dtype=dtype, device=dev)
+            wg.launch(store, s, active, out)
+            return out
+        return call
+
+    sets = [(s,) for s in starts_list]
+    q = {"rows": rows, "copied_rows": copied, "dp": dp,
+         "bound_ms": widen_bound, "copy_bound_ms": bound,
+         "read_bytes": len(sets) * copied * dp * esize}
+    for key, fn, args, bnd in (
+            ("", kernel(torch.float32), sets, widen_bound),
+            ("copy_", kernel(store.dtype), sets, bound),
+            ("plain_", lambda s: wg.window_gather_plain(
+                store, s, dp, out_dtype=torch.float32), sets, None),
+            ("library_", lambda i: torch.index_select(table, 0, i),
+             [(i,) for i in rows_list], None)):
+        r = queued_ms(fn, args, bnd, f"window_gather {key}[{rows}, {dp}]")
+        q[key + "ms"], q[key + "readings_ms"] = r["ms"], r["readings_ms"]
+    return q
+
+
 def kernel_phase(t, rate: float) -> tuple[dict, dict]:
     """Phase 2: exactness on the card and timings at the main path's
     shapes.  Returns (kernels-line entry, details)."""
@@ -503,6 +586,12 @@ def kernel_phase(t, rate: float) -> tuple[dict, dict]:
     # the launch floor: the same kernel copying 1 row of 16 bytes
     floor = case("launch_floor", flat, [bt[:1] * w for bt in batches], a,
                  strided_rows(flat, a, a), [bt[:1] * w // a for bt in batches])
+    # the main path's call queued ahead of the card over the 30 batches
+    # (546 MB of reads), the write-back included: the times of the kernels
+    # line; the profiler's beside them
+    q = queued_window(flat, [bt * w for bt in batches], w, fused, batches,
+                      rate=rate)
+    details["queued"] = q
     # the main path's call widens the fused records to float32; no one
     # PyTorch call does that, so its yardstick is the copy's
     entry = {"name": "window_gather", "route": "cuda",
@@ -510,11 +599,17 @@ def kernel_phase(t, rate: float) -> tuple[dict, dict]:
              "replaces": "pcgnn_tpu/ops/pallas/window_gather.py:223",
              "launches": None, "max_abs_err": max(errs), "exact": True,
              "checked": len(errs),
-             "ms": main["widen_ms"], "plain_ms": main["widen_plain_ms"],
-             "bound_ms": main["widen_bound_ms"], "bound_by": "bytes",
+             "ms": q["ms"], "plain_ms": q["plain_ms"],
+             "bound_ms": q["bound_ms"], "bound_by": "bytes",
              "library_ms": None,
-             "copy_ms": main["ms"], "copy_bound_ms": main["bound_ms"],
-             "copy_library_ms": main["library_ms"], "floor_ms": floor["ms"]}
+             "copy_ms": q["copy_ms"], "copy_bound_ms": q["copy_bound_ms"],
+             "copy_library_ms": q["library_ms"],
+             "range_ms": [q["readings_ms"][0], q["readings_ms"][-1]],
+             "profiler_ms": main["widen_ms"],
+             "profiler_copy_ms": main["ms"],
+             "profiler_plain_ms": main["widen_plain_ms"],
+             "profiler_copy_library_ms": main["library_ms"],
+             "floor_ms": floor["ms"]}
     details["masked"] = {k: masked[k] for k in ("ms", "bound_ms", "plain_ms",
                                                 "library_ms")}
     return entry, details
@@ -584,6 +679,37 @@ def ragged_case(name, col, starts_list, d, fill, rate: float) -> dict:
     return c
 
 
+def queued_ragged(col, starts, d, fill, bound_ms: float) -> dict:
+    """The ragged gather's call (``starts`` [B], width ``d``) timed by
+    ``queued_ms``: the kernel alone (``launch`` into a fresh output), the
+    plain version and the ``col.unfold`` indexing gather.  A hub chunk
+    reads ~1 MB, so each of the run's calls reads its own copy of ``col``
+    (one per queued call): the reads then come from memory, as in a
+    step."""
+    from pcgnn_tpu_torch.ops import ragged_gather as rg
+    from pcgnn_tpu_torch.utils.roofline import KERNEL_CALLS
+    cols = [col.clone() for _ in range(KERNEL_CALLS)]
+    inside = starts.to(torch.int64).clamp(0, col.numel() - d)
+    rows = len(starts)
+
+    def kernel(c, s):
+        out = torch.empty((rows, d), dtype=torch.int32, device=c.device)
+        rg.launch(c, s, out, fill)
+        return out
+
+    sets = [(c, starts) for c in cols]
+    q = {"rows": rows, "d": d, "copies": len(cols)}
+    for key, fn, args, bnd in (
+            ("", kernel, sets, bound_ms),
+            ("plain_", lambda c, s: rg.ragged_gather_plain(c, s, d, fill),
+             sets, None),
+            ("library_", lambda c: c.unfold(0, d, 1)[inside],
+             [(c,) for c in cols], None)):
+        r = queued_ms(fn, args, bnd, f"ragged_gather {key}[{rows}, {d}]")
+        q[key + "ms"], q[key + "readings_ms"] = r["ms"], r["readings_ms"]
+    return q
+
+
 def ragged_phase(t, rate: float) -> tuple[dict, dict]:
     """Phase 7: the ragged-gather kernel against its plain version at the
     hub lane's real calls on yelp-skew and at edge cases, and its timings.
@@ -629,13 +755,19 @@ def ragged_phase(t, rate: float) -> tuple[dict, dict]:
     path_bytes = [2 * len(st) * w * 4 + len(st) * st.element_size()
                   for _, st, w in calls]
     details["path_bound_ms"] = float(np.mean(path_bytes)) / rate * 1e3
+    q = queued_ragged(wrel.col, wst, ww, g.num_nodes, main["bound_ms"])
+    details["queued"] = q
     entry = {"name": "ragged_gather", "route": "cuda",
              "source": "pcgnn_tpu_torch/csrc/ragged_gather.cu",
              "replaces": "pcgnn_tpu/ops/pallas/ragged_gather.py:112",
              "launches": None, "max_abs_err": max(errs), "exact": True,
-             "ms": main["ms"], "plain_ms": main["plain_ms"],
+             "ms": q["ms"], "plain_ms": q["plain_ms"],
              "bound_ms": main["bound_ms"], "bound_by": "bytes",
-             "library_ms": main["library_ms"], "floor_ms": floor["ms"],
+             "library_ms": q["library_ms"],
+             "range_ms": [q["readings_ms"][0], q["readings_ms"][-1]],
+             "profiler_ms": main["ms"], "profiler_plain_ms": main["plain_ms"],
+             "profiler_library_ms": main["library_ms"],
+             "floor_ms": floor["ms"],
              "path_bound_ms": details["path_bound_ms"]}
     details["chunk"] = HUB_CHUNK
     return entry, details
@@ -785,14 +917,54 @@ def mask_phase(t, rate: float) -> tuple[dict, dict]:
     for r in range(g.num_relations):
         _, ids, keep, mids, kmin = next(c for c in calls if c[0] == r)
         main = case(f"relation_{r}", ids, keep, mids, kmin)  # the widest
+    # the widest relation's calls over the epoch, queued ahead of the card
+    # with every mask's write-back inside the run
+    q = queued_mask([c[1:] for c in calls if c[0] == r], n,
+                    main["bound_ms"])
+    details["queued"] = q
     entry = {"name": "mask_build", "route": "cuda",
              "source": "pcgnn_tpu_torch/csrc/mask_build.cu",
              "replaces": "pcgnn_tpu/ops/pallas/mask_build.py:79",
              "launches": None, "max_abs_err": max(errs), "exact": True,
-             "ms": main["ms"], "plain_ms": main["plain_ms"],
+             "ms": q["ms"], "plain_ms": q["plain_ms"],
              "bound_ms": main["bound_ms"], "bound_by": "bytes",
-             "library_ms": main["library_ms"]}
+             "library_ms": q["library_ms"],
+             "range_ms": [q["readings_ms"][0], q["readings_ms"][-1]],
+             "profiler_ms": main["ms"], "profiler_plain_ms": main["plain_ms"],
+             "profiler_library_ms": main["library_ms"]}
     return entry, details
+
+
+def queued_mask(calls: list, n: int, bound_ms: float) -> dict:
+    """Mask builds at ``calls`` ([(ids, keep, minor ids, keep_minor)], one
+    relation's over an epoch) timed by ``queued_ms``: the kernel alone
+    (``launch`` into fresh outputs), the plain version, and the ``scatter_``
+    of ones into a zeroed [B, N+1] buffer (no counts)."""
+    from pcgnn_tpu_torch.ops import mask_build as mb
+    dev = calls[0][0].device
+
+    def kernel(ids, keep, mids, kmin):
+        out = torch.empty((ids.shape[0], n), dtype=torch.float32, device=dev)
+        counts = torch.empty(ids.shape[0], dtype=torch.float32, device=dev)
+        mb.launch(ids, keep, out, counts, mids, kmin)
+        return out, counts
+
+    def library(folded):
+        return torch.zeros((folded.shape[0], n + 1), device=dev).scatter_(
+            1, folded, 1.0)[:, :n]
+
+    folded = [(torch.where(torch.cat([keep, kmin], 1),
+                           torch.cat([ids, mids], 1), n).long(),)
+              for ids, keep, mids, kmin in calls]
+    q = {"calls": len(calls), "rows": int(calls[0][0].shape[0]), "n": n}
+    for key, fn, args, bnd in (
+            ("", kernel, calls, bound_ms),
+            ("plain_", lambda *a: mb.build_batch_mask_counts_plain(
+                a[0], a[1], n, a[2], a[3]), calls, None),
+            ("library_", library, folded, None)):
+        r = queued_ms(fn, args, bnd, f"mask_build {key}")
+        q[key + "ms"], q[key + "readings_ms"] = r["ms"], r["readings_ms"]
+    return q
 
 
 def csr_branch_phase(t) -> dict:
@@ -822,32 +994,6 @@ def csr_branch_phase(t) -> dict:
             raise AssertionError(f"the CSR-branch forward differs from the "
                                  f"table's by {float((a - b).abs().max())}")
     return {"ragged_launches": launched, "equal": True}
-
-
-def without_stores(g):
-    """The graph with its edge-window and fused stores and its
-    sentinel-padded table dropped: what the learned lane and
-    ``edge_windows: false`` train on, and what a baseline's trainer builds
-    its homo store on."""
-    drop = lambda r: dataclasses.replace(r, ewin=None, estart=None,
-                                         ewin_dp=0, ewin_f=0)
-    return dataclasses.replace(g, fused=None, fused_off=(),
-                               features_pad=None, homo=drop(g.homo),
-                               relations=tuple(drop(r) for r in g.relations))
-
-
-def edges_per_epoch(t) -> float:
-    """Expected candidate edges per epoch (bench.py's definition): each of
-    the epoch's picked nodes contributes deg_r(v) slots per relation.  A
-    baseline's epoch takes every training node once, over the homo graph."""
-    if not t.is_pcgnn:
-        return float(t.graph.homo.deg.double().cpu().numpy()[t.idx_train]
-                     .sum())
-    p = t.pick_weights.double().cpu().numpy()
-    p = p / p.sum()
-    per_sample = sum(float((p * rel.deg.double().cpu().numpy()[t.idx_train])
-                           .sum()) for rel in t.graph.relations)
-    return per_sample * t.sample_size
 
 
 def kernel_counters() -> dict:
@@ -908,6 +1054,7 @@ def main_path_phase(t) -> dict:
     gathers its lane reads (``window_launches_per_step``), and every step
     with a hub row the ragged gather.  Every learned-lane step launches the
     mask build once per relation and no gather, and the table must move."""
+    from pcgnn_tpu_torch.bench import edges_per_epoch
     from pcgnn_tpu_torch.train.metrics import evaluate
     mods = kernel_counters()
     want_wg = window_launches_per_step(t)
@@ -1445,7 +1592,7 @@ def stress_phase(rate: float) -> tuple:
     run.update(lane_phases(t))
     run["window_cases"] = stress_window_cases(t, rate)
     tc = Trainer(dict(STRESS_CFG, edge_windows=False),
-                 graph=without_stores(t.graph), device="cuda")
+                 graph=t.graph.without_stores(), device="cuda")
     if tc.graph.features_pad is not None or any(
             r.has_hubs for r in tc.graph.relations):
         raise AssertionError("the stress step without stores is not in "
@@ -2528,7 +2675,7 @@ def nccl_phase(t, card: str) -> dict:
             raise AssertionError("the 1-rank NCCL all-reduce changed values")
         init_s = time.time() - t1
         rank = Trainer(dict(t.config, distributed=True), device="cuda:0",
-                       graph=without_stores(t.graph))
+                       graph=t.graph.without_stores())
         if rank.mesh.backend != "nccl" or rank.mesh.size != 1:
             raise AssertionError(f"the NCCL rank's mesh is {rank.mesh}")
         got = []
@@ -2561,7 +2708,7 @@ def masked_window_case(t, refs, rate: float) -> dict:
     from pcgnn_tpu_torch.parallel import spmd
     dg = SHARD_RANKS
     g = t.graph
-    rel = without_stores(g).relations[-1]
+    rel = g.without_stores().relations[-1]
     mesh = single_rank_like(dg)
     n_pad = -(-g.num_nodes // dg) * dg
     sh = spmd.shard_relation(rel, mesh, n_pad, g.features,
@@ -2589,6 +2736,11 @@ def masked_window_case(t, refs, rate: float) -> dict:
                     [s // a for s in starts], rate=rate, active=active,
                     flush=flush)
     c["max_abs_err"] = err
+    # queued ahead of the card over the 30 batches, as phase 2's
+    c["queued"] = queued_window(sh.ewin, starts, sh.ewin_dp,
+                                strided_rows(sh.ewin, sh.ewin_dp, a),
+                                [s // a for s in starts], rate=rate,
+                                active=active)
     return c
 
 
@@ -2661,7 +2813,7 @@ def sharded_references(like, skew, gcn, sage, work) -> dict:
     case's single-process inputs and values for the ranks."""
     owners = {"like": like, "skew": skew, "amazon": gcn}
     for key, t in owners.items():
-        torch.save(without_stores(t.graph).to("cpu"),
+        torch.save(t.graph.without_stores().to("cpu"),
                    os.path.join(work, f"graph-{key}.pt"))
     baselines = {"GCN": gcn, "SAGE": sage}
     refs = {}
@@ -2669,7 +2821,7 @@ def sharded_references(like, skew, gcn, sage, work) -> dict:
         t = baselines.get(model_name) or owners[gkey]
         graph = t.graph
         if not ew:
-            graph = without_stores(graph)
+            graph = graph.without_stores()
         elif not fused:
             graph = dataclasses.replace(graph, fused=None, fused_off=())
         refs[name] = sharded_reference(t, graph, ew)
@@ -2857,6 +3009,295 @@ def probe_phase(like_graph, card: str) -> dict:
                         "spmd_overhead": t4 - t3}}
 
 
+# ------------------------- phase 26: the bench, quality and scaling
+
+# BASELINE.json config 3: PC-GNN on Amazon at configs/pcgnn_amazon.json's
+# batch, lr and weight decay, on the synthetic preset of Amazon's shape
+# (quality_run's fourth setting)
+CONFIG3_CFG = dict(BENCH_CFG, data_name="synthetic:amazon-like", lr=0.005,
+                   weight_decay=0.0005, batch_size=256)
+# quality_run cut in depth only: one seed, 20 epochs (two validations)
+QUALITY_SEEDS = (2,)
+QUALITY_EPOCHS = 20
+# quality_protocol on its smallest dataset, one seed, 2 epochs
+PROTOCOL_DATASET = "synthetic:amazon-like"
+PROTOCOL_EPOCHS = 2
+# the scaling harnesses on the JAX scripts' default preset
+SCALING_PRESET = "small"
+SCALING_TIMEOUT_S = 600.0
+# bench.py's line, key for key (bench.py:134-149)
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "epochs_per_hour",
+              "step_ms", "hbm_bw_util", "step_achieved_gbps", "peak_gbps",
+              "roofline_step_ms", "preset", "batch_size", "device")
+
+
+@contextlib.contextmanager
+def counted_steps():
+    """Counts ``Trainer.step`` calls (every training step, ``single_step``'s
+    included) while the block runs."""
+    from pcgnn_tpu_torch.train.trainer import Trainer
+    real = Trainer.step
+    count = [0]
+
+    def step(self, *args, **kw):
+        count[0] += 1
+        return real(self, *args, **kw)
+
+    Trainer.step = step
+    try:
+        yield count
+    finally:
+        Trainer.step = real
+
+
+def reference_on_host(path: str) -> dict:
+    """``measure_reference`` on this machine's host, in a process of its
+    own, written to ``path`` (never ``BASELINE_MEASURED.json``)."""
+    from pcgnn_tpu_torch.utils.multiproc import worker_env
+    out = subprocess.run(
+        [sys.executable, "-m", "pcgnn_tpu_torch.benchmarks.measure_reference",
+         "--out", path], env=worker_env(), capture_output=True, text=True,
+        timeout=600)
+    if out.returncode:
+        raise AssertionError(f"measure_reference exited {out.returncode}:\n"
+                             f"{out.stderr[-4000:]}")
+    with open(path) as f:
+        return json.load(f)
+
+
+def bench_phase(like_graph, baseline: str, name: str) -> dict:
+    """The bench at its defaults on yelp-like's graph from phase 3, every
+    kernel count at 0 before and read after: its line (``bench.py``'s 13
+    keys, ``value`` > 0, ``hbm_bw_util`` <= ``SOL_LIMIT``, the card's name),
+    ``vs_baseline`` against this host's reference (``baseline``) and the
+    repository's ``BASELINE_MEASURED.json``, and the launches per step (one
+    fused record fetch a step)."""
+    from pcgnn_tpu_torch import bench
+    from pcgnn_tpu_torch.utils.roofline import SOL_LIMIT
+    mods = kernel_counters()
+    for mod in mods.values():
+        mod.launches = 0
+    with counted_steps() as steps:
+        line = bench.run(graph=like_graph, baseline=baseline)
+    launches = {k: m.launches for k, m in mods.items()}
+    print(json.dumps(line))
+    if tuple(line) != BENCH_KEYS:
+        raise AssertionError(f"the bench's keys {list(line)} are not "
+                             f"bench.py's {list(BENCH_KEYS)}")
+    if not line["value"] > 0 or not line["hbm_bw_util"] <= SOL_LIMIT:
+        raise AssertionError(f"the bench's line is out of range: {line}")
+    if line["device"] != name:
+        raise AssertionError(f"the bench ran on {line['device']!r}")
+    if launches["window_gather"] != steps[0]:
+        raise AssertionError(f"{steps[0]} bench steps launched "
+                             f"{launches['window_gather']} window gathers")
+    repo_ref = bench.reference_edges_per_s(bench.BASELINE_PATH)
+    return {"line": line, "steps": steps[0], "launches": launches,
+            "launches_per_step": {k: v / steps[0]
+                                  for k, v in launches.items()},
+            "vs_host_reference": line["vs_baseline"],
+            "vs_baseline_measured_json": line["value"] / repo_ref,
+            "baseline_measured_json_edges_per_s": repo_ref}
+
+
+def config3_fetch_phase(rate: float) -> tuple:
+    """Config 3's trainer on amazon-like (batch 256): kernel 1 at its
+    widened fused records, held exactly against the plain version on 30
+    batches (copied and widened) and timed by ``queued_window`` beside its
+    bound and the ``index_select`` copy.  Returns (record, the host-built
+    graph without stores, for the quality run)."""
+    from pcgnn_tpu_torch.data.loaders import load_data
+    from pcgnn_tpu_torch.train.trainer import Trainer
+    cfg = CONFIG3_CFG
+    t1 = time.time()
+    raw = load_data(cfg["data_name"], seed=cfg["seed"], device="cuda")
+    t = Trainer(cfg, graph=raw, device="cuda")
+    g, dev = t.graph, t.device
+    torch.cuda.synchronize()
+    setup_s = time.time() - t1
+    if g.fused is None:
+        raise AssertionError("config 3 on amazon-like has no fused record "
+                             "store")
+    w = g.fused.shape[1]
+    flat = g.fused.view(-1)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    batches = [t.idx_train_dev[torch.randint(len(t.idx_train),
+                                             (t.batch_size,), generator=gen,
+                                             device=dev)]
+               for _ in range(TIMING_REPS)]
+    errs = [check_gather(flat, bt * w, w, out_dtype=od)
+            for bt in batches for od in (None, torch.float32)]
+    q = queued_window(flat, [bt * w for bt in batches], w, g.fused, batches,
+                      rate=rate)
+    rec = {"setup_s": setup_s, "graph": graph_shape(g), "fused_width": w,
+           "fused_off": list(g.fused_off), "dps": [r.ewin_dp for r in
+                                                   g.relations],
+           "max_abs_err": max(errs), "checked": len(errs), **q}
+    del t, g, flat
+    return rec, raw
+
+
+def quality_phase(graphs: dict, work: str) -> dict:
+    """``quality_run`` cut in depth (``QUALITY_SEEDS``, ``QUALITY_EPOCHS``),
+    all five settings at full width, every kernel count at 0 before and
+    read after: every test AUC above 0.5."""
+    from pcgnn_tpu_torch.benchmarks import quality_run
+    mods = kernel_counters()
+    for mod in mods.values():
+        mod.launches = 0
+    out = os.path.join(work, "RESULTS.md")
+    rows, runs = quality_run.run(seeds=QUALITY_SEEDS, epochs=QUALITY_EPOCHS,
+                                 out=out, device="cuda", graphs=graphs)
+    launches = {k: m.launches for k, m in mods.items()}
+    with open(out) as f:
+        text = f.read()
+    print(text, end="")
+    low = [r for r in runs if not r["auc"] > 0.5]
+    if low:
+        raise AssertionError(f"quality runs with test AUC not above 0.5: "
+                             f"{low}")
+    if not launches["window_gather"] or not launches["ragged_gather"]:
+        raise AssertionError(f"the quality run launched {launches}")
+    return {"rows": rows, "runs": runs, "launches": launches, "table": text}
+
+
+def protocol_phase(work: str) -> dict:
+    """``quality_protocol`` on one dataset, one seed and 2 epochs through
+    the CLI: every run rc 0 and a table of one row."""
+    from pcgnn_tpu_torch.benchmarks import quality_protocol
+    res = quality_protocol.run(
+        workdir=os.path.join(work, "protocol"), datasets=[PROTOCOL_DATASET],
+        seeds="1", epochs=PROTOCOL_EPOCHS, device="cuda",
+        run_timeout=SCALING_TIMEOUT_S)
+    if res["failed"] or res["done"] != 1 or len(res["summary"]) != 1:
+        logs = glob.glob(os.path.join(work, "protocol", "logs", "*.log"))
+        tails = "".join(open(p).read()[-3000:] for p in logs)
+        raise AssertionError(f"quality_protocol: {res}\n{tails}")
+    with open(res["out"]) as f:
+        text = f.read()
+    print(text, end="")
+    return {"runs": res["runs"], "table": text,
+            "summary": {" ".join(k): v for k, v in res["summary"].items()}}
+
+
+def timed(fn, *args) -> tuple:
+    """(``fn(*args)``, its wall seconds)."""
+    t1 = time.time()
+    return fn(*args), time.time() - t1
+
+
+def spmd_scaling_phase() -> dict:
+    """``spmd_scaling`` over (1, 1) on one NCCL rank, then (2, 1) and
+    (1, 2) over gloo ranks sharing cuda:0: every warm loss within rtol
+    ``LOSS_RTOL`` of the (1, 1) loss on the same batch, and kernel 1c
+    launched at (1, 2).  One card gives relative numbers, no scaling
+    claim."""
+    from pcgnn_tpu_torch.benchmarks import spmd_scaling
+    spmd = spmd_scaling.run(devices=2, preset=SCALING_PRESET,
+                            device="cuda:0", timeout=SCALING_TIMEOUT_S)
+    for r in spmd["records"]:
+        if not math.isclose(r["warm_loss"], r["ref_loss"], rel_tol=LOSS_RTOL):
+            raise AssertionError(f"{r['mesh']}: loss {r['warm_loss']!r} is "
+                                 f"not within {LOSS_RTOL} of the (1, 1) "
+                                 f"loss {r['ref_loss']!r}")
+    backends = [r["backend"] for r in spmd["records"]]
+    if backends != ["nccl", "gloo", "gloo"]:
+        raise AssertionError(f"spmd_scaling ran over {backends}")
+    graph_mesh = spmd["records"][2]
+    if not graph_mesh["launches"]["window_gather_masked"]:
+        raise AssertionError(f"(1, 2) launched no masked window gather: "
+                             f"{graph_mesh['launches']}")
+    return spmd
+
+
+def multihost_phase() -> list:
+    """``multihost_scaling`` with 1 and 2 processes on ``SCALING_PRESET``
+    for 1 epoch, the ranks on cuda:0: both counts finish."""
+    from pcgnn_tpu_torch.benchmarks import multihost_scaling
+    multi = multihost_scaling.run(multihost_scaling.parse_args([
+        "--procs", "2", "--devices_per_proc", "1", "--mesh_graph", "1",
+        "--preset", SCALING_PRESET, "--epochs", "1", "--device", "cuda:0",
+        "--timeout", str(SCALING_TIMEOUT_S)]))
+    if [r["procs"] for r in multi] != [1, 2] or multi[0]["scaling_eff"] != 1:
+        raise AssertionError(f"multihost_scaling: {multi}")
+    return multi
+
+
+def harness_phase(like_graph, skew_graph, card: str, name: str,
+                  rate: float) -> dict:
+    """Phase 26: the reference on this host, the bench, config 3's fetch,
+    the quality run and protocol, and the scaling harnesses, each timed;
+    their files in a fresh directory under ``build/``, removed after."""
+    os.makedirs("build", exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_harness-", dir="build")
+    seconds = {}
+    t0 = time.time()
+    try:
+        t1 = time.time()
+        ref_path = os.path.join(work, "reference.json")
+        ref = reference_on_host(ref_path)
+        seconds["measure_reference"] = time.time() - t1
+        t1 = time.time()
+        bench = bench_phase(like_graph, ref_path, name)
+        seconds["bench"] = time.time() - t1
+        print(f"phase 26, bench: {bench['line']['value']} edges/s, "
+              f"vs_baseline {bench['vs_host_reference']} against this "
+              f"host's reference ({ref['reference_edges_per_s']:.0f} "
+              f"edges/s on {ref['cpu_model']}), "
+              f"{bench['vs_baseline_measured_json']:.3f} against "
+              f"BASELINE_MEASURED.json's "
+              f"{bench['baseline_measured_json_edges_per_s']:.0f} (another "
+              f"host); launches a step {bench['launches_per_step']} over "
+              f"{bench['steps']} steps; {card}")
+        t1 = time.time()
+        fetch, amazon = config3_fetch_phase(rate)
+        seconds["config3_fetch"] = time.time() - t1
+        print(f"phase 26, kernel 1 at config 3's widened fused records "
+              f"[{fetch['rows']}, {fetch['dp']}]: {fetch['ms'] * 1e3:.2f} us "
+              f"({fetch['readings_ms'][0] * 1e3:.2f}-"
+              f"{fetch['readings_ms'][-1] * 1e3:.2f}), bound "
+              f"{fetch['bound_ms'] * 1e3:.2f}; copy "
+              f"{fetch['copy_ms'] * 1e3:.2f} (bound "
+              f"{fetch['copy_bound_ms'] * 1e3:.2f}, index_select "
+              f"{fetch['library_ms'] * 1e3:.2f}); plain "
+              f"{fetch['plain_ms'] * 1e3:.2f}; exact on {fetch['checked']} "
+              f"calls; {card}")
+        t1 = time.time()
+        quality = quality_phase({
+            (BENCH_CFG["data_name"], 2): like_graph.without_stores(),
+            (SKEW_CFG["data_name"], 2): skew_graph.without_stores(),
+            (CONFIG3_CFG["data_name"], 2): amazon}, work)
+        seconds["quality_run"] = time.time() - t1
+        for r in quality["runs"]:
+            print(json.dumps({"phase26_quality": r, "card": card}))
+        del amazon
+        # the scaling gangs and the protocol's CLI run go side by side,
+        # sharing the card and the host: on one card the gangs give no
+        # scaling number (their timings are relative; run a harness alone
+        # for its records), and the checks read losses, launches, exit
+        # codes and AUC
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            beside = pool.submit(timed, protocol_phase, work)
+            multi_run = pool.submit(timed, multihost_phase)
+            spmd, seconds["spmd_scaling"] = timed(spmd_scaling_phase)
+            multi, seconds["multihost_scaling"] = multi_run.result()
+            protocol, seconds["quality_protocol"] = beside.result()
+        scaling = {"spmd_scaling": spmd, "multihost_scaling": multi}
+        for r in spmd["records"]:
+            print(json.dumps({"phase26_spmd_scaling": r, "card": card}))
+        print(json.dumps({"phase26_multihost_scaling": multi, "card": card}))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    seconds["total"] = time.time() - t0
+    print(f"phase 26 took {seconds['total']:.1f} s: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()
+                      if k != "total")
+          + " (the last three side by side)")
+    return {"reference": ref, "bench": bench, "config3_fetch": fetch,
+            "quality": quality, "protocol": protocol, "scaling": scaling,
+            "seconds": seconds}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -2887,7 +3328,7 @@ def main() -> int:
         t1 = time.time()
         if cfg is LEARNED_CFG:
             # yelp-like's graph from phase 2's loader call, without stores
-            t = Trainer(cfg, graph=without_stores(trainers[0].graph),
+            t = Trainer(cfg, graph=trainers[0].graph.without_stores(),
                         device="cuda")
         else:
             t = Trainer(cfg, device="cuda")
@@ -2932,7 +3373,7 @@ def main() -> int:
         raise AssertionError("the yelp-skew run launched no window_gather")
 
     # 16: the score-table lane on yelp-skew's graph without stores
-    t16 = Trainer(TABLE_CFG, graph=without_stores(trainers[1].graph),
+    t16 = Trainer(TABLE_CFG, graph=trainers[1].graph.without_stores(),
                   device="cuda")
     runs[run_name(t16)] = lane_phases(t16)
     print(f"phase 16 done at {time.time() - t0:.1f} s", file=sys.stderr)
@@ -2953,7 +3394,7 @@ def main() -> int:
     # 19: one step of each baseline on yelp-skew's graph, whose homo hub
     # rows go through hub_mean_sum
     gcn_skew = Trainer(dict(GCN_CFG, data_name=SKEW_CFG["data_name"]),
-                       graph=without_stores(trainers[1].graph),
+                       graph=trainers[1].graph.without_stores(),
                        device="cuda")
     sage_skew = Trainer(dict(SAGE_CFG, data_name=SKEW_CFG["data_name"]),
                         graph=gcn_skew.graph, device="cuda")
@@ -2996,6 +3437,11 @@ def main() -> int:
     # roofline rows on yelp-like's graph, the 1-rank sharded step's overhead
     probes = probe_phase(trainers[0].graph, card)
     print(f"phase 25 done at {time.time() - t0:.1f} s", file=sys.stderr)
+    # 26: the bench, config 3's fetch, the quality run and protocol, the
+    # scaling harnesses
+    harness = harness_phase(trainers[0].graph, trainers[1].graph, card, name,
+                            rate)
+    print(f"phase 26 done at {time.time() - t0:.1f} s", file=sys.stderr)
 
     # each kernel's launches: the sum over the main paths' runs, each read
     # with every count set to 0 just before it
@@ -3014,6 +3460,10 @@ def main() -> int:
                if kname == "window_gather" else 0))
         entry["launches_by_path"]["probes and roofline (phase 25)"] = (
             probes["launches"][kname])
+        entry["launches_by_path"]["bench (phase 26)"] = (
+            harness["bench"]["launches"][kname])
+        entry["launches_by_path"]["quality run (phase 26)"] = (
+            harness["quality"]["launches"][kname])
         entry["launches"] = sum(entry["launches_by_path"].values())
     # kernel 1c (the window gather with ``active``) apart: its only path is
     # the sharded store lane
@@ -3023,19 +3473,35 @@ def main() -> int:
     # own entry, widened as the path calls it (no one PyTorch call copies
     # only the active rows, or widens)
     mc = sharded["masked_case"]
+    mq = mc["queued"]
     entries["window_gather_masked"] = {
         "name": "window_gather (active: kernel 1c)", "route": "cuda",
         "source": "pcgnn_tpu_torch/csrc/window_gather.cu",
         "replaces": "pcgnn_tpu/ops/pallas/window_gather.py:196",
-        "launches": sharded["launches"]["window_gather_masked"],
-        "launches_by_path": {"sharded (phase 23, both ranks)":
-                             sharded["launches"]["window_gather_masked"]},
-        "max_abs_err": mc["max_abs_err"], "ms": mc["widen_ms"],
-        "plain_ms": mc["widen_plain_ms"], "bound_ms": mc["widen_bound_ms"],
-        "bound_by": "bytes", "library_ms": None, "copy_ms": mc["ms"],
-        "copy_bound_ms": mc["bound_ms"],
-        "copy_library_ms": mc["library_ms"], "rows": mc["rows"],
+        "launches": None,
+        "launches_by_path": {
+            "sharded (phase 23, both ranks)":
+                sharded["launches"]["window_gather_masked"],
+            "spmd_scaling (phase 26, rank 0 of each mesh)": sum(
+                r["launches"]["window_gather_masked"]
+                for r in harness["scaling"]["spmd_scaling"]["records"])},
+        "max_abs_err": mc["max_abs_err"], "ms": mq["ms"],
+        "plain_ms": mq["plain_ms"], "bound_ms": mq["bound_ms"],
+        "bound_by": "bytes", "library_ms": None, "copy_ms": mq["copy_ms"],
+        "copy_bound_ms": mq["copy_bound_ms"],
+        "copy_library_ms": mq["library_ms"],
+        "range_ms": [mq["readings_ms"][0], mq["readings_ms"][-1]],
+        "profiler_ms": mc["widen_ms"], "profiler_copy_ms": mc["ms"],
+        "profiler_plain_ms": mc["widen_plain_ms"],
+        "profiler_copy_library_ms": mc["library_ms"], "rows": mc["rows"],
         "copied_rows": mc["copied_rows"], "dp": mc["dp"]}
+    entries["window_gather_masked"]["launches"] = sum(
+        entries["window_gather_masked"]["launches_by_path"].values())
+    # kernel 1 at config 3's widened fused records (phase 26)
+    fetch = harness["config3_fetch"]
+    like["entry"]["config3_fused"] = {k: fetch[k] for k in (
+        "rows", "dp", "ms", "readings_ms", "bound_ms", "copy_ms",
+        "copy_bound_ms", "library_ms", "plain_ms", "max_abs_err")}
     # kernel 2 at stress-10m's calls (phase 24): [1024, dcap] CSR windows
     skew["entry"]["stress_10m"] = [
         {k: c[k] for k in ("name", "rows", "d", "col_entries", "ms",
@@ -3057,7 +3523,7 @@ def main() -> int:
     details = {"card": card, "kind": name, "runs": runs, "turns": turns,
                "homo_window": homo_window, "skew_baseline_steps": skew_steps,
                "files": files, "resume": resume, "full_graph": full,
-               "sharded": sharded, "probes": probes,
+               "sharded": sharded, "probes": probes, "harness": harness,
                "seconds": time.time() - t0}
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:
@@ -3169,6 +3635,20 @@ def main() -> int:
                      for r in probes["roofline"]],
         "spmd_overhead": probes["spmd_overhead"],
         "launches": probes["launches"], "seconds": probes["seconds"]}
+    summary["harness"] = {
+        "bench": {k: harness["bench"][k] for k in (
+            "line", "steps", "launches_per_step", "vs_host_reference",
+            "vs_baseline_measured_json")},
+        "reference_edges_per_s":
+            harness["reference"]["reference_edges_per_s"],
+        "cpu_model": harness["reference"]["cpu_model"],
+        "quality": [{k: r[k] for k in ("data", "model", "seed", "auc",
+                                       "gmean", "seconds", "peak_mem_bytes")}
+                    for r in harness["quality"]["runs"]],
+        "protocol_runs": harness["protocol"]["runs"],
+        "spmd_scaling": harness["scaling"]["spmd_scaling"]["summary"],
+        "multihost_scaling": harness["scaling"]["multihost_scaling"],
+        "seconds": harness["seconds"]}
     summary["seconds"] = details["seconds"]
     # phase 23 per rank, one line each: step ms, launches a step by kernel
     # (the masked fetch apart), collectives a step by axis, host syncs a

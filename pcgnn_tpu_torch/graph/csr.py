@@ -180,6 +180,18 @@ class MultiRelGraph:
             fused=_to(self.fused, device),
             features_pad=_to(self.features_pad, device))
 
+    def without_stores(self) -> "MultiRelGraph":
+        """The graph with its edge-window and fused stores and its
+        sentinel-padded table dropped: what the learned lane and
+        ``edge_windows: false`` train on, and what a trainer builds the
+        stores of its own model on."""
+        drop = lambda r: dataclasses.replace(r, ewin=None, estart=None,
+                                             ewin_dp=0, ewin_f=0)
+        return dataclasses.replace(
+            self, fused=None, fused_off=(), features_pad=None,
+            homo=drop(self.homo),
+            relations=tuple(drop(r) for r in self.relations))
+
 
 def csr_arrays_plain(src: np.ndarray, dst: np.ndarray, num_nodes: int, *,
                      symmetrize: bool = True, add_self_loops: bool = True):

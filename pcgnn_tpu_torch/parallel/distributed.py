@@ -42,6 +42,17 @@ def default_backend(device) -> str:
     return "nccl" if torch.device(device).type == "cuda" else "gloo"
 
 
+def gang_backend(device, world: int) -> str:
+    """The backend of a local gang of ``world`` ranks on ``device``:
+    ``nccl`` when each rank has a card of its own (``cuda``: rank r on
+    ``cuda:r``) or is alone on a named card, ``gloo`` on the CPU or when
+    the ranks share one named card (NCCL takes one rank per card)."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return "gloo"
+    return "nccl" if dev.index is None or world == 1 else "gloo"
+
+
 def init_distributed(coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None, *,

@@ -371,6 +371,17 @@ class Trainer:
                   for i, (bt, wt) in enumerate(zip(batches, weights))]
         return torch.stack(losses).mean()
 
+    def epoch_block(self, model, optimizer, first_epoch: int,
+                    num_epochs: int) -> torch.Tensor:
+        """Epochs ``first_epoch .. first_epoch + num_epochs - 1`` back to
+        back (``run_epoch``), with no read-back to the host; returns the
+        last epoch's mean loss, on the device (0 for no epoch).  The
+        counterpart of the JAX package's ``epoch_block_fn``."""
+        loss = torch.zeros((), device=self.device)
+        for epoch in range(first_epoch, first_epoch + num_epochs):
+            loss = self.run_epoch(model, optimizer, epoch)
+        return loss
+
     def predict(self, model, batch: torch.Tensor) -> torch.Tensor:
         """[B, 2] probabilities; sharded, the full batch on every rank."""
         batch = batch.to(self.device)

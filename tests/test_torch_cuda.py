@@ -1288,3 +1288,48 @@ def test_probes_refuse_on_card(card):
         torch.cuda.synchronize()
         off = 0 if dp == 29040 else 3
         assert torch.equal(out, flat[off:off + dp].expand(4, dp))
+
+
+# ------------------------------------------------ the bench and scaling
+
+def _bench_py_keys() -> list:
+    """The keys of ``bench.py``'s JSON line, read from its source."""
+    import ast
+    from pathlib import Path
+    tree = ast.parse((Path(__file__).resolve().parents[1] / "bench.py")
+                     .read_text())
+    call = next(n for n in ast.walk(tree) if isinstance(n, ast.Call)
+                and getattr(n.func, "attr", None) == "dumps")
+    return [k.value for k in call.args[0].keys]
+
+
+def test_bench_line_on_card(card, tmp_path):
+    """The bench on the card: bench.py's 13 keys, a positive rate, a
+    bandwidth share the roofline accepts, the card's name, and
+    ``vs_baseline`` 1.0 without a baseline file."""
+    from pcgnn_tpu_torch import bench
+    line = bench.run(preset="small", batch_size=256, epochs=2,
+                     baseline=str(tmp_path / "absent.json"))
+    assert list(line) == _bench_py_keys()
+    assert line["value"] > 0 and 0 < line["hbm_bw_util"] <= 1.05
+    assert line["device"] == torch.cuda.get_device_name(0)
+    assert line["vs_baseline"] == 1.0 and line["preset"] == "small"
+
+
+@pytest.mark.parametrize("device,meshes,backends", [
+    ("cuda", [(1, 1)], ["nccl"]),
+    ("cuda:0", [(1, 1), (1, 2), (2, 1)], ["nccl", "gloo", "gloo"])])
+def test_spmd_scaling_on_card(card, device, meshes, backends):
+    """spmd_scaling on the card: (1, 1) over NCCL, more ranks sharing
+    cuda:0 over gloo; every warm loss within rtol 1e-5 of the (1, 1) loss
+    on its batch, and the (1, 2) mesh's rank 0 launches kernel 1c."""
+    from pcgnn_tpu_torch.benchmarks import spmd_scaling
+    out = spmd_scaling.run(preset="tiny", batch_per_data=32, steps=2,
+                           device=device, meshes=meshes, timeout=300)
+    recs = out["records"]
+    assert [r["backend"] for r in recs] == backends
+    for r in recs:
+        assert math.isclose(r["warm_loss"], r["ref_loss"], rel_tol=1e-5)
+        assert r["launches"]["window_gather"] > 0
+    for r, (dd, dg) in zip(recs, meshes):
+        assert (r["launches"]["window_gather_masked"] > 0) == (dg > 1)

@@ -59,8 +59,13 @@ def test_every_module_imports_without_jax():
             "pcgnn_tpu_torch.benchmarks.gather_probe",
             "pcgnn_tpu_torch.benchmarks.roofline",
             "pcgnn_tpu_torch.benchmarks.spmd_overhead",
-            "pcgnn_tpu_torch.benchmarks.measure_reference"} <= set(mods)
-    assert len(mods) >= 53
+            "pcgnn_tpu_torch.benchmarks.measure_reference",
+            "pcgnn_tpu_torch.bench",
+            "pcgnn_tpu_torch.benchmarks.quality_run",
+            "pcgnn_tpu_torch.benchmarks.quality_protocol",
+            "pcgnn_tpu_torch.benchmarks.spmd_scaling",
+            "pcgnn_tpu_torch.benchmarks.multihost_scaling"} <= set(mods)
+    assert len(mods) >= 58
     code = (
         "import importlib, json, sys\n"
         f"mods = {mods!r} + ['chip_smoke', 'chunk_sweep', 'build_profile']\n"
