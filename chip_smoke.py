@@ -135,7 +135,13 @@ Phase 11 also times the learned steps in the same turns.  Then:
      by axis, host round trips and peak memory a step.  Kernel 1c is then
      checked and timed here at that lane's shape, and (c) a 1-rank NCCL
      group initializes, all-reduces, and steps at (1, 1) exactly as the
-     single-rank step.  Two ranks on one card give no scaling number;
+     single-rank step.  Two ranks on one card give no scaling number.
+     Each case also runs with the collectives async (``RankMesh.overlap``,
+     the default) and blocking: loss and gradients from the same weights
+     must be the same bits; 8 steps timed in turns (on, off, off, on, ...),
+     the host syncs of one step each way, and one profiled step each way
+     with the kernel launches between each async collective's issue and its
+     wait (``launches_between_markers``);
  24. ``synthetic:stress-10m`` (BASELINE.json config 5: 10M nodes, F = 64,
      directed relations of 130M / 70M / 30M CSR edges), built on the host
      through the native graph core, and trained at full width for one
@@ -186,7 +192,21 @@ Phase 11 also times the learned steps in the same turns.  Then:
      kernel 1c launched at (1, 2); ``multihost_scaling`` with 1 and 2
      processes on ``small`` for 1 epoch.  The protocol and the two
      scaling harnesses run side by side, sharing the card and the host:
-     one card gives no scaling number.
+     one card gives no scaling number;
+ 27. the entry points of ``__graft_entry__.py``, ported
+     (``pcgnn_tpu_torch.graft_entry``): ``entry()`` on the card, with
+     every count at 0 before its forward and read after (kernel 1
+     launched, finite [64, 2] logits and center scores within rtol 1e-5 of
+     the CPU's), then ``dryrun_multichip(2, device="cuda:0")``: two gloo
+     ranks sharing the card at (1, 2), one training step in each of the
+     tiny (plain lane), skew-tiny (hub lane, bf16 stores, fused table:
+     kernels 1 and 2) and stress-1m (1M nodes, plain lane) passes, each
+     rank's counts at 0 before each step; losses finite and equal on both
+     ranks, stress-1m's structure half on each rank within 4,096 bytes,
+     seconds per pass; the tiny and skew-tiny steps held against the same
+     dryrun on the CPU (the kernels' plain versions): each rank's loss
+     within ``LOSS_RTOL``, gradients within ``GRAD_RTOL`` / ``GRAD_ATOL``,
+     parameters after the Adam step within ``PARAM_ATOL``.
 
 Phases 2, 7, 12 and 23 also time each kernel at the path's call with
 ``utils.roofline.kernel_ms`` (``queued_ms``: calls queued ahead of the
@@ -221,6 +241,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import unittest.mock
 
 import numpy as np
 import torch
@@ -2615,6 +2636,8 @@ def sharded_rank_main(argv) -> int:
         # host reads the step makes itself (outside the counted run)
         rec["explicit_syncs_per_step"] = count_syncs(
             lambda: spmd.spmd_train_step(model, opt, sg, bt, y, wt, consts))
+        rec["overlap"] = overlap_turns(model, opt, sg, bt, y, wt, consts,
+                                       mesh, pcgnn, fused)
         if not fused and ew and pcgnn:
             rec["masked_fetch"] = masked_fetch_check(sg, bt, mesh)
         out["cases"][name] = rec
@@ -2623,6 +2646,105 @@ def sharded_rank_main(argv) -> int:
     torch.save(out, os.path.join(work, f"rank{rank}.pt"))
     torch.distributed.destroy_process_group()
     return 0
+
+
+def launches_between_markers(prof) -> dict:
+    """{collective: [kernel launches]}: for each async collective of a
+    profiled run (``parallel.mesh``'s zero-length ``collective_issue:`` and
+    ``collective_wait:`` ranges, paired in order), the kernel launches the
+    host made between its issue and its wait."""
+    from torch.autograd import DeviceType
+    issue, wait, launch = {}, {}, []
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            continue
+        t = e.time_range.start
+        kind, _, name = e.name.partition(":")
+        if kind == "collective_issue":
+            issue.setdefault(name, []).append(t)
+        elif kind == "collective_wait":
+            wait.setdefault(name, []).append(t)
+        elif "LaunchKernel" in e.name:
+            launch.append(t)
+    return {name: [sum(t0 <= t <= t1 for t in launch)
+                   for t0, t1 in zip(sorted(ts), sorted(wait.get(name, [])))]
+            for name, ts in issue.items()}
+
+
+# phase 23's overlap turns: the schedule of each timed step (on, off, off,
+# on), so both see the host at the same moments
+OVERLAP_TURNS = (True, False, False, True, True, False, False, True)
+
+
+def overlap_turns(model, opt, sg, bt, y, wt, consts, mesh, pcgnn: bool,
+                  fused: bool) -> dict:
+    """Phase 23's collective-overlap reading on one case, on this rank: the
+    loss and gradients on ``mesh`` (overlap on) and on its blocking copy
+    from the same weights must be the same bits; then steps timed in turns
+    (``OVERLAP_TURNS``), the host syncs of one step each way, and one
+    profiled step each way with the kernel launches between each async
+    collective's issue and its wait (none exist with overlap off: every
+    collective completes where it is issued)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pcgnn_tpu_torch.parallel import spmd
+
+    # the sharded graph on the mesh built (overlap on) and on its blocking
+    # copy: the same shards and groups
+    sgs = {True: sg, False: dataclasses.replace(
+        sg, mesh=dataclasses.replace(mesh, overlap=False))}
+
+    def loss_grads(sg):
+        model.zero_grad(set_to_none=True)
+        if pcgnn:
+            loss, local = spmd.spmd_loss(
+                model, sg, bt, y, wt, consts["tp"], consts["tpv"],
+                train_pos_feats=consts["tpf"], fused=fused)
+        else:
+            loss, local = spmd.spmd_homo_loss(model, sg, bt, y, wt)
+        local.backward()
+        spmd.data_sum_grads(model, mesh)
+        return [loss.detach().clone()] + [p.grad.detach().clone()
+                                          for p in model.parameters()]
+
+    def step(sg):
+        spmd.spmd_train_step(model, opt, sg, bt, y, wt, consts)
+
+    out = {"step_ms": {"on": [], "off": []}, "explicit_syncs": {},
+           "launches_between": {}}
+    got = {on: loss_grads(s) for on, s in sgs.items()}
+    out["bit_equal"] = all(torch.equal(a, b)
+                           for a, b in zip(got[True], got[False]))
+    out["loss"] = float(got[True][0])
+    if not out["bit_equal"]:
+        raise AssertionError(
+            f"overlap on and off differ: loss {float(got[True][0])!r} "
+            f"vs {float(got[False][0])!r}")
+    for on in OVERLAP_TURNS:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step(sgs[on])
+        torch.cuda.synchronize()
+        out["step_ms"]["on" if on else "off"].append(
+            (time.perf_counter() - t1) * 1e3)
+    for on, s in sgs.items():
+        key = "on" if on else "off"
+        out["explicit_syncs"][key] = count_syncs(lambda: step(s))
+        mesh.stats.reset()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(s)
+            torch.cuda.synchronize()
+        out["launches_between"][key] = launches_between_markers(prof)
+        st = mesh.stats.snapshot()
+        out.setdefault("schedule", {})[key] = [
+            w for w in st["waits"]
+            if w["collectives_between"] or w["ops_between"]]
+        out.setdefault("async_calls", {})[key] = st["async_calls"]
+        out.setdefault("host_round_trips", {})[key] = st["host_syncs"]
+    out["step_ms_median"] = {k: float(np.median(v))
+                             for k, v in out["step_ms"].items()}
+    return out
 
 
 def masked_fetch_check(sg, batch, mesh) -> dict:
@@ -2793,6 +2915,15 @@ def sharded_phase(trainers, gcn, sage, card: str, rate: float) -> dict:
         out["cases"][name] = sharded_case_check(name, refs[name],
                                                 [r["cases"][name]
                                                  for r in ranks])
+    for name, c in out["cases"].items():
+        ov = c["ranks"][0]["overlap"]
+        under = ov["launches_between"]["on"]
+        print(f"phase 23 overlap, {name} (rank 0): step ms on "
+              f"{ov['step_ms_median']['on']:.2f} / off "
+              f"{ov['step_ms_median']['off']:.2f}; kernel launches between "
+              f"issue and wait {under}; host syncs on/off "
+              f"{ov['explicit_syncs']['on']}/{ov['explicit_syncs']['off']}; "
+              f"loss and gradients bit-equal ({card})", file=sys.stderr)
     out["rank_log_tail"] = logs[0][-1500:]
     out["masked_case"] = masked_window_case(like, refs, rate)
     # the phase's launches by kernel, both ranks: the CLI run and every
@@ -2889,9 +3020,19 @@ def sharded_case_check(name, ref, ranks) -> dict:
     if ref["hub_rows"] and per["ragged_gather"] < 1:
         raise AssertionError(f"{name}: {ref['hub_rows']} hub rows and no "
                              f"ragged gather")
+    for r, rec in enumerate(ranks):
+        ov = rec["overlap"]
+        if not ov["bit_equal"] or ov["async_calls"]["off"]["graph"]:
+            raise AssertionError(f"{name} rank {r}: overlap on and off "
+                                 f"differ, or the off run issued async "
+                                 f"collectives: {ov}")
+        if not ov["launches_between"]["on"] or ov["launches_between"]["off"]:
+            raise AssertionError(f"{name} rank {r}: the profiler shows no "
+                                 f"async collective with overlap on, or one "
+                                 f"with it off: {ov['launches_between']}")
     keys = ("step_ms_median", "launches_per_step", "collectives_per_step",
             "gloo_host_round_trips_per_step", "explicit_syncs_per_step",
-            "peak_mem_bytes", "shard_s", "stores", "fused")
+            "peak_mem_bytes", "shard_s", "stores", "fused", "overlap")
     return {"loss": ref["loss"], "hub_rows": ref["hub_rows"],
             "loss_ranks": [r["loss"] for r in ranks],
             "max_grad_diff": max(float((r["grads"][k] - g).abs().max())
@@ -3298,6 +3439,140 @@ def harness_phase(like_graph, skew_graph, card: str, name: str,
             "seconds": seconds}
 
 
+# ----------------------- phase 27: the entry points of __graft_entry__.py
+
+GRAFT_RANKS = 2
+FWD_RTOL, FWD_ATOL = 1e-5, 1e-6
+
+
+def graft_phase(card: str) -> dict:
+    """Phase 27: ``pcgnn_tpu_torch.graft_entry``, the counterpart of
+    ``__graft_entry__.py``.  ``entry()`` on the card, with every count at 0
+    just before its forward and read just after: kernel 1 (the fused
+    record fetch) launched, logits and center scores finite, of shape
+    [64, 2], and within rtol 1e-5 of the same forward on the CPU.  Then
+    ``dryrun_multichip(2, device="cuda:0")``: two gloo ranks sharing the
+    card at (1, 2), one training step in each of the tiny, skew-tiny and
+    stress-1m passes (each rank zeroes its counts just before each step):
+    the losses finite and the same on both ranks, kernels 1 and 2 launched
+    by the skew pass, stress-1m's structure half on each rank.  The tiny
+    and skew-tiny steps are then run again by the same dryrun on the CPU
+    (``GRAFT_DRYRUN_STRESS=0``), where every kernel is its plain version:
+    each card rank's loss, summed gradients and parameters after the Adam
+    step must agree with the CPU rank's (``LOSS_RTOL``, ``GRAD_RTOL`` /
+    ``GRAD_ATOL``, ``PARAM_ATOL``)."""
+    from pcgnn_tpu_torch import graft_entry
+    mods = kernel_counters()
+    t0 = time.time()
+    fn, args = graft_entry.entry()
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    for m in mods.values():
+        m.launches = 0
+    logits, center = fn(*args)
+    torch.cuda.synchronize()
+    entry_launches = {k: m.launches for k, m in mods.items()}
+    if entry_launches["window_gather"] < 1:
+        raise AssertionError(f"entry() launched no fused record fetch: "
+                             f"{entry_launches}")
+    if logits.shape != (64, 2) or center.shape != (64, 2) or not bool(
+            torch.isfinite(logits).all() and torch.isfinite(center).all()):
+        raise AssertionError(f"entry(): logits {tuple(logits.shape)}, "
+                             f"center {tuple(center.shape)}, not all finite")
+    fn_c, args_c = graft_entry.entry(device="cpu")
+    logits_c, center_c = fn_c(*args_c)
+    err = max(float((a.detach().cpu() - b.detach()).abs().max())
+              for a, b in ((logits, logits_c), (center, center_c)))
+    for a, b in ((logits, logits_c), (center, center_c)):
+        if not torch.allclose(a.detach().cpu(), b.detach(), rtol=FWD_RTOL,
+                              atol=FWD_ATOL):
+            raise AssertionError(f"entry() on the card differs from the CPU "
+                                 f"by {err}")
+    entry_s = time.time() - t0
+    t1 = time.time()
+    ranks = graft_entry.dryrun_multichip(GRAFT_RANKS, device="cuda:0")
+    dryrun_s = time.time() - t1
+    passes = list(ranks[0]["passes"])
+    if passes != ["tiny", "skew-tiny", "stress-1m"]:
+        raise AssertionError(f"the dryrun ran the passes {passes}")
+    for name in passes:
+        losses = [r["passes"][name]["loss"] for r in ranks]
+        if len(set(losses)) != 1 or not math.isfinite(losses[0]):
+            raise AssertionError(f"dryrun {name}: the ranks' losses {losses}")
+    for r in ranks:
+        skew = r["passes"]["skew-tiny"]["launches"]
+        if skew["window_gather"] < 1 or skew["ragged_gather"] < 1:
+            raise AssertionError(f"the skew pass on rank {r['rank']} "
+                                 f"launched {skew}: kernels 1 and 2 wanted")
+        st = r["passes"]["stress-1m"]
+        mine, total = st["struct_rank_bytes"], st["struct_total_bytes"]
+        if not total <= GRAFT_RANKS * mine <= total + 4096 * GRAFT_RANKS:
+            raise AssertionError(f"stress-1m on rank {r['rank']}: {mine} "
+                                 f"bytes of structure of {total}")
+    t2 = time.time()
+    with unittest.mock.patch.dict(os.environ, {"GRAFT_DRYRUN_STRESS": "0"}):
+        ref = graft_entry.dryrun_multichip(GRAFT_RANKS, device="cpu")
+    ref_s = time.time() - t2
+    vs_cpu = {}
+    for name in ("tiny", "skew-tiny"):
+        for r, c in zip(ranks, ref):
+            got, want = r["passes"][name], c["passes"][name]
+            if not math.isclose(got["loss"], want["loss"], rel_tol=LOSS_RTOL,
+                                abs_tol=0.0):
+                raise AssertionError(
+                    f"dryrun {name} rank {r['rank']}: card loss "
+                    f"{got['loss']!r}, CPU {want['loss']!r}")
+            errs = {"loss": abs(got["loss"] - want["loss"])}
+            for kind, rtol, atol in (("grads", GRAD_RTOL, GRAD_ATOL),
+                                     ("params", 0.0, PARAM_ATOL)):
+                if set(got[kind]) != set(want[kind]):
+                    raise AssertionError(f"dryrun {name}: the {kind}' names "
+                                         f"differ from the CPU's")
+                for k, a in got[kind].items():
+                    if not np.allclose(a, want[kind][k], rtol=rtol,
+                                       atol=atol):
+                        raise AssertionError(
+                            f"dryrun {name} rank {r['rank']}: {kind} {k} "
+                            f"differ from the CPU's by "
+                            f"{float(np.abs(a - want[kind][k]).max())}")
+                errs[kind] = max(float(np.abs(a - want[kind][k]).max())
+                                 for k, a in got[kind].items())
+            vs_cpu.setdefault(name, []).append(errs)
+    for r in ranks + ref:
+        for rec in r["passes"].values():
+            rec.pop("grads", None)
+            rec.pop("params", None)
+    launches = {k: entry_launches[k] + sum(
+        r["passes"][p]["launches"][k] for r in ranks for p in passes)
+        for k in mods}
+    out = {"card": card, "entry": {
+        "launches": entry_launches, "setup_s": setup_s, "seconds": entry_s,
+        "max_abs_diff_vs_cpu": err,
+        "logits_row0": logits[0].tolist()},
+        "dryrun": {"seconds": dryrun_s, "ranks": ranks,
+                   "cpu_reference": {
+                       "seconds": ref_s, "max_abs_diff": vs_cpu,
+                       "losses": {p: [c["passes"][p]["loss"] for c in ref]
+                                  for p in vs_cpu}}},
+        "launches": launches, "seconds": time.time() - t0}
+    print(f"phase 27, entry(): kernel 1 x{entry_launches['window_gather']}, "
+          f"card vs CPU {err:.3g}, {entry_s:.1f} s; dryrun_multichip(2, "
+          f"cuda:0) {dryrun_s:.1f} s: " + "; ".join(
+              f"{p} loss {ranks[0]['passes'][p]['loss']:.4f} in "
+              f"{ranks[0]['passes'][p]['seconds']:.1f} s (step "
+              f"{ranks[0]['passes'][p]['step_s'] * 1e3:.1f} ms)"
+              for p in passes) + f"; stress-1m structure "
+          f"{ranks[0]['passes']['stress-1m']['struct_rank_bytes'] / 1e6:.1f} "
+          f"MB/rank of "
+          f"{ranks[0]['passes']['stress-1m']['struct_total_bytes'] / 1e6:.1f}"
+          f" MB; against the CPU dryrun ({ref_s:.1f} s): " + "; ".join(
+              f"{p} max abs loss {max(e['loss'] for e in v):.3g}, grads "
+              f"{max(e['grads'] for e in v):.3g}, params after Adam "
+              f"{max(e['params'] for e in v):.3g}"
+              for p, v in vs_cpu.items()) + f" ({card})", file=sys.stderr)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -3442,6 +3717,11 @@ def main() -> int:
     harness = harness_phase(trainers[0].graph, trainers[1].graph, card, name,
                             rate)
     print(f"phase 26 done at {time.time() - t0:.1f} s", file=sys.stderr)
+    # 27: __graft_entry__.py's entry points (graft_entry): entry() on the
+    # card and the dryrun's three sharded passes on two gloo ranks sharing
+    # it
+    graft = graft_phase(card)
+    print(f"phase 27 done at {time.time() - t0:.1f} s", file=sys.stderr)
 
     # each kernel's launches: the sum over the main paths' runs, each read
     # with every count set to 0 just before it
@@ -3464,6 +3744,8 @@ def main() -> int:
             harness["bench"]["launches"][kname])
         entry["launches_by_path"]["quality run (phase 26)"] = (
             harness["quality"]["launches"][kname])
+        entry["launches_by_path"]["graft entry and dryrun (phase 27)"] = (
+            graft["launches"][kname])
         entry["launches"] = sum(entry["launches_by_path"].values())
     # kernel 1c (the window gather with ``active``) apart: its only path is
     # the sharded store lane
@@ -3524,6 +3806,7 @@ def main() -> int:
                "homo_window": homo_window, "skew_baseline_steps": skew_steps,
                "files": files, "resume": resume, "full_graph": full,
                "sharded": sharded, "probes": probes, "harness": harness,
+               "graft": graft,
                "seconds": time.time() - t0}
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:
@@ -3649,6 +3932,20 @@ def main() -> int:
         "spmd_scaling": harness["scaling"]["spmd_scaling"]["summary"],
         "multihost_scaling": harness["scaling"]["multihost_scaling"],
         "seconds": harness["seconds"]}
+    summary["graft"] = {
+        "entry": {k: graft["entry"][k] for k in (
+            "launches", "seconds", "max_abs_diff_vs_cpu")},
+        "dryrun_seconds": graft["dryrun"]["seconds"],
+        "passes": {p: {k: rec.get(k) for k in (
+            "loss", "seconds", "step_s", "launches", "build_s",
+            "struct_rank_bytes", "struct_total_bytes", "directed_edges")}
+            for p, rec in graft["dryrun"]["ranks"][0]["passes"].items()},
+        "seconds": graft["seconds"]}
+    summary["sharded"]["overlap"] = {
+        case: {k: [r["overlap"][k] for r in c["ranks"]]
+               for k in ("step_ms_median", "explicit_syncs",
+                         "launches_between", "host_round_trips")}
+        for case, c in sharded["cases"].items()}
     summary["seconds"] = details["seconds"]
     # phase 23 per rank, one line each: step ms, launches a step by kernel
     # (the masked fetch apart), collectives a step by axis, host syncs a

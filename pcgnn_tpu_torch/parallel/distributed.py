@@ -19,9 +19,22 @@ CUDA ranks that each own a card and ``gloo`` on the CPU; ranks that share
 one card must ask for ``gloo``.  Nothing switches backend after a failure:
 a rank that cannot initialize raises.
 
-The JAX package's ``enable_collective_overlap`` and
-``OVERLAP_LIBTPU_FLAGS`` set libtpu flags for the TPU's latency-hiding
-scheduler; they have no CUDA meaning and are not ported.
+Collective overlap (the JAX package's ``enable_collective_overlap``, on by
+default in :func:`init_distributed` and :func:`ensure_initialized` there
+and here).  On the TPU it is a set of libtpu flags that let the
+latency-hiding scheduler run the per-step score all-gather and the
+aggregation sums asynchronously under halo-independent work.  On CUDA the
+mechanism is the async work handle: a collective issued with
+``async_op=True`` runs on the communicator's own stream (NCCL) or thread
+(gloo), and the compute stream waits for it only at ``work.wait()``.  The
+sharded step (``parallel.spmd``) issues its collectives as soon as their
+inputs exist and waits on each just before its first use; the kernels
+launched in between (the window fetches, their selection scores, the
+neighbor-id reads) run under them.  The setting is chosen before the
+group exists and every mesh :func:`make_multihost_mesh` / ``rank_mesh``
+builds takes it for its life (``RankMesh.overlap``; a mesh is immutable);
+off, every collective blocks where it is issued.  The libtpu flag strings
+themselves have no counterpart.
 """
 
 from __future__ import annotations
@@ -32,7 +45,9 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from pcgnn_tpu_torch.parallel.mesh import RankMesh, rank_mesh
+from pcgnn_tpu_torch.parallel.mesh import (RankMesh, collective_overlap,
+                                           rank_mesh,
+                                           set_collective_overlap)
 
 BACKENDS = ("nccl", "gloo")
 
@@ -53,16 +68,28 @@ def gang_backend(device, world: int) -> str:
     return "nccl" if dev.index is None or world == 1 else "gloo"
 
 
+def enable_collective_overlap() -> None:
+    """Give the meshes of this process async collectives, waited at first
+    use.  Must run before the process group exists (as the JAX one must run
+    before a backend does): raises otherwise, so a silent no-op cannot pass
+    for overlap.  :func:`init_distributed` calls it by default."""
+    set_collective_overlap(True)
+
+
 def init_distributed(coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None, *,
                      backend: str = "gloo",
-                     timeout_s: float = 600.0) -> None:
+                     timeout_s: float = 600.0,
+                     overlap: bool = True) -> None:
     """Join the process group.
 
     ``coordinator_address`` is ``host:port`` (as the JAX package takes it),
     with ``num_processes`` and ``process_id``; None reads the ``env://``
-    variables.  Raises on an unknown backend or a failed initialization."""
+    variables.  ``overlap`` (default) gives the meshes async collectives
+    (:func:`enable_collective_overlap`); False, blocking ones.  Raises on an
+    unknown backend, a process already in a group, or a failed
+    initialization."""
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r} is not one of {BACKENDS}")
     kw = dict(backend=backend,
@@ -78,25 +105,28 @@ def init_distributed(coordinator_address: Optional[str] = None,
                   rank=int(process_id))
     else:
         kw.update(init_method="env://")
+    set_collective_overlap(overlap)
     dist.init_process_group(**kw)
 
 
 def ensure_initialized(coordinator_address: Optional[str] = None,
                        num_processes: Optional[int] = None,
                        process_id: Optional[int] = None, *,
-                       backend: str = "gloo") -> None:
+                       backend: str = "gloo", overlap: bool = True) -> None:
     """Idempotent :func:`init_distributed`: a process already in a group
     keeps it, so sweep configs (``utils.config.grid``) can share one
-    process.  A later call that asks for another world, rank or backend
-    raises."""
+    process.  A later call that asks for another world, rank, backend or
+    collective schedule raises."""
     if not dist.is_initialized():
         init_distributed(coordinator_address, num_processes, process_id,
-                         backend=backend)
+                         backend=backend, overlap=overlap)
         return
-    have = (dist.get_world_size(), dist.get_rank(), dist.get_backend())
+    have = (dist.get_world_size(), dist.get_rank(), dist.get_backend(),
+            collective_overlap())
     for want, got, what in ((num_processes, have[0], "world size"),
                             (process_id, have[1], "rank"),
-                            (backend, have[2], "backend")):
+                            (backend, have[2], "backend"),
+                            (overlap, have[3], "collective overlap")):
         if want is not None and type(got)(want) != got:
             raise ValueError(f"the process group is initialized with "
                              f"{what} {got}, not {want}")

@@ -20,15 +20,39 @@ The collectives are plain ``torch.distributed`` calls, outside autograd:
 no collective carries a gradient in the sharded step (``parallel.spmd``).
 Each is an identity that issues no call when its axis has extent 1, the
 trace-time specialisation of the JAX package's ``_graph_collectives`` and
-``_data_psum``.  Every call is an all-reduce (sum): an all-gather is
-written as the all-reduce of an owner-placed, otherwise zero tensor, which
-is exact.  ``RankMesh.stats`` counts calls and bytes by axis, and the calls
-that go through host memory: every gloo collective on a CUDA tensor copies
-it to the host and back, and the calling thread waits for that.
+``_data_psum``.  The sums and owner picks are all-reduces (an owner pick
+sums an owner-placed, otherwise zero tensor, which is exact); the graph
+gather is an ``all_gather_into_tensor`` of the blocks (JAX ``all_gather(...,
+tiled=True)``).
+
+Every collective has an async form (``*_async``) that returns a
+:class:`Pending` handle; ``wait()`` returns the finished tensor.  With
+``RankMesh.overlap`` (the default, ``parallel.distributed``) the call is
+issued with ``async_op=True``: NCCL runs it on the communicator's own
+stream and the compute stream waits for it only at ``wait()``, gloo runs
+it on its own thread, so the kernels launched between issue and wait run
+under it.  Without ``overlap`` the call completes where it is issued (the
+blocking schedule).  The blocking methods are ``*_async(...).wait()``.
+
+A mesh is immutable: its schedule is fixed when it is built (the process
+setting, ``parallel.distributed``), and a mesh with the other schedule is
+another object (``dataclasses.replace(mesh, overlap=False)``, the blocking
+reference the tests compare against).
+
+``RankMesh.stats`` counts calls and bytes by axis (async ones apart as
+well), the calls that go through host memory (every gloo collective on a
+CUDA tensor copies it to the host and back, and the thread that waits for
+it waits for that), and, for each handle, how many collectives and noted
+operations (``RankMesh.note``) were issued between its issue and its
+completion: the schedule a test reads.  Under an enabled profiler each
+issue and each wait also leaves a zero-length range,
+``collective_issue:<name>`` and ``collective_wait:<name>``, so a trace
+shows which kernels were launched in between.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Optional
 
@@ -43,31 +67,116 @@ def factor_mesh(n_devices: int) -> tuple:
     return n_devices // graph, graph
 
 
+# completed handles CollectiveStats keeps in its schedule
+SCHEDULE_KEPT = 64
+# the collective schedule of the RankMeshes this process builds
+# (``rank_mesh``); ``parallel.distributed`` sets it before the group exists
+_overlap = True
+
+
+def set_collective_overlap(on: bool) -> None:
+    """Choose the schedule of the meshes :func:`rank_mesh` builds: async
+    collectives waited at first use (``True``) or blocking ones.  Raises
+    once this process is in a group, as the JAX package's
+    ``enable_collective_overlap`` raises once a backend exists: a setting
+    that could no longer take effect must not pass silently."""
+    global _overlap
+    if dist.is_initialized():
+        raise RuntimeError(
+            "the collective schedule is chosen before the process group "
+            "exists (parallel.distributed.init_distributed / "
+            "enable_collective_overlap); this process is already in one")
+    _overlap = bool(on)
+
+
+def collective_overlap() -> bool:
+    """The schedule :func:`rank_mesh` gives its meshes."""
+    return _overlap
+
+
 @dataclasses.dataclass
 class CollectiveStats:
-    """Collective calls and bytes by axis ('graph', 'data'), and the calls
-    that went through host memory (``host_syncs``)."""
+    """Collective calls and bytes by axis ('graph', 'data'), the async ones
+    among them, the calls that went through host memory (``host_syncs``),
+    and the schedule: for each completed handle (in completion order) its
+    name and the numbers of collectives and of noted operations issued
+    between its issue and its completion (``waits``; the last
+    ``SCHEDULE_KEPT``, so a long run holds a bounded record)."""
 
     calls: dict = dataclasses.field(
         default_factory=lambda: {"graph": 0, "data": 0})
     bytes: dict = dataclasses.field(
         default_factory=lambda: {"graph": 0, "data": 0})
+    async_calls: dict = dataclasses.field(
+        default_factory=lambda: {"graph": 0, "data": 0})
     host_syncs: int = 0
+    issued: int = 0          # collectives issued
+    noted: int = 0           # operations noted
+    waits: collections.deque = dataclasses.field(
+        default_factory=lambda: collections.deque(maxlen=SCHEDULE_KEPT))
 
     def reset(self) -> None:
         self.calls = {"graph": 0, "data": 0}
         self.bytes = {"graph": 0, "data": 0}
+        self.async_calls = {"graph": 0, "data": 0}
         self.host_syncs = 0
+        self.issued = 0
+        self.noted = 0
+        self.waits.clear()
 
     def snapshot(self) -> dict:
         return {"calls": dict(self.calls), "bytes": dict(self.bytes),
-                "host_syncs": self.host_syncs}
+                "async_calls": dict(self.async_calls),
+                "host_syncs": self.host_syncs,
+                "waits": [dict(w) for w in self.waits]}
 
 
-@dataclasses.dataclass
+class Pending:
+    """A collective that was issued: :meth:`wait` returns its finished
+    tensor (the same one on every call)."""
+
+    def __init__(self, stats: Optional[CollectiveStats], name: str,
+                 out: torch.Tensor, work=None, keep=None):
+        self._stats = stats
+        self._name = name
+        self._out = out
+        self._work = work
+        self._keep = keep   # holds the inputs until the collective completes
+        self._mark = None if stats is None else (stats.issued, stats.noted)
+        if work is None:
+            self._done()
+
+    def _done(self) -> None:
+        st = self._stats
+        if st is not None:
+            n0, k0 = self._mark
+            st.waits.append({"name": self._name,
+                             "collectives_between": st.issued - n0,
+                             "ops_between": st.noted - k0})
+        self._stats = None
+
+    def wait(self) -> torch.Tensor:
+        if self._work is not None:
+            _marker("collective_wait", self._name)
+            self._work.wait()
+            self._work = self._keep = None
+            self._done()
+        return self._out
+
+
+def _marker(kind: str, name: str) -> None:
+    """A zero-length profiler range, only when a profiler records."""
+    if torch.autograd._profiler_enabled():
+        with torch.profiler.record_function(f"{kind}:{name}"):
+            pass
+
+
+@dataclasses.dataclass(frozen=True)
 class RankMesh:
-    """This rank's place in the (dcn, data, graph) mesh and the process
-    groups of its graph and data axes (None where the axis has extent 1)."""
+    """This rank's place in the (dcn, data, graph) mesh, the process groups
+    of its graph and data axes (None where the axis has extent 1), and the
+    collective schedule (``overlap``: async collectives waited at first
+    use; False: blocking), fixed when the mesh is built."""
 
     shape: dict                  # {"dcn": h, "data": d, "graph": g}
     rank: int
@@ -77,6 +186,7 @@ class RankMesh:
     graph_group: Optional[object] = None
     data_group: Optional[object] = None
     backend: Optional[str] = None
+    overlap: bool = True
     stats: CollectiveStats = dataclasses.field(
         default_factory=CollectiveStats)
 
@@ -98,47 +208,92 @@ class RankMesh:
         """This rank's batch block over the data axes, (dcn, data) order."""
         return self.host * self.shape["data"] + self.data_index
 
+    def note(self) -> None:
+        """Count one halo-independent operation of the step (the schedule
+        in ``stats.waits``)."""
+        self.stats.noted += 1
+
     # --------------------------------------------------------- collectives
 
-    def _all_reduce(self, t: torch.Tensor, group, axis: str) -> torch.Tensor:
-        """Sum ``t`` over ``group`` in place; returns ``t``."""
-        self.stats.calls[axis] += 1
-        self.stats.bytes[axis] += t.numel() * t.element_size()
-        if self.backend == "gloo" and t.device.type == "cuda":
-            self.stats.host_syncs += 1
-        dist.all_reduce(t, group=group)
-        return t
+    def _issue(self, name: str, axis: str, out: torch.Tensor, call,
+               nbytes: int) -> Pending:
+        """Count and issue one collective, ``call(async_op)``, which leaves
+        its result in ``out``."""
+        st = self.stats
+        st.calls[axis] += 1
+        st.bytes[axis] += nbytes
+        if self.backend == "gloo" and out.device.type == "cuda":
+            st.host_syncs += 1
+        if not self.overlap:
+            call(False)
+            st.issued += 1
+            return Pending(st, name, out)
+        st.async_calls[axis] += 1
+        _marker("collective_issue", name)
+        work = call(True)
+        st.issued += 1
+        return Pending(st, name, out, work, keep=call)
 
-    def graph_sum(self, t: torch.Tensor) -> torch.Tensor:
+    def _sum_async(self, t: torch.Tensor, group, axis: str,
+                   name: str) -> Pending:
+        """Sum a contiguous ``t`` over ``group`` in place."""
+        return self._issue(
+            name, axis, t,
+            lambda a: dist.all_reduce(t, group=group, async_op=a),
+            t.numel() * t.element_size())
+
+    def graph_sum_async(self, t: torch.Tensor,
+                        name: str = "graph_sum") -> Pending:
         """Sum over the graph axis (JAX ``psum`` over 'graph'); reduces a
         contiguous ``t`` in place."""
         if self.dg == 1:
-            return t
-        return self._all_reduce(t.contiguous(), self.graph_group, "graph")
+            return Pending(None, name, t)
+        return self._sum_async(t.contiguous(), self.graph_group, "graph",
+                               name)
 
-    def owner_pick(self, mine: torch.Tensor,
-                   values: torch.Tensor) -> torch.Tensor:
+    def graph_sum(self, t: torch.Tensor) -> torch.Tensor:
+        return self.graph_sum_async(t).wait()
+
+    def owner_pick_async(self, mine: torch.Tensor, values: torch.Tensor,
+                         name: str = "owner_pick") -> Pending:
         """Rows each held by exactly one graph rank, published to all: zero
         the rows this rank does not own, then sum over the graph axis.  At
         dg == 1 the zeroing stays and the sum is elided."""
         m = mine if values.dim() == 1 else mine[:, None]
-        return self.graph_sum(torch.where(m, values, values.new_zeros(())))
+        return self.graph_sum_async(
+            torch.where(m, values, values.new_zeros(())), name)
+
+    def owner_pick(self, mine: torch.Tensor,
+                   values: torch.Tensor) -> torch.Tensor:
+        return self.owner_pick_async(mine, values).wait()
+
+    def graph_gather_async(self, t: torch.Tensor,
+                           name: str = "graph_gather") -> Pending:
+        """[block, ...] -> [dg * block, ...], graph rank g's block at rows
+        g * block (JAX ``all_gather(..., tiled=True)`` over 'graph'): the
+        blocks are copied, so every value arrives bit for bit."""
+        if self.dg == 1:
+            return Pending(None, name, t)
+        t = t.contiguous()
+        full = t.new_empty((self.dg * t.shape[0],) + tuple(t.shape[1:]))
+        return self._issue(
+            name, "graph", full,
+            lambda a: dist.all_gather_into_tensor(
+                full, t, group=self.graph_group, async_op=a),
+            full.numel() * full.element_size())
 
     def graph_gather(self, t: torch.Tensor) -> torch.Tensor:
-        """[block, ...] -> [dg * block, ...], graph rank g's block at rows
-        g * block (JAX ``all_gather(..., tiled=True)`` over 'graph')."""
-        if self.dg == 1:
-            return t
-        block = t.shape[0]
-        full = t.new_zeros((self.dg * block,) + tuple(t.shape[1:]))
-        full[self.graph_index * block:(self.graph_index + 1) * block] = t
-        return self._all_reduce(full, self.graph_group, "graph")
+        return self.graph_gather_async(t).wait()
 
-    def data_sum(self, t: torch.Tensor) -> torch.Tensor:
+    def data_sum_async(self, t: torch.Tensor,
+                       name: str = "data_sum") -> Pending:
         """Sum over the data axes (JAX ``_data_psum``); in place."""
         if self.dd == 1:
-            return t
-        return self._all_reduce(t.contiguous(), self.data_group, "data")
+            return Pending(None, name, t)
+        return self._sum_async(t.contiguous(), self.data_group, "data", name)
+
+    def data_sum(self, t: torch.Tensor) -> torch.Tensor:
+        return self.data_sum_async(t).wait()
 
     def data_gather(self, t: torch.Tensor) -> torch.Tensor:
         """[Bd, ...] -> [B, ...] over the data axes, block i at rows
@@ -148,7 +303,8 @@ class RankMesh:
         bd = t.shape[0]
         full = t.new_zeros((self.dd * bd,) + tuple(t.shape[1:]))
         full[self.data_rank * bd:(self.data_rank + 1) * bd] = t
-        return self._all_reduce(full, self.data_group, "data")
+        return self._sum_async(full, self.data_group, "data",
+                               "data_gather").wait()
 
     def batch_block(self, t: torch.Tensor) -> torch.Tensor:
         """This rank's contiguous block of a [B, ...] batch array (JAX
@@ -195,24 +351,25 @@ def rank_mesh(graph: int = 1, data: Optional[int] = None,
         raise ValueError(f"mesh {data}x{graph} != {per_host} ranks per host")
     hosts = world // per_host
     local = rank % per_host
-    mesh = RankMesh(shape={"dcn": hosts, "data": data, "graph": graph},
-                    rank=rank, host=rank // per_host,
-                    data_index=local // graph, graph_index=local % graph,
-                    backend=dist.get_backend())
     # every rank creates every group, in the same order
+    graph_group = data_group = None
     if graph > 1:
         for base in range(0, world, graph):
             grp = dist.new_group(list(range(base, base + graph)))
             if base <= rank < base + graph:
-                mesh.graph_group = grp
+                graph_group = grp
     if hosts * data > 1:
         for g in range(graph):
             ranks = [h * per_host + d * graph + g
                      for h in range(hosts) for d in range(data)]
             grp = dist.new_group(ranks)
             if rank in ranks:
-                mesh.data_group = grp
-    return mesh
+                data_group = grp
+    return RankMesh(shape={"dcn": hosts, "data": data, "graph": graph},
+                    rank=rank, host=rank // per_host,
+                    data_index=local // graph, graph_index=local % graph,
+                    graph_group=graph_group, data_group=data_group,
+                    backend=dist.get_backend(), overlap=_overlap)
 
 
 def make_mesh(data: Optional[int] = None, graph: int = 1) -> RankMesh:

@@ -31,7 +31,10 @@ Per relation one of three lanes, as in the JAX package:
 Collectives are batched as in the JAX package: one packed [Bd, 4R]
 metadata sum, one packed keep-minor sum over the fast lanes, one packed
 [Bd, R(F+1)] output sum, plus the self-feature owner pick and, where a
-plain or hub lane needs it, the [N_pad] score all-gather.
+plain or hub lane needs it, the [N_pad] score all-gather.  Those whose
+inputs exist at the start of the step are issued there and waited at
+first use, with the halo-independent work between (``RankMesh.overlap``,
+``parallel.distributed``: the JAX package's collective overlap).
 
 Gradients: no collective carries one.  Selection is detached and the
 features are frozen, so everything the parameters touch comes after the
@@ -563,7 +566,13 @@ def spmd_forward(model, sg: ShardedGraph, batch: torch.Tensor,
     ``record`` (a dict, for tests) receives each relation's published
     selection: ``kept<r>`` [Bd, D] kept window ids + 1 (0 = none; a fast
     lane publishes them for this with one more graph sum),
-    ``keep_minor<r>`` [Bd, M] over ``cand_ids``, and ``cnt<r>``."""
+    ``keep_minor<r>`` [Bd, M] over ``cand_ids``, and ``cnt<r>``.
+
+    Schedule: the self-row, train-positive and metadata owner picks and the
+    score gather are issued first and waited just before their first use;
+    the window fetches (kernel 1a or 1c), their selection scores and the
+    neighbor-id reads run under them.  The arithmetic and its order are the
+    same with ``mesh.overlap`` on and off, so the results are bit-equal."""
     mesh = sg.mesh
     batch = mesh.batch_block(batch)
     y = mesh.batch_block(batch_labels) if train else None
@@ -578,14 +587,6 @@ def spmd_forward(model, sg: ShardedGraph, batch: torch.Tensor,
     mine = (local >= 0) & (local < block)
     lclip = local.clamp(0, block - 1)
     use_fused = fused and sg.fused is not None
-    if use_fused:
-        # one fetch of every relation's window per owned row (kernel 1a:
-        # record v of the block at v * W)
-        width = sg.fused.shape[1]
-        rec = window_gather(sg.fused.view(-1), lclip * width, width,
-                            out_dtype=torch.float32)
-    self_feats = mesh.owner_pick(mine, x_local[lclip])          # [Bd, F]
-    center_scores = self_feats @ clf.w + clf.b
     # SPMD selection-precision rule: any bf16 store rounds every score
     packed_sel = any(sh.packed for sh in shards)
 
@@ -594,18 +595,68 @@ def spmd_forward(model, sg: ShardedGraph, batch: torch.Tensor,
             rows = rows.to(torch.bfloat16).to(torch.float32)
         return selection_score(rows.detach(), w0, b0)
 
-    center_s0 = s0_of(self_feats)
-    s0_full = None
-    if any(sh.ewin is None or sh.has_hubs for sh in shards):
-        s0_full = mesh.graph_gather(s0_of(x_local))             # [N_pad]
-
-    minor_ctx = tp_block = None
+    # every collective is issued as soon as its inputs exist, in the order
+    # of first use, and waited just before it (parallel.mesh: async under
+    # RankMesh.overlap); the halo-independent work below runs under them
+    self_h = mesh.owner_pick_async(mine, x_local[lclip], "self_rows")
+    tp_h = tp_mine = None
     if train:
         tp_local = train_pos - col_lo
         tp_mine = (tp_local >= 0) & (tp_local < block) & train_pos_valid
-        tp_feats = (train_pos_feats if train_pos_feats is not None
-                    else mesh.owner_pick(
-                        tp_mine, x_local[tp_local.clamp(0, block - 1)]))
+        if train_pos_feats is None:
+            tp_h = mesh.owner_pick_async(
+                tp_mine, x_local[tp_local.clamp(0, block - 1)],
+                "train_pos_rows")
+    # owner metadata: ONE packed sum for all relations
+    cols = []
+    for sh in shards:
+        cols += [sh.deg[lclip], sh.keff[lclip], sh.ksample[lclip],
+                 sh.hub_idx[lclip] if sh.has_hubs
+                 else sh.deg.new_zeros(lclip.shape)]
+    meta_h = mesh.owner_pick_async(mine, torch.stack(cols, dim=1),
+                                   "owner_meta")              # [Bd, 4R]
+    s0_h = None
+    if any(sh.ewin is None or sh.has_hubs for sh in shards):
+        s0_h = mesh.graph_gather_async(s0_of(x_local), "scores")  # [N_pad]
+
+    # halo-independent: this rank's own rows of every relation.  The valid
+    # masks of owned rows read the local metadata, which the owner pick
+    # publishes unchanged (no other row is ever valid)
+    if use_fused:
+        # one fetch of every relation's window per owned row (kernel 1a:
+        # record v of the block at v * W)
+        width = sg.fused.shape[1]
+        rec = window_gather(sg.fused.view(-1), lclip * width, width,
+                            out_dtype=torch.float32)
+        mesh.note()
+    lanes = []          # per relation (valid_o, nbr, xw, s0 of xw)
+    for r, sh in enumerate(shards):
+        d = sh.width
+        offs = torch.arange(d, device=batch.device)[None, :]
+        deg_l = sh.deg[lclip]
+        valid_o = mine[:, None] & (offs < deg_l.clamp(max=d)[:, None])
+        if sh.has_hubs:
+            valid_o = valid_o & (deg_l <= d)[:, None]   # hubs leave the window
+        nbr = sh.nbr2d[lclip]
+        xw = s0w = None
+        if sh.ewin is not None:
+            if use_fused:
+                xw = unpack_window(
+                    rec[:, sg.fused_off[r]: sg.fused_off[r + 1]], d, f)
+            else:
+                xw = sharded_feature_window(sh, sh.estart[lclip],
+                                            mine if dg > 1 else None)
+            s0w = s0_of(xw)
+        lanes.append((valid_o, nbr, xw, s0w))
+        mesh.note()
+
+    self_feats = self_h.wait()                                   # [Bd, F]
+    center_scores = self_feats @ clf.w + clf.b
+    center_s0 = s0_of(self_feats)
+
+    minor_ctx = tp_block = None
+    if train:
+        tp_feats = train_pos_feats if tp_h is None else tp_h.wait()
         tp_s0 = s0_of(tp_feats)
         m_max = model.minor_window(int(train_pos.shape[0]), shards)
         cand_ids, cand_valid, _, _ = oversample_candidates_values(
@@ -620,13 +671,7 @@ def spmd_forward(model, sg: ShardedGraph, batch: torch.Tensor,
             minor_ctx = (sp_sorted, slot_sorted.to(torch.int32),
                          tp_feats.detach()[slot_sorted])
 
-    # owner metadata: ONE packed sum for all relations
-    cols = []
-    for sh in shards:
-        cols += [sh.deg[lclip], sh.keff[lclip], sh.ksample[lclip],
-                 sh.hub_idx[lclip] if sh.has_hubs
-                 else sh.deg.new_zeros(lclip.shape)]
-    meta_all = mesh.owner_pick(mine, torch.stack(cols, dim=1))   # [Bd, 4R]
+    meta_all = meta_h.wait()
 
     rel_sums = []       # per relation [num, cnt, keep_minor]
     km_defer = []       # (relation, owner-local keep-minor) of fast lanes
@@ -634,11 +679,7 @@ def spmd_forward(model, sg: ShardedGraph, batch: torch.Tensor,
         d = sh.width
         deg_b, keff_b, ks_b, hslot = meta_all[:, 4 * r: 4 * r + 4].unbind(1)
         is_hub = deg_b > d if sh.has_hubs else None
-        offs = torch.arange(d, device=batch.device)[None, :]
-        valid_w = offs < deg_b.clamp(max=d)[:, None]
-        if sh.has_hubs:
-            valid_w = valid_w & ~is_hub[:, None]   # hubs leave the window
-        valid_o = mine[:, None] & valid_w
+        valid_o, nbr, xw, s0w = lanes[r]
         if train:
             base_minor = oversample_keep(None, None, y, cand_valid, model.rho,
                                          ksample_b=ks_b)
@@ -647,26 +688,20 @@ def spmd_forward(model, sg: ShardedGraph, batch: torch.Tensor,
         keep_minor = None
         if sh.ewin is not None:
             # fast lane: the owner chooses and sums its rows' windows
-            if use_fused:
-                xw = unpack_window(
-                    rec[:, sg.fused_off[r]: sg.fused_off[r + 1]], d, f)
-            else:
-                xw = sharded_feature_window(sh, sh.estart[lclip],
-                                            mine if dg > 1 else None)
-            dist = (center_s0[:, None] - s0_of(xw)).abs()
+            dist = (center_s0[:, None] - s0w).abs()
             dist = torch.where(valid_o, dist, _INF)
             keep = keep_nearest(dist, keff_b, valid_o)
             num, cnt = window_sum_from_gathered(xw, keep)
             if record is not None:
                 record[f"kept{r}"] = mesh.graph_sum(
-                    torch.where(keep, sh.nbr2d[lclip] + 1, 0))
+                    torch.where(keep, nbr + 1, 0))
             if train:
-                km = dedup_minor_keep(sh.nbr2d[lclip], keep, n_pad, cand_ids,
+                km = dedup_minor_keep(nbr, keep, n_pad, cand_ids,
                                       base_minor & mine[:, None])
                 km_defer.append((r, km))
         else:
             # plain lane: publish the kept ids, sum this block's rows
-            nbr = sh.nbr2d[lclip]
+            s0_full = s0_h.wait()
             dist = (center_s0[:, None]
                     - s0_full[nbr.to(torch.int64).clamp(0, n_pad - 1)]).abs()
             dist = torch.where(valid_o, dist, _INF)
@@ -681,9 +716,9 @@ def spmd_forward(model, sg: ShardedGraph, batch: torch.Tensor,
                                               cand_ids, base_minor)
         if sh.has_hubs:
             h_num, h_cnt = spmd_hub_sum(
-                sh, mesh, is_hub, deg_b, hslot, s0_full, center_s0, x_local,
-                col_lo, tp_block=tp_block, minor_ctx=minor_ctx, labels=y,
-                rho=model.rho)
+                sh, mesh, is_hub, deg_b, hslot, s0_h.wait(), center_s0,
+                x_local, col_lo, tp_block=tp_block, minor_ctx=minor_ctx,
+                labels=y, rho=model.rho)
             num, cnt = num + h_num, cnt + h_cnt     # disjoint row sets
         rel_sums.append([num, cnt, keep_minor])
 
@@ -808,16 +843,18 @@ def spmd_homo_forward(model, sg: ShardedGraph, batch: torch.Tensor, *,
     local = batch - col_lo
     mine = (local >= 0) & (local < block)
     lclip = local.clamp(0, block - 1)
-    self_feats = mesh.owner_pick(mine, x_local[lclip])          # [Bd, F]
-    meta = mesh.owner_pick(mine, torch.stack(
+    # issued first, waited at first use (spmd_forward's schedule)
+    self_h = mesh.owner_pick_async(mine, x_local[lclip], "self_rows")
+    meta_h = mesh.owner_pick_async(mine, torch.stack(
         [sh.deg[lclip], sh.hub_idx[lclip] if sh.has_hubs
-         else sh.deg.new_zeros(lclip.shape)], dim=1))
-    deg_b, hslot = meta.unbind(1)
-    is_hub = deg_b > d if sh.has_hubs else None
+         else sh.deg.new_zeros(lclip.shape)], dim=1), "owner_meta")
+    # halo-independent: the owned rows' window (the local metadata is what
+    # the owner pick publishes for them)
+    deg_l = sh.deg[lclip]
     valid_w = (torch.arange(d, device=batch.device)[None, :]
-               < deg_b.clamp(max=d)[:, None])
+               < deg_l.clamp(max=d)[:, None])
     if sh.has_hubs:
-        valid_w = valid_w & ~is_hub[:, None]
+        valid_w = valid_w & (deg_l <= d)[:, None]
     nbr = sh.nbr2d[lclip]                                       # [Bd, D]
     valid_o = mine[:, None] & valid_w
     if num_sample is not None:
@@ -834,6 +871,12 @@ def spmd_homo_forward(model, sg: ShardedGraph, batch: torch.Tensor, *,
         xw = sharded_feature_window(sh, sh.estart[lclip],
                                     mine if dg > 1 else None)
         num, cnt = window_sum_from_gathered(xw, valid_o)
+    mesh.note()
+
+    self_feats = self_h.wait()                                  # [Bd, F]
+    deg_b, hslot = meta_h.wait().unbind(1)
+    is_hub = deg_b > d if sh.has_hubs else None
+    if sh.ewin is not None:
         if gcn_style:
             present = ((nbr == batch[:, None]) & valid_o).any(dim=1)
             addself = mine & ~present
@@ -897,7 +940,9 @@ def spmd_homo_predict(model, sg: ShardedGraph, batch) -> torch.Tensor:
 
 def data_sum_grads(model, mesh: RankMesh) -> None:
     """Sum every parameter's gradient over the data axes with ONE
-    flattened all-reduce (elided at extent 1)."""
+    flattened all-reduce (elided at extent 1), blocking: it follows the
+    backward, and the parameters are a few KB, so nothing is left to run
+    under it."""
     if mesh.dd == 1:
         return
     params = [p for p in model.parameters() if p.requires_grad]

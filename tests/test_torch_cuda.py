@@ -1191,6 +1191,129 @@ def test_one_rank_nccl_group(card, tmp_path, monkeypatch):
         dist.destroy_process_group()
 
 
+_OVERLAP_CARD_WORKER = r'''
+import dataclasses, sys
+import numpy as np
+import torch
+rank, port, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+from pcgnn_tpu_torch.data.synthetic import synthetic_fraud_graph
+from pcgnn_tpu_torch.models import build_model
+from pcgnn_tpu_torch.ops import ragged_gather as rg
+from pcgnn_tpu_torch.ops import window_gather as wg
+from pcgnn_tpu_torch.parallel import spmd
+from pcgnn_tpu_torch.parallel.distributed import init_distributed
+from pcgnn_tpu_torch.parallel.mesh import make_mesh
+torch.cuda.set_device(0)
+init_distributed(f"localhost:{port}", 2, rank, backend="gloo")
+mesh = make_mesh(data=1, graph=2)
+g = synthetic_fraud_graph("skew-tiny", seed=4)
+tp = torch.nonzero(g.labels == 1)[:48, 0].cuda()
+tpv = torch.ones(len(tp), dtype=torch.bool, device="cuda")
+# relation 0's hub rows first: the hub lane (kernel 2) runs
+rel0 = g.relations[0]
+batch = torch.arange(64)
+hubs = torch.nonzero(rel0.deg > rel0.window_width)[:4, 0]
+batch[:len(hubs)] = hubs
+batch = batch.cuda()
+y = g.labels.cuda()[batch]
+w = torch.ones(64, device="cuda")
+res = {"default": np.int64(mesh.overlap), "hubs": np.int64(len(hubs))}
+for name, ew, fused, model_name in (("fused", True, True, "PCGNN"),
+                                    ("store", True, False, "PCGNN"),
+                                    ("plain", False, False, "PCGNN"),
+                                    ("gcn", True, False, "GCN")):
+    pcgnn = model_name == "PCGNN"
+    kw = dict(num_relations=3, alpha=2.0, rho=0.5) if pcgnn else {}
+    model = build_model(model_name, feat_dim=g.feat_dim, emb_dim=16,
+                        generator=torch.Generator().manual_seed(0),
+                        **kw).cuda()
+    sg = spmd.shard_graph(g, mesh, pcgnn=pcgnn, edge_windows=ew,
+                          ewin_dtype=torch.bfloat16, fused=fused,
+                          device="cuda:0")
+    # the mesh built (overlap on) and its blocking copy
+    schedules = {1: sg, 0: dataclasses.replace(
+        sg, mesh=dataclasses.replace(mesh, overlap=False))}
+    for mode, sgm in schedules.items():
+        model.zero_grad(set_to_none=True)
+        mesh.stats.reset()
+        before = (wg.launches, rg.launches)
+        if pcgnn:
+            loss, local = spmd.spmd_loss(model, sgm, batch, y, w, tp, tpv,
+                                         fused=fused)
+        else:
+            loss, local = spmd.spmd_homo_loss(model, sgm, batch, y, w)
+        local.backward()
+        res[f"{name}.{mode}.async"] = np.int64(
+            mesh.stats.async_calls["graph"])
+        res[f"{name}.{mode}.launches"] = np.array(
+            [wg.launches - before[0], rg.launches - before[1]])
+        res[f"{name}.{mode}.loss"] = np.float32(loss.item())
+        for n, p in model.named_parameters():
+            res[f"{name}.{mode}.{n}"] = p.grad.cpu().numpy()
+np.savez(out, **res)
+torch.distributed.destroy_process_group()
+'''
+
+
+def test_overlap_on_and_off_are_bit_equal_on_card(card, tmp_path):
+    """Two gloo ranks sharing the card at (data 1, graph 2), on the hub
+    graph with bf16 stores and hub rows in the batch: the sharded loss and
+    gradients with the collectives async (the default) and blocking are
+    the same bits, in the fused, store, plain and GCN lanes, and both
+    schedules launch the same kernels."""
+    from pcgnn_tpu_torch.ops import kernels
+    from pcgnn_tpu_torch.utils.multiproc import (gang_with_fresh_port,
+                                                 run_workers, worker_env)
+    kernels.build()
+    worker = tmp_path / "worker.py"
+    worker.write_text(_OVERLAP_CARD_WORKER)
+    outs = [tmp_path / f"r{r}.npz" for r in range(2)]
+    gang_with_fresh_port(lambda port: run_workers(
+        str(worker), [(r, port, outs[r]) for r in range(2)],
+        env=worker_env(), timeout=300))
+    for out in outs:
+        res = np.load(out)
+        assert int(res["default"]) == 1
+        for name in ("fused", "store", "plain", "gcn"):
+            assert int(res[f"{name}.1.async"]) > 0
+            assert int(res[f"{name}.0.async"]) == 0
+            np.testing.assert_array_equal(res[f"{name}.1.launches"],
+                                          res[f"{name}.0.launches"])
+            keys = [k[len(name) + 3:] for k in res.files
+                    if k.startswith(f"{name}.1.")]
+            # the loss and every gradient
+            keys = [k for k in keys if k not in ("async", "launches")]
+            assert "loss" in keys and len(keys) > 1
+            for k in keys:
+                np.testing.assert_array_equal(res[f"{name}.1.{k}"],
+                                              res[f"{name}.0.{k}"],
+                                              err_msg=f"{name} {k}")
+        assert int(res["hubs"]) > 0
+        assert res["fused.1.launches"][0] >= 1      # kernel 1 (fused fetch)
+        assert res["fused.1.launches"][1] >= 1      # kernel 2 (hub lane)
+
+
+def test_graft_entry_on_card_equals_cpu(card):
+    """``graft_entry.entry()`` on the card: the fused record fetch (kernel
+    1) launched, logits and center scores within rtol 1e-5 of the same
+    forward on the CPU (the same weights: seeded on the host)."""
+    from pcgnn_tpu_torch import graft_entry
+    fn, args = graft_entry.entry()
+    before = wg.launches
+    logits, center = fn(*args)
+    torch.cuda.synchronize()
+    assert wg.launches > before
+    assert logits.device.type == "cuda" and logits.shape == (64, 2)
+    fn_c, args_c = graft_entry.entry(device="cpu")
+    logits_c, center_c = fn_c(*args_c)
+    np.testing.assert_allclose(logits.detach().cpu().numpy(),
+                               logits_c.detach().numpy(), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(center.detach().cpu().numpy(),
+                               center_c.detach().numpy(), rtol=1e-5,
+                               atol=1e-6)
+
+
 # ------------------------------------------------- gather-kernel probes
 
 def _probe_flat(card, length, seed):

@@ -64,8 +64,9 @@ def test_every_module_imports_without_jax():
             "pcgnn_tpu_torch.benchmarks.quality_run",
             "pcgnn_tpu_torch.benchmarks.quality_protocol",
             "pcgnn_tpu_torch.benchmarks.spmd_scaling",
-            "pcgnn_tpu_torch.benchmarks.multihost_scaling"} <= set(mods)
-    assert len(mods) >= 58
+            "pcgnn_tpu_torch.benchmarks.multihost_scaling",
+            "pcgnn_tpu_torch.graft_entry"} <= set(mods)
+    assert len(mods) >= 59
     code = (
         "import importlib, json, sys\n"
         f"mods = {mods!r} + ['chip_smoke', 'chunk_sweep', 'build_profile']\n"
