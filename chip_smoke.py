@@ -19,8 +19,10 @@ result line, on any failure.  In order:
      times kernel, plain version, a one-call PyTorch yardstick, the
      memory-bound floor and the launch floor (1 row of 16 bytes);
   3. trains PC-GNN on yelp-like at full width with the bench configuration
-     for 2 epochs (12 steps) in the fused-record lane through ``Trainer``,
-     with every launch count set to 0 just before and read just after, then
+     for 2 epochs (12 steps) in the fused-record lane through
+     ``Trainer.run_epoch`` -- the first step eager, the training step
+     captured as a CUDA graph, every other step a replay of it -- with
+     every launch count set to 0 just before and read just after, then
      evaluates the validation split;
   4. runs steps in the per-relation store lane (fused store off);
   5. profiles one epoch of yelp-like steps (device time by kernel, kernel
@@ -207,6 +209,27 @@ Phase 11 also times the learned steps in the same turns.  Then:
      dryrun on the CPU (the kernels' plain versions): each rank's loss
      within ``LOSS_RTOL``, gradients within ``GRAD_RTOL`` / ``GRAD_ATOL``,
      parameters after the Adam step within ``PARAM_ATOL``.
+
+ 28. the captured step (``train.capture``) against the eager step on the
+     graphs above (yelp-like fused and learned, yelp-skew with and without
+     stores, amazon_new-like GCN and GraphSAGE) and on stress-10m's (run
+     inside phase 24): 12 steps each way from the same weights, in turns
+     (eager, captured, captured, eager), bit-equal after 12 and 24 steps
+     (losses, parameters, Adam state); step ms, the busy share, graph
+     launches and kernels a step under the profiler, the capture's seconds
+     and count, the graph pool's bytes, and the host syncs of a captured
+     block (the hub plan's one read-back on a graph with hubs, none
+     without).
+
+Training runs through captured steps wherever the trainer's epochs or
+``single_step`` run (phases 3, 8, 13, 16-18, 20-22, 24-26).  A kernel
+wrapper counts its call at a capture, which records the launch and runs
+nothing, and not at a replay, which runs it: the launches a phase reports
+are what the card ran (``card_launches``: the wrappers' counts less the
+captures', plus each replay's recorded launches), and a step's launches are
+its captured step's (``StepEvents``).  The phases that attribute time to a
+profiler range (5, 9, 14, 16-18, 24) and the card-vs-CPU steps (6, 10, 15,
+17-19) take the eager step, ``Trainer.step``, explicitly.
 
 Phases 2, 7, 12 and 23 also time each kernel at the path's call with
 ``utils.roofline.kernel_ms`` (``queued_ms``: calls queued ahead of the
@@ -655,21 +678,25 @@ def check_ragged(col, starts, d, fill) -> float:
 
 def hub_chunk_calls(t) -> list:
     """The ragged-gather calls the hub lane makes over the first epoch's
-    batches: (relation, starts [H], width), chunk by chunk, planned as
-    ``ops.hub.hub_choose_sum`` plans them."""
-    from pcgnn_tpu_torch.ops.hub import HUB_BLOCK, HUB_CHUNK, plan_hub_chunks
-    calls = []
+    batches, as the training step makes them: (relation, starts
+    [HUB_CHUNK], width) for every chunk of the epoch's plan
+    (``ops.hub.epoch_hub_plans``) in every batch, padding rows included
+    (``ops.hub.run_hub_chunks``: past the batch they read its row 0)."""
+    from pcgnn_tpu_torch.ops.hub import (HUB_BLOCK, HUB_CHUNK,
+                                         epoch_hub_plans, hub_order)
     batches, _ = t.epoch_plan(0)
+    rels = t.graph.relations
+    plans = epoch_hub_plans(rels, batches)
+    calls = []
     for bt in batches:
-        for rel in t.graph.relations:
-            if not rel.has_hubs:
+        for rel, plan in zip(rels, plans):
+            if not plan:
                 continue
-            is_hub = rel.deg[bt] > rel.window_width
-            order, n_hub, jbs = plan_hub_chunks(rel.deg[bt], is_hub,
-                                                HUB_CHUNK, HUB_BLOCK)
-            for c, jb in enumerate(jbs):
-                rows = bt[order[c * HUB_CHUNK: min((c + 1) * HUB_CHUNK,
-                                                   n_hub)]]
+            order = hub_order(rel.deg[bt], rel.deg[bt] > rel.window_width)
+            order = torch.nn.functional.pad(
+                order, (0, max(len(plan) * HUB_CHUNK - len(bt), 0)))
+            for c, jb in enumerate(plan):
+                rows = bt[order[c * HUB_CHUNK: (c + 1) * HUB_CHUNK]]
                 calls.append((rel, rel.indptr[rows], jb * HUB_BLOCK))
     return calls
 
@@ -1024,6 +1051,64 @@ def kernel_counters() -> dict:
             "mask_build": mask_build}
 
 
+class StepEvents:
+    """A ``StepRunner.step_hook``: CUDA events at each step's start and
+    end, and the launches of the kernels each step ran (the runner's
+    captured step's: the warm-up step runs what the capture records, and
+    a replay what it recorded)."""
+
+    def __init__(self, runner):
+        import weakref
+        # no reference cycle: a dead runner must go with its graph at once
+        self.runner = weakref.proxy(runner)
+        self.events, self.launches = [], []
+
+    def __call__(self, what: str) -> None:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        if what == "start":
+            self.events.append([ev, None])
+            return
+        self.events[-1][1] = ev
+        self.launches.append(dict(self.runner.replay_launches)
+                             if self.runner.capture else None)
+
+    def step_ms(self) -> list:
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+@contextlib.contextmanager
+def runners_made():
+    """Every ``StepRunner`` (the trainer's epochs and ``single_step``)
+    made while the block runs, each timed by a ``StepEvents``."""
+    from pcgnn_tpu_torch.train.capture import StepRunner
+    made = []
+    real = StepRunner.__init__
+
+    def init(self, *args, **kw):
+        real(self, *args, **kw)
+        self.step_hook = StepEvents(self)
+        made.append(self)
+
+    StepRunner.__init__ = init
+    try:
+        yield made
+    finally:
+        StepRunner.__init__ = real
+
+
+def card_launches(counts: dict, runners) -> dict:
+    """The kernel launches the card ran, from the wrappers' ``counts``
+    over a block: a wrapper counts its call at a capture, which records
+    the launch and runs nothing, and not at a replay, which runs what was
+    recorded."""
+    out = dict(counts)
+    for r in runners:
+        out = r.card_launches(out)
+    return out
+
+
 def run_name(t) -> str:
     """The configuration's name in this script's output."""
     name = t.config["data_name"]
@@ -1069,12 +1154,17 @@ def hub_rows(t, batch) -> int:
 
 
 def main_path_phase(t) -> dict:
-    """Phases 3, 8, 13, 16, 17 and 18: the configuration's epochs of
-    training through Trainer's step, then one validation evaluate; every
-    kernel count is 0 just before.  Every step must launch the window
-    gathers its lane reads (``window_launches_per_step``), and every step
-    with a hub row the ragged gather.  Every learned-lane step launches the
-    mask build once per relation and no gather, and the table must move."""
+    """Phases 3, 8, 13, 16, 17, 18 and 24: the configuration's epochs of
+    training through ``Trainer.run_epoch`` -- the first step eager (the
+    warm-up), the graph captured, every other step a replay of it -- then
+    one validation evaluate; every kernel count is 0 just before.  Each
+    step's kernels are the captured step's: the warm-up and the capture
+    each call every wrapper once per launch of the step, and nothing else
+    in the training calls one.  Every step must launch the window gathers
+    its lane reads (``window_launches_per_step``), and every step with a
+    hub row the ragged gather.  Every learned-lane step launches the mask
+    build once per relation and no gather, and the table must move.
+    ``launches`` are what the card ran (``card_launches``)."""
     from pcgnn_tpu_torch.bench import edges_per_epoch
     from pcgnn_tpu_torch.train.metrics import evaluate
     mods = kernel_counters()
@@ -1082,46 +1172,50 @@ def main_path_phase(t) -> dict:
     nrel = t.graph.num_relations
     model = t.new_model()
     opt = t.new_optimizer(model)
-    step_ms, losses, hubs, ragged = [], [], [], []
+    runner = t.runner(model, opt)
+    if not runner.capture:
+        raise AssertionError(f"{run_name(t)} trains eagerly on the card")
+    timer = runner.step_hook = StepEvents(runner)
+    losses, hubs = [], []
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
     for mod in mods.values():
         mod.launches = 0
     for epoch in range(t.config["epochs"]):
-        batches, weights = t.epoch_plan(epoch)
-        for i, (bt, wt) in enumerate(zip(batches, weights)):
-            before = {k: m.launches for k, m in mods.items()}
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            loss = t.step(model, opt, bt, t.graph.labels[bt], wt,
-                          t.step_generator(epoch, i))
-            end.record()
-            end.synchronize()
-            step_ms.append(start.elapsed_time(end))
-            losses.append(float(loss))
-            hubs.append(hub_rows(t, bt))
-            ragged.append(mods["ragged_gather"].launches
-                          - before["ragged_gather"])
-            got_wg = mods["window_gather"].launches - before["window_gather"]
-            if got_wg != want_wg:
-                raise AssertionError(f"a training step launched {got_wg} "
-                                     f"window_gather kernels, expected "
-                                     f"{want_wg}")
-            if t.learn_features and (
-                    mods["mask_build"].launches - before["mask_build"]
-                    != nrel):
-                raise AssertionError("a learned step did not launch the "
-                                     "mask build once per relation")
-            if hubs[-1] and not ragged[-1]:
-                raise AssertionError(f"a training step with {hubs[-1]} hub "
-                                     f"rows launched no ragged_gather")
-    train_launches = {k: m.launches for k, m in mods.items()}
+        hubs += [hub_rows(t, bt) for bt in t.epoch_plan(epoch)[0]]
+        losses.append(float(t.run_epoch(model, opt, epoch)))
+    step_ms = timer.step_ms()
+    wrapper = {k: m.launches for k, m in mods.items()}
+    if wrapper != {k: 2 * n for k, n in runner.captured_launches.items()}:
+        raise AssertionError(f"the wrappers counted {wrapper} outside the "
+                             f"warm-up steps and captures "
+                             f"{runner.captured_launches}")
+    train_launches = card_launches(wrapper, [runner])
+    per_step = timer.launches
+    ragged = [n["ragged_gather"] for n in per_step]
+    for n, h in zip(per_step, hubs):
+        if n["window_gather"] != want_wg:
+            raise AssertionError(f"a training step launched "
+                                 f"{n['window_gather']} window_gather "
+                                 f"kernels, expected {want_wg}")
+        if t.learn_features and n["mask_build"] != nrel:
+            raise AssertionError("a learned step did not launch the mask "
+                                 "build once per relation")
+        if h and not n["ragged_gather"]:
+            raise AssertionError(f"a training step with {h} hub rows "
+                                 f"launched no ragged_gather")
+    if len(per_step) != len(hubs) or runner.eager_steps + runner.replays \
+            != len(hubs):
+        raise AssertionError(f"{len(hubs)} steps ran as "
+                             f"{runner.eager_steps} eager and "
+                             f"{runner.replays} replays")
+    before_eval = {k: m.launches for k, m in mods.items()}
     t_eval = time.time()
     res = evaluate(lambda nodes: t.predict(model, nodes), t.idx_valid,
                    t.y_valid, t.batch_size, print_line=False)
     eval_s = time.time() - t_eval
-    launches = {k: m.launches for k, m in mods.items()}
+    launches = {k: train_launches[k] + m.launches - before_eval[k]
+                for k, m in mods.items()}
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite training loss: {losses}")
     if not res.auc > 0.5:
@@ -1144,11 +1238,17 @@ def main_path_phase(t) -> dict:
         raise AssertionError(f"a lane without stores launched the window "
                              f"gather: {launches}")
     steady = float(np.median(step_ms[1:]))
+    st = runner.stats()
+    t._runner = None                  # the graph's pool goes with it
     return {"data": run_name(t), "steps": len(step_ms),
-            "step_ms": step_ms, "step_ms_median": steady, "losses": losses,
+            "step_ms": step_ms, "step_ms_median": steady,
+            "losses": losses,
             "hub_rows_per_step": hubs, "ragged_launches_per_step": ragged,
             "window_launches_per_step": want_wg,
             "train_launches": train_launches, "launches": launches,
+            "captures": st["captures"], "replays": st["replays"],
+            "capture_s": st["capture_s"], "graph_pool_bytes":
+                st["pool_bytes"], "hub_plans": st["plans"],
             "valid_auc": res.auc, "valid_f1_macro": res.f1_macro,
             "eval_batches": eval_batches(t), "eval_s": eval_s,
             "embed_moved": embed_moved,
@@ -1709,12 +1809,33 @@ def stress10m_ragged_cases(t, rate: float) -> tuple:
                          [rel.indptr[bt] for bt in timed], rel.window_width,
                          g.num_nodes, rate)
              for r, rel in enumerate(g.relations)]
+    from pcgnn_tpu_torch.ops import ragged_gather as rg
+    for c, rel in zip(cases, g.relations):
+        # queued (utils.roofline.kernel_ms) over the distinct batches, each
+        # call into a fresh output: the kernel and one indexing gather of
+        # the same windows from ``col.unfold``
+        d, col = rel.window_width, rel.col
+        sets = [(rel.indptr[bt],) for bt in timed]
+
+        def kernel(st, col=col, d=d):
+            out = torch.empty((len(st), d), dtype=torch.int32,
+                              device=col.device)
+            rg.launch(col, st, out, g.num_nodes)
+            return out
+
+        table = col.unfold(0, d, 1)
+        q = queued_ms(kernel, sets, c["bound_ms"],
+                      f"ragged_gather {c['name']}")
+        lib = queued_ms(lambda st, table=table, col=col, d=d: table[
+            st.to(torch.int64).clamp(0, col.numel() - d)], sets)
+        c.update(queued_ms=q["ms"], queued_readings_ms=q["readings_ms"],
+                 queued_library_ms=lib["ms"],
+                 queued_library_readings_ms=lib["readings_ms"],
+                 col_entries=col.numel())
     rel0 = g.relations[0]
     cases.append(ragged_case("stress_10m_launch_floor", rel0.col,
                              [rel0.indptr[bt[:1]] for bt in timed], 1,
                              g.num_nodes, rate))
-    for c, rel in zip(cases, g.relations):
-        c["col_entries"] = rel.col.numel()
     return cases, max(errs)
 
 
@@ -1802,6 +1923,9 @@ def stress10m_phase(g, build: dict, rate: float, card: str) -> dict:
     if mp["train_launches"]["window_gather"]:
         raise AssertionError("a stress-10m step launched a window gather")
     t2 = time.time()
+    run["capture"] = capture_lane(t, card)
+    sec["capture"] = time.time() - t2
+    t2 = time.time()
     run["ragged_cases"], run["ragged_max_abs_err"] = (
         stress10m_ragged_cases(t, rate))
     run["op_cases"] = stress10m_op_cases(t)
@@ -1827,11 +1951,178 @@ def stress10m_phase(g, build: dict, rate: float, card: str) -> dict:
         print(f"phase 24, {c['name']}: {c['ms'] * 1e3:.2f} us of kernels a "
               f"call, {c['run_ms'] * 1e3:.2f} us back to back; on {card}")
     for c in run["ragged_cases"]:
+        queued = (f"queued {c['queued_ms'] * 1e3:.3f} us (indexing "
+                  f"{c['queued_library_ms'] * 1e3:.3f} us), "
+                  if "queued_ms" in c else "")
         print(f"phase 24, ragged gather {c['name']} [{c['rows']}, {c['d']}]: "
-              f"{c['ms'] * 1e3:.3f} us against a {c['bound_ms'] * 1e3:.3f} "
-              f"us bound; plain {c['plain_ms'] * 1e3:.3f} us, indexing "
+              f"{queued}profiler {c['ms'] * 1e3:.3f} us against a "
+              f"{c['bound_ms'] * 1e3:.3f} us bound; plain "
+              f"{c['plain_ms'] * 1e3:.3f} us, indexing "
               f"{c['library_ms'] * 1e3:.3f} us; on {card}")
     return run
+
+
+# ------------------------------------- phase 28: the captured step
+
+CAPTURE_STEPS = 12
+
+
+def capture_stack(t, steps: int = CAPTURE_STEPS) -> tuple:
+    """The first ``steps`` batches of ``t``'s epochs from epoch 0 on, as
+    [steps, B] (batches, labels, weights) and their draws' seeds."""
+    bs, ws, seeds, epoch = [], [], [], 0
+    while len(bs) < steps:
+        b, w = t.epoch_plan(epoch)
+        bs += list(b)
+        ws += list(w)
+        seeds += [t.step_seed(epoch, i) for i in range(len(b))]
+        epoch += 1
+    batches = torch.stack(bs[:steps])
+    return batches, t.labels[batches], torch.stack(ws[:steps]), seeds[:steps]
+
+
+def same_bits(a, b) -> bool:
+    """Whether two (model, optimizer, losses) runs hold the same bits:
+    losses, parameters and Adam state."""
+    (ma, oa, la), (mb, ob, lb) = a, b
+    return torch.equal(la, lb) and all(
+        torch.equal(p, q) and all(torch.equal(v, ob.state[q][k])
+                                  for k, v in oa.state[p].items())
+        for p, q in zip(ma.parameters(), mb.parameters()))
+
+
+def profiled_block(r, stack) -> dict:
+    """One block of ``r``'s steps under torch.profiler: wall ms a step,
+    kernel ms a step, the busy share, kernels a step (device entries) and
+    host launch calls a step, graph launches included."""
+    from torch.profiler import ProfilerActivity, profile
+    steps = stack[0].shape[0]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        r.run(*stack)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy = device_kernels(prof)
+    device_ms = sum(ms for _, ms, _ in busy)
+    calls = {e.key: e.count for e in prof.key_averages()}
+    launch = sum(calls.get(k, 0) for k in ("cudaLaunchKernel",
+                                           "cuLaunchKernel",
+                                           "cudaLaunchKernelExC",
+                                           "cuLaunchKernelEx"))
+    return {"wall_ms_per_step": wall_ms / steps,
+            "device_ms_per_step": device_ms / steps,
+            "busy_share": device_ms / wall_ms,
+            "kernels_per_step": sum(n for _, _, n in busy) / steps,
+            "kernel_launch_calls_per_step": launch / steps,
+            "graph_launches_per_step": sum(
+                n for k, n in calls.items()
+                if k.startswith("cudaGraphLaunch")) / steps}
+
+
+def capture_lane(t, card: str) -> dict:
+    """Phase 28 for one trainer: ``CAPTURE_STEPS`` steps eager and the same
+    steps captured (``StepRunner``), each from the same initial weights,
+    in turns (eager, captured, captured, eager: 24 steps each way).  After
+    12 and after 24 steps the two must hold the same bits (losses,
+    parameters, Adam state).  Then a block of each under the profiler.
+    Records step ms (CUDA events around each step) and the host's wall ms
+    a step, graph launches and kernels a step, the busy share, the
+    captures and their seconds, the graph pool's bytes and the host syncs
+    of a captured block: the hub plan's one read-back on a graph with
+    hubs, none without."""
+    stack = capture_stack(t)
+    hub_rels = sum(r.has_hubs for r in aggregated_relations(t))
+    runs = {}
+    for capture in (False, True):
+        t.capture = capture
+        model = t.new_model()
+        opt = t.new_optimizer(model)
+        r = t.runner(model, opt)
+        r.step_hook = StepEvents(r)
+        runs[capture] = [model, opt, r, None]
+    t.capture, t._runner = True, None
+    walls = {False: [], True: []}
+    syncs = None
+    for i, capture in enumerate((False, True, True, False)):
+        model, opt, r, _ = runs[capture]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 2:
+            got = []
+            syncs = count_syncs(lambda: got.append(r.run(*stack)))
+            runs[capture][3] = got[0]
+        else:
+            runs[capture][3] = r.run(*stack)
+        torch.cuda.synchronize()
+        walls[capture].append((time.perf_counter() - t0) * 1e3
+                              / CAPTURE_STEPS)
+        if i in (1, 3) and not same_bits(
+                [runs[False][0], runs[False][1], runs[False][3]],
+                [runs[True][0], runs[True][1], runs[True][3]]):
+            raise AssertionError(f"{run_name(t)}: eager and captured steps "
+                                 f"differ after {6 * (i + 1)} steps")
+    if syncs != int(hub_rels > 0):
+        raise AssertionError(f"{run_name(t)}: a captured block made {syncs} "
+                             f"host syncs, expected {int(hub_rels > 0)}")
+    prof = {"eager": profiled_block(runs[False][2], stack),
+            "captured": profiled_block(runs[True][2], stack)}
+    r = runs[True][2]
+    if r.captures != 1 or prof["captured"]["graph_launches_per_step"] != 1:
+        raise AssertionError(f"{run_name(t)}: {r.captures} captures, "
+                             f"{prof['captured']} under the profiler")
+    ms = {k: runs[c][2].step_hook.step_ms() for k, c in (("eager", False),
+                                                         ("captured", True))}
+    out = {"data": run_name(t), "steps": CAPTURE_STEPS, "bit_equal": True,
+           "step_ms_median": {k: float(np.median(v[1:]))
+                              for k, v in ms.items()},
+           # the captured run's second block: replays only (its first
+           # holds the warm-up step and the capture)
+           "wall_ms_per_step": {"eager": float(np.median(walls[False])),
+                                "captured": walls[True][1]},
+           "profile": prof, "captures": r.captures,
+           # kernel ms a step over the step's time on the card's clock
+           # (the profiler's busy share divides by its own wall, which
+           # holds its host time)
+           "event_busy_share": {
+               k: prof[k]["device_ms_per_step"] / float(np.median(v[1:]))
+               for k, v in ms.items()},
+           "capture_s": r.capture_s, "graph_pool_bytes": r.pool_bytes,
+           "replay_launches": r.replay_launches, "hub_plans": r.plans,
+           "host_syncs_per_captured_block": syncs, "card": card}
+    print(f"phase 28, {out['data']}: eager and captured bit-equal after 12 "
+          f"and 24 steps; step ms median eager "
+          f"{out['step_ms_median']['eager']:.3f}, captured "
+          f"{out['step_ms_median']['captured']:.3f} (host wall a step "
+          f"{out['wall_ms_per_step']['eager']:.3f} / "
+          f"{out['wall_ms_per_step']['captured']:.3f}); graph launches a "
+          f"step {prof['captured']['graph_launches_per_step']:.0f}, kernels "
+          f"a step captured {prof['captured']['kernels_per_step']:.1f}, "
+          f"eager {prof['eager']['kernels_per_step']:.1f} (kernel launch "
+          f"calls {prof['captured']['kernel_launch_calls_per_step']:.1f} / "
+          f"{prof['eager']['kernel_launch_calls_per_step']:.1f}); busy "
+          f"share eager {prof['eager']['busy_share']:.3f}, "
+          f"captured {prof['captured']['busy_share']:.3f} (kernel ms over "
+          f"step ms: {out['event_busy_share']['eager']:.3f} / "
+          f"{out['event_busy_share']['captured']:.3f}); {r.captures} "
+          f"capture in {r.capture_s:.2f} s, graph pool {r.pool_bytes} "
+          f"bytes; host syncs of a captured block {syncs}; on {card}")
+    return out
+
+
+def capture_phase(lanes: list, stress10m: dict, card: str) -> dict:
+    """Phase 28: ``capture_lane`` on each trainer of ``lanes`` (the graphs
+    earlier phases built), beside stress-10m's (run in phase 24, whose
+    graph is gone by now)."""
+    t1 = time.time()
+    out = {"lanes": {}}
+    for t in lanes:
+        rec = capture_lane(t, card)
+        out["lanes"][rec["data"]] = rec
+    out["lanes"][stress10m["data"]] = stress10m
+    out["seconds"] = time.time() - t1
+    return out
 
 
 # configs/pcgnn_yelpchi.json, cut to 2 epochs with a validation at the end,
@@ -1942,39 +2233,27 @@ def files_phase(work: str, card: str, like) -> tuple:
     cfg_path = os.path.join(work, "pcgnn_yelpchi.json")
     with open(cfg_path, "w") as f:
         json.dump(cfg, f)
-    steps = []
     mods = kernel_counters()
-    wg = mods["window_gather"]
-    step = Trainer.step
-
-    def timed_step(self, *args, **kwargs):
-        before = wg.launches
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = step(self, *args, **kwargs)
-        end.record()
-        end.synchronize()
-        steps.append((start.elapsed_time(end), wg.launches - before,
-                      self.num_batches))
-        return out
-
     cwd = os.getcwd()
-    Trainer.step = timed_step
     try:
         os.chdir(work)
         for mod in mods.values():
             mod.launches = 0
-        with contextlib.redirect_stdout(sys.stderr):
+        with contextlib.redirect_stdout(sys.stderr), runners_made() as rs:
             auc, recall, f1 = cli.main(["--exp_config_path", cfg_path])
-        launches = {k: m.launches for k, m in mods.items()}
+        launches = card_launches({k: m.launches for k, m in mods.items()},
+                                 rs)
     finally:
         os.chdir(cwd)
-        Trainer.step = step
-    gathers = [n for _, n, _ in steps]
-    if (not steps or len(steps) != FILES_RUN["epochs"] * steps[0][2]
-            or min(gathers) < 1):
-        raise AssertionError(f"the CLI run made {len(steps)} steps with "
+    # each step's window gathers (the captured step's) and its time
+    gathers = [n["window_gather"] for r in rs for n in r.step_hook.launches]
+    step_ms = [ms for r in rs for ms in r.step_hook.step_ms()]
+    loaded = Trainer(cfg, graph=graph, device="cuda", result=ResultManager(
+        cfg, root=os.path.join(work, "turns")))
+    if (len(gathers) != FILES_RUN["epochs"] * loaded.num_batches
+            or min(gathers) < 1
+            or not all(r.capture for r in rs)):
+        raise AssertionError(f"the CLI run made {len(gathers)} steps with "
                              f"window gathers {gathers}")
     (val_table,) = glob.glob(os.path.join(work, "experimental_results",
                                           "validation_df", "*.csv"))
@@ -1985,11 +2264,8 @@ def files_phase(work: str, card: str, like) -> tuple:
     if not ok:
         raise AssertionError("verify_dataset says NO-GO on the files:\n"
                              + "\n".join(lines))
-    loaded = Trainer(cfg, graph=graph, device="cuda", result=ResultManager(
-        cfg, root=os.path.join(work, "turns")))
     turns = turns_phase([like, loaded])
-    step_ms = [ms for ms, _, _ in steps]
-    run.update(steps=len(steps), step_ms=step_ms,
+    run.update(steps=len(step_ms), step_ms=step_ms,
                step_ms_median=float(np.median(step_ms[1:])),
                window_launches_per_step=gathers,
                launches=launches, valid_auc=valid_auc, test_auc=auc,
@@ -1998,7 +2274,7 @@ def files_phase(work: str, card: str, like) -> tuple:
     print(f"phase 20, yelp from files: generated in {run['generate_s']:.1f} "
           f"s, written in {run['write_s']:.1f} s ({run['file_bytes']} bytes), "
           f"loaded onto the card in {run['load_s']:.1f} s; CLI step "
-          f"{run['step_ms_median']:.2f} ms (median of {len(steps)}), "
+          f"{run['step_ms_median']:.2f} ms (median of {len(step_ms)}), "
           f"valid AUC {valid_auc:.4f}; {lines[-1]}; in turns, step "
           f"{turns[run_name(loaded)]['step_ms_median']:.2f} ms loaded, "
           f"{turns[run_name(like)]['step_ms_median']:.2f} ms generated; "
@@ -3129,15 +3405,17 @@ def probe_phase(like_graph, card: str) -> dict:
     strategies = gather_probe.run()
     t2 = time.time()
     rows = bench_roofline.bench_relation_kernels(like_graph, 1024)
-    rows += bench_roofline.bench_train_step("yelp-like", 1024, 64, "cuda",
-                                            graph=like_graph)
+    with runners_made() as rs:
+        rows += bench_roofline.bench_train_step("yelp-like", 1024, 64,
+                                                "cuda", graph=like_graph)
     for r in rows:
         print(json.dumps({"phase25_roofline": r["kernel"],
                           "shape": r["shape"], "wall_ms": r["wall_ms"],
                           "sol_frac": r.get("sol_frac"), "mfu": r["mfu"],
                           "analytic_bytes": r.get("analytic_bytes"),
                           "card": card}))
-    launches.update({k: m.launches for k, m in mods.items()})
+    launches.update(card_launches({k: m.launches for k, m in mods.items()},
+                                  rs))
     t3 = time.time()
     spmd = spmd_overhead_run()
     print(json.dumps({"phase25_spmd_overhead": spmd}))
@@ -3172,25 +3450,6 @@ BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "epochs_per_hour",
               "roofline_step_ms", "preset", "batch_size", "device")
 
 
-@contextlib.contextmanager
-def counted_steps():
-    """Counts ``Trainer.step`` calls (every training step, ``single_step``'s
-    included) while the block runs."""
-    from pcgnn_tpu_torch.train.trainer import Trainer
-    real = Trainer.step
-    count = [0]
-
-    def step(self, *args, **kw):
-        count[0] += 1
-        return real(self, *args, **kw)
-
-    Trainer.step = step
-    try:
-        yield count
-    finally:
-        Trainer.step = real
-
-
 def reference_on_host(path: str) -> dict:
     """``measure_reference`` on this machine's host, in a process of its
     own, written to ``path`` (never ``BASELINE_MEASURED.json``)."""
@@ -3212,15 +3471,22 @@ def bench_phase(like_graph, baseline: str, name: str) -> dict:
     keys, ``value`` > 0, ``hbm_bw_util`` <= ``SOL_LIMIT``, the card's name),
     ``vs_baseline`` against this host's reference (``baseline``) and the
     repository's ``BASELINE_MEASURED.json``, and the launches per step (one
-    fused record fetch a step)."""
+    fused record fetch a step: the bench's epochs and its ``single_step``
+    replay the captured step, so the steps and the launches the card ran
+    are the runners' (``card_launches``), not the wrappers' counts)."""
     from pcgnn_tpu_torch import bench
     from pcgnn_tpu_torch.utils.roofline import SOL_LIMIT
     mods = kernel_counters()
     for mod in mods.values():
         mod.launches = 0
-    with counted_steps() as steps:
+    with runners_made() as rs:
         line = bench.run(graph=like_graph, baseline=baseline)
-    launches = {k: m.launches for k, m in mods.items()}
+    launches = card_launches({k: m.launches for k, m in mods.items()}, rs)
+    steps = [sum(r.eager_steps + r.replays for r in rs)]
+    if not all(r.capture for r in rs) or not all(
+            n["window_gather"] == 1 for r in rs for n in r.step_hook.launches):
+        raise AssertionError("a bench step was not the captured step with "
+                             "one window gather")
     print(json.dumps(line))
     if tuple(line) != BENCH_KEYS:
         raise AssertionError(f"the bench's keys {list(line)} are not "
@@ -3281,15 +3547,18 @@ def config3_fetch_phase(rate: float) -> tuple:
 def quality_phase(graphs: dict, work: str) -> dict:
     """``quality_run`` cut in depth (``QUALITY_SEEDS``, ``QUALITY_EPOCHS``),
     all five settings at full width, every kernel count at 0 before and
-    read after: every test AUC above 0.5."""
+    read after (the launches the card ran, ``card_launches``): every test
+    AUC above 0.5."""
     from pcgnn_tpu_torch.benchmarks import quality_run
     mods = kernel_counters()
     for mod in mods.values():
         mod.launches = 0
     out = os.path.join(work, "RESULTS.md")
-    rows, runs = quality_run.run(seeds=QUALITY_SEEDS, epochs=QUALITY_EPOCHS,
-                                 out=out, device="cuda", graphs=graphs)
-    launches = {k: m.launches for k, m in mods.items()}
+    with runners_made() as rs:
+        rows, runs = quality_run.run(seeds=QUALITY_SEEDS,
+                                     epochs=QUALITY_EPOCHS, out=out,
+                                     device="cuda", graphs=graphs)
+    launches = card_launches({k: m.launches for k, m in mods.items()}, rs)
     with open(out) as f:
         text = f.read()
     print(text, end="")
@@ -3722,6 +3991,12 @@ def main() -> int:
     # it
     graft = graft_phase(card)
     print(f"phase 27 done at {time.time() - t0:.1f} s", file=sys.stderr)
+    # 28: the captured step against the eager step on the graphs above
+    captured = capture_phase(
+        [trainers[0], trainers[2], trainers[1], t16, gcn, sage],
+        runs[STRESS10M_CFG["data_name"]]["capture"], card)
+    print(f"phase 28 done at {time.time() - t0:.1f} s "
+          f"({captured['seconds']:.1f} s)", file=sys.stderr)
 
     # each kernel's launches: the sum over the main paths' runs, each read
     # with every count set to 0 just before it
@@ -3787,7 +4062,9 @@ def main() -> int:
     # kernel 2 at stress-10m's calls (phase 24): [1024, dcap] CSR windows
     skew["entry"]["stress_10m"] = [
         {k: c[k] for k in ("name", "rows", "d", "col_entries", "ms",
-                           "plain_ms", "bound_ms", "library_ms", "run_ms")
+                           "plain_ms", "bound_ms", "library_ms", "run_ms",
+                           "queued_ms", "queued_library_ms",
+                           "queued_readings_ms")
          if k in c}
         for c in runs[STRESS10M_CFG["data_name"]]["ragged_cases"]]
     # P-a and P-s (phase 25), after the three kernels and kernel 1c
@@ -3806,7 +4083,7 @@ def main() -> int:
                "homo_window": homo_window, "skew_baseline_steps": skew_steps,
                "files": files, "resume": resume, "full_graph": full,
                "sharded": sharded, "probes": probes, "harness": harness,
-               "graft": graft,
+               "graft": graft, "captured": captured,
                "seconds": time.time() - t0}
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:
@@ -3946,6 +4223,15 @@ def main() -> int:
                for k in ("step_ms_median", "explicit_syncs",
                          "launches_between", "host_round_trips")}
         for case, c in sharded["cases"].items()}
+    summary["captured"] = {
+        data: {k: rec[k] for k in (
+            "step_ms_median", "wall_ms_per_step", "captures", "capture_s",
+            "graph_pool_bytes", "replay_launches", "event_busy_share",
+            "host_syncs_per_captured_block")}
+        | {"busy_share": {k: v["busy_share"]
+                          for k, v in rec["profile"].items()},
+           "kernels_per_step": rec["profile"]["captured"]["kernels_per_step"]}
+        for data, rec in captured["lanes"].items()}
     summary["seconds"] = details["seconds"]
     # phase 23 per rank, one line each: step ms, launches a step by kernel
     # (the masked fetch apart), collectives a step by axis, host syncs a

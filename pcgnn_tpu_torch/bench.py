@@ -17,8 +17,10 @@ its last line, ONE JSON line with ``bench.py``'s keys:
 ``value``: candidate edges per second of the full training step (pick ->
 choose -> aggregate forward and backward -> Adam), summed over relations
 (``edges_per_epoch``), over a block of ``--epochs`` epochs run back to back
-(``Trainer.epoch_block``) after a warm-up block of as many; the barrier is
-``torch.cuda.synchronize()`` and a read of the loss.  ``hbm_bw_util`` and
+(``Trainer.epoch_block``: every step a replay of the captured training
+step, the hub lane planned once an epoch) after a warm-up block of as many
+(which holds the capture); the barrier is ``torch.cuda.synchronize()`` and
+a read of the loss.  ``hbm_bw_util`` and
 ``roofline_step_ms``: ``Trainer.single_step`` at ``nscan`` 16 timed by
 ``utils.roofline.measure`` against ``pcgnn_step_streaming_bytes``.
 ``vs_baseline``: ``value`` over ``reference_edges_per_s`` of the file
@@ -27,8 +29,8 @@ measured on another host), 1.0 if the file is absent.
 ``python -m pcgnn_tpu_torch.benchmarks.measure_reference --out FILE``
 measures the reference on this host; pass ``--baseline FILE``.
 
-The step is host-bound, so ``value`` moves with the host: compare two
-lines only from one call.  The bench times the card: on a CPU device it
+The host still picks, plans and launches one graph a step, so ``value``
+can move with the host: compare two lines only from one call.  The bench times the card: on a CPU device it
 raises before any work, as ``utils.roofline.measure`` does.
 
 ``--graph_pickle``: a pickle of the port's own graph (``save_graph``:

@@ -61,8 +61,17 @@ class GCN(nn.Module):
         self.enc = Dense(xavier_uniform((feat_dim, emb_dim), g))
         self.head = Dense(xavier_uniform((emb_dim, num_classes), g))
 
-    def aggregate(self, graph, batch: torch.Tensor) -> torch.Tensor:
-        """[B, F] neighbor-and-self sums over sqrt(max(count, 1))."""
+    @staticmethod
+    def hub_relations(graph) -> tuple:
+        """The relations whose hub lanes ``hub_plans`` plans: the homo
+        graph."""
+        return (graph.homo,)
+
+    def aggregate(self, graph, batch: torch.Tensor,
+                  hub_plans: Optional[tuple] = None) -> torch.Tensor:
+        """[B, F] neighbor-and-self sums over sqrt(max(count, 1)).
+        ``hub_plans`` = (the homo graph's hub plan,), or None to plan the
+        hub chunks from this batch."""
         rel = graph.homo
         x_padded = padded_features(graph)
         if rel.ewin is not None:
@@ -78,16 +87,18 @@ class GCN(nn.Module):
             keep = keep & ~is_hub[:, None]
         num, cnt = window_sum_from_gathered(xw, keep)
         if rel.has_hubs:
-            h_num, h_cnt = hub_mean_sum(rel, batch, is_hub, x_padded,
-                                        include_self=True)
+            h_num, h_cnt = hub_mean_sum(
+                rel, batch, is_hub, x_padded, include_self=True,
+                plan=hub_plans[0] if hub_plans else None)
             num = torch.where(is_hub[:, None], h_num, num)
             cnt = torch.where(is_hub, h_cnt, cnt)
         return num / cnt.clamp(min=1.0).sqrt()[:, None]
 
     def forward(self, graph, batch: torch.Tensor, batch_labels=None, *,
-                train: bool = True, **_):
+                train: bool = True, hub_plans: Optional[tuple] = None, **_):
         """Returns (logits [B, C], None)."""
-        embeds = torch.relu(self.aggregate(graph, batch) @ self.enc.w)
+        embeds = torch.relu(self.aggregate(graph, batch, hub_plans)
+                            @ self.enc.w)
         return embeds @ self.head.w, None
 
     def to_prob(self, graph, batch, *, train: bool = False, **kw):
@@ -95,6 +106,8 @@ class GCN(nn.Module):
         return torch.sigmoid(logits), None
 
     def loss(self, graph, batch: torch.Tensor, batch_labels: torch.Tensor,
-             batch_weight: Optional[torch.Tensor] = None, **_):
-        logits, _ = self(graph, batch, batch_labels, train=True)
+             batch_weight: Optional[torch.Tensor] = None,
+             hub_plans: Optional[tuple] = None, **_):
+        logits, _ = self(graph, batch, batch_labels, train=True,
+                         hub_plans=hub_plans)
         return weighted_ce(logits, batch_labels, batch_weight)

@@ -66,9 +66,11 @@ class GraphSage(nn.Module):
 
     def forward(self, graph, batch: torch.Tensor, batch_labels=None, *,
                 train: bool = True,
-                generator: Optional[torch.Generator] = None, **_):
+                generator: Optional[torch.Generator] = None,
+                hub_plans: Optional[tuple] = None, **_):
         """Returns (logits [B, C], None).  ``generator`` draws the
-        ``num_sample`` subsets."""
+        ``num_sample`` subsets; ``hub_plans`` = (the homo graph's hub
+        plan,), or None to plan the hub chunks from this batch."""
         rel = graph.homo
         if self.num_sample is not None and rel.has_hubs:
             raise ValueError(
@@ -105,8 +107,9 @@ class GraphSage(nn.Module):
             valid = valid & ~is_hub[:, None]
         num, cnt = window_sum_from_gathered(xw, valid)
         if rel.has_hubs:
-            h_num, h_cnt = hub_mean_sum(rel, batch, is_hub, x_padded,
-                                        include_self=self.gcn_style)
+            h_num, h_cnt = hub_mean_sum(
+                rel, batch, is_hub, x_padded, include_self=self.gcn_style,
+                plan=hub_plans[0] if hub_plans else None)
             num = torch.where(is_hub[:, None], h_num, num)
             cnt = torch.where(is_hub, h_cnt, cnt)
         neigh = num / cnt.clamp(min=1.0)[:, None]
@@ -115,13 +118,20 @@ class GraphSage(nn.Module):
         embeds = torch.relu(combined @ self.enc.w)
         return embeds @ self.head.w, None
 
+    @staticmethod
+    def hub_relations(graph) -> tuple:
+        """The relations whose hub lanes ``hub_plans`` plans: the homo
+        graph."""
+        return (graph.homo,)
+
     def to_prob(self, graph, batch, *, train: bool = False, **kw):
         logits, _ = self(graph, batch, train=train, **kw)
         return torch.softmax(logits, dim=-1), None
 
     def loss(self, graph, batch: torch.Tensor, batch_labels: torch.Tensor,
              batch_weight: Optional[torch.Tensor] = None, *,
-             generator: Optional[torch.Generator] = None, **_):
+             generator: Optional[torch.Generator] = None,
+             hub_plans: Optional[tuple] = None, **_):
         logits, _ = self(graph, batch, batch_labels, train=True,
-                         generator=generator)
+                         generator=generator, hub_plans=hub_plans)
         return weighted_ce(logits, batch_labels, batch_weight)

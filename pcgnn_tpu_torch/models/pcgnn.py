@@ -126,11 +126,15 @@ class PCGNN(nn.Module):
                 batch_labels: Optional[torch.Tensor], *, train: bool,
                 train_pos: Optional[torch.Tensor] = None,
                 train_pos_valid: Optional[torch.Tensor] = None,
-                train_pos_feats: Optional[torch.Tensor] = None):
+                train_pos_feats: Optional[torch.Tensor] = None,
+                hub_plans: Optional[tuple] = None):
         """Returns (gnn_logits [B, C], center_scores [B, C]).
 
         ``train_pos_feats`` optionally supplies ``features[train_pos]``,
         which is constant for a run (frozen features, fixed split).
+        ``hub_plans``, one per relation (``ops.hub.epoch_hub_plans`` over
+        ``hub_relations``), fixes the hub lane's chunks; None plans each
+        relation's chunks from this batch.
         """
         if self.learn_features:
             return self._forward_learned(
@@ -248,7 +252,7 @@ class PCGNN(nn.Module):
                     rel, batch, is_hub, xs, f, center_s0, w0=w0, b0=b0,
                     s0_col=s0_col, tp_col=tp_col, round_sel=bf16,
                     minor_ctx=minor_ctx, batch_labels=batch_labels,
-                    rho=self.rho)
+                    rho=self.rho, plan=hub_plans[r] if hub_plans else None)
                 num = torch.where(is_hub[:, None], h_num, num)
                 cnt = torch.where(is_hub, h_cnt, cnt)
             keep_minor = None
@@ -343,6 +347,11 @@ class PCGNN(nn.Module):
         combined = torch.relu(cat_all @ self.inter.w)
         return combined @ self.head.w, center_scores
 
+    @staticmethod
+    def hub_relations(graph) -> tuple:
+        """The relations whose hub lanes ``hub_plans`` plans."""
+        return tuple(graph.relations)
+
     def to_prob(self, graph, batch, *, train: bool = False, **kw):
         """Sigmoid scores of both heads."""
         gnn_logits, label_logits = self(graph, batch, None, train=train, **kw)
@@ -351,12 +360,14 @@ class PCGNN(nn.Module):
     def loss(self, graph, batch: torch.Tensor, batch_labels: torch.Tensor,
              batch_weight: Optional[torch.Tensor] = None, *,
              train_pos: torch.Tensor, train_pos_valid: torch.Tensor,
-             train_pos_feats: Optional[torch.Tensor] = None) -> torch.Tensor:
+             train_pos_feats: Optional[torch.Tensor] = None,
+             hub_plans: Optional[tuple] = None) -> torch.Tensor:
         """Joint loss L_gnn + alpha * L_simi, as weighted means over the
         batch (padded slots weigh 0; denominator max(sum w, 1))."""
         gnn_logits, center_scores = self(
             graph, batch, batch_labels, train=True, train_pos=train_pos,
-            train_pos_valid=train_pos_valid, train_pos_feats=train_pos_feats)
+            train_pos_valid=train_pos_valid, train_pos_feats=train_pos_feats,
+            hub_plans=hub_plans)
         ce_gnn = int_label_ce(gnn_logits, batch_labels)
         ce_label = int_label_ce(center_scores, batch_labels)
         if batch_weight is None:

@@ -71,7 +71,7 @@ from pcgnn_tpu_torch.ops.aggregate import (
     window_sum_from_gathered,
 )
 from pcgnn_tpu_torch.ops.hub import (HUB_BLOCK, HUB_CHUNK, chunk_minor_band,
-                                     keep_nearest_switch, plan_hub_chunks)
+                                     keep_nearest_switch, run_hub_chunks)
 from pcgnn_tpu_torch.ops.ragged_gather import ragged_gather
 from pcgnn_tpu_torch.ops.window_gather import window_gather
 from pcgnn_tpu_torch.parallel.mesh import RankMesh
@@ -456,8 +456,9 @@ def spmd_hub_sum(sh: ShardedRel, mesh: RankMesh, is_hub: torch.Tensor,
     ``ops.hub.hub_choose_sum``).
 
     The hub sub-CSR is replicated and the scores ``s0_full`` are global, so
-    every graph rank plans and sweeps the same chunks (one read-back of
-    the plan per call) and keeps the same neighbors; only the feature sum
+    every graph rank plans and sweeps the same chunks (``ops.hub``'s
+    ``run_hub_chunks`` with this batch's own plan: one read-back per call)
+    and keeps the same neighbors; only the feature sum
     is local (neighbors in this block), so the packed output sum completes
     it.  ``tp_block`` [block] marks this block's valid train positives for
     the duplicate-minor subtraction, done by the rank that added the
@@ -469,18 +470,15 @@ def spmd_hub_sum(sh: ShardedRel, mesh: RankMesh, is_hub: torch.Tensor,
     block, f = x.shape
     n_pad = s0_full.shape[0]
     lead = mesh.graph_index == 0
-    num = x.new_zeros((is_hub.shape[0], f))
-    cnt = x.new_zeros((is_hub.shape[0],))
-    order, n_hub, jbs = plan_hub_chunks(deg_b, is_hub, chunk, block_w)
-    for c, jb in enumerate(jbs):
-        rows_slot = order[c * chunk: min((c + 1) * chunk, n_hub)]
+
+    def chunk_fn(rows_slot, active, jb):
         hs = hslot[rows_slot].to(torch.int64)
-        deg = sh.hub_deg[hs]
+        deg = torch.where(active, sh.hub_deg[hs], 0)
         c_s0 = center_s0[rows_slot]
         thr = mnum = mcnt = None
         if minor_ctx is not None:
             mnum, mcnt, thr = chunk_minor_band(
-                c_s0, sh.hub_ksample[hs], labels[rows_slot] == 1,
+                c_s0, sh.hub_ksample[hs], labels[rows_slot] == 1, active,
                 *minor_ctx, rho)
         nbr = ragged_gather(sh.hub_col, sh.hub_start[hs], jb * block_w,
                             sh.num_nodes)
@@ -500,9 +498,10 @@ def spmd_hub_sum(sh: ShardedRel, mesh: RankMesh, is_hub: torch.Tensor,
         cnt_c = w.sum(dim=1)
         if mnum is not None and lead:
             num_c, cnt_c = num_c + mnum, cnt_c + mcnt
-        num[rows_slot] = num_c.to(x.dtype)
-        cnt[rows_slot] = cnt_c.to(x.dtype)
-    return num, cnt
+        return num_c, cnt_c
+
+    return run_hub_chunks(deg_b, is_hub, None, chunk, block_w, x, f,
+                          chunk_fn)
 
 
 def spmd_hub_mean(sh: ShardedRel, is_hub: torch.Tensor, deg_b: torch.Tensor,
@@ -516,17 +515,15 @@ def spmd_hub_mean(sh: ShardedRel, is_hub: torch.Tensor, deg_b: torch.Tensor,
     Sums in float64, rounded once per rank."""
     x = x_local.detach()
     block, f = x.shape
-    num = x.new_zeros((batch.shape[0], f))
-    cnt = x.new_zeros((batch.shape[0],))
-    order, n_hub, jbs = plan_hub_chunks(deg_b, is_hub, chunk, block_w)
-    for c, jb in enumerate(jbs):
-        rows_slot = order[c * chunk: min((c + 1) * chunk, n_hub)]
+
+    def chunk_fn(rows_slot, active, jb):
         rows = batch[rows_slot]
         hs = hslot[rows_slot].to(torch.int64)
         nbr = ragged_gather(sh.hub_col, sh.hub_start[hs], jb * block_w,
                             sh.num_nodes)
         slots = torch.arange(jb * block_w, device=x.device)
-        valid = slots[None, :] < sh.hub_deg[hs][:, None]
+        deg = torch.where(active, sh.hub_deg[hs], 0)
+        valid = slots[None, :] < deg[:, None]
         local = nbr.to(torch.int64) - col_lo
         inb = (local >= 0) & (local < block)
         w = (valid & inb).to(torch.float64)
@@ -541,9 +538,10 @@ def spmd_hub_mean(sh: ShardedRel, is_hub: torch.Tensor, deg_b: torch.Tensor,
             num_c = num_c + miss[:, None] * x[
                 self_local.clamp(0, block - 1)].double()
             cnt_c = cnt_c + miss
-        num[rows_slot] = num_c.to(x.dtype)
-        cnt[rows_slot] = cnt_c.to(x.dtype)
-    return num, cnt
+        return num_c, cnt_c
+
+    return run_hub_chunks(deg_b, is_hub, None, chunk, block_w, x, f,
+                          chunk_fn)
 
 
 # ------------------------------------------------------------------ PC-GNN

@@ -17,6 +17,14 @@ The trainer runs on ``cuda`` unless the caller passes ``device="cpu"``; it
 raises when CUDA is asked for and absent.  Random streams come from
 ``torch.Generator``s seeded from the config's seed and the epoch.
 
+Epochs (``run_epoch``, ``epoch_block``, ``train``) and ``single_step`` run
+through ``train.capture.StepRunner``, the counterpart of the JAX Trainer's
+jitted epoch: on one CUDA device every step is a replay of one captured
+CUDA graph (forward, backward, Adam), with the hub lane's chunks planned
+once an epoch; on the CPU, or with ``Trainer(..., capture=False)``, the
+same steps run eagerly (``train_step``).  ``step`` is always the eager
+step, with the hub lane planned from its own batch.
+
 Sharded training (``parallel.spmd``): the process is one rank of a
 ``torch.distributed`` group and trains over a mesh of ranks.
 ``distributed: true`` joins the group named by ``coordinator_address``,
@@ -73,8 +81,14 @@ def resolve_device(device=None) -> torch.device:
 
 def make_optimizer(model: torch.nn.Module, lr: float,
                    weight_decay: float) -> torch.optim.Adam:
+    """Adam over ``model``'s parameters; ``capturable`` on CUDA (its step
+    count stays on the card, so a CUDA graph can hold the update), which
+    the CPU refuses.  The eager and the captured step on the card share it,
+    so the two give the same bits."""
+    cuda = next(model.parameters()).is_cuda
     return torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999),
-                            eps=1e-8, weight_decay=weight_decay)
+                            eps=1e-8, weight_decay=weight_decay,
+                            capturable=cuda)
 
 
 def adam_state(model: torch.nn.Module, optimizer: torch.optim.Adam) -> dict:
@@ -89,9 +103,18 @@ def adam_state(model: torch.nn.Module, optimizer: torch.optim.Adam) -> dict:
 def load_adam_state(model: torch.nn.Module, optimizer: torch.optim.Adam,
                     state: dict) -> None:
     """Restore ``adam_state``'s output into ``optimizer``, built over
-    ``model.parameters()``.  ``Optimizer.load_state_dict`` places each
-    tensor as torch's Adam keeps it: the moments on the parameter's device
-    in its dtype, ``step`` in the dtype saved."""
+    ``model.parameters()``.  An optimizer that has state already takes the
+    values in place (``copy_``), so a captured step keeps reading the
+    tensors it was captured with; a fresh one gets them through
+    ``Optimizer.load_state_dict``, which places each tensor as torch's Adam
+    keeps it: the moments on the parameter's device in its dtype, ``step``
+    in the dtype saved (on the parameter's device when capturable)."""
+    if optimizer.state:
+        for name, p in model.named_parameters():
+            if name in state:
+                for k, v in state[name].items():
+                    optimizer.state[p][k].copy_(torch.from_numpy(np.array(v)))
+        return
     sd = optimizer.state_dict()
     sd["state"] = {i: {k: torch.from_numpy(np.array(v))
                        for k, v in state[name].items()}
@@ -102,17 +125,22 @@ def load_adam_state(model: torch.nn.Module, optimizer: torch.optim.Adam,
 
 def train_step(model, optimizer, graph: MultiRelGraph, batch: torch.Tensor,
                y: torch.Tensor, w: torch.Tensor, consts: dict,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+               generator: Optional[torch.Generator] = None,
+               hub_plans: Optional[tuple] = None) -> torch.Tensor:
     """One optimizer step (loss -> gradients -> Adam); returns the loss.
     PC-GNN's loss reads the train positives in ``consts``; GraphSAGE draws
-    its ``num_sample`` subsets from ``generator``."""
+    its ``num_sample`` subsets from ``generator``; ``hub_plans`` fixes the
+    hub lane's chunks (None: planned from this batch).  This is the step
+    that ``train.capture.StepRunner`` captures."""
     optimizer.zero_grad(set_to_none=True)
     if isinstance(model, PCGNN):
         loss = model.loss(graph, batch, y, w, train_pos=consts["tp"],
                           train_pos_valid=consts["tpv"],
-                          train_pos_feats=consts.get("tpf"))
+                          train_pos_feats=consts.get("tpf"),
+                          hub_plans=hub_plans)
     else:
-        loss = model.loss(graph, batch, y, w, generator=generator)
+        loss = model.loss(graph, batch, y, w, generator=generator,
+                          hub_plans=hub_plans)
     loss.backward()
     optimizer.step()
     return loss.detach()
@@ -120,7 +148,11 @@ def train_step(model, optimizer, graph: MultiRelGraph, batch: torch.Tensor,
 
 class Trainer:
     def __init__(self, config: dict, graph: Optional[MultiRelGraph] = None,
-                 result: Optional[ResultManager] = None, device=None):
+                 result: Optional[ResultManager] = None, device=None,
+                 capture: Optional[bool] = None):
+        """``capture``: run epochs as replays of a captured CUDA graph
+        (``train.capture``); by default on a single CUDA device, never on
+        the CPU or sharded."""
         self.config = dict(config)
         cfg = self.config
         self.learn_features = bool(cfg.get("learn_features"))
@@ -134,6 +166,13 @@ class Trainer:
                 "lanes assume a frozen sharded table); drop num_devices/"
                 "distributed or learn_features")
         self.device = resolve_device(device)
+        if capture is None:
+            capture = self.device.type == "cuda" and not sharded
+        if capture and (sharded or self.device.type != "cuda"):
+            raise ValueError("capture=True needs a single CUDA device: the "
+                             "sharded step and the CPU run eagerly")
+        self.capture = capture
+        self._runner = None
         self.mesh = self._join_mesh(device) if sharded else None
         if self.mesh is not None and device is None and self.distributed:
             self.device = resolve_device(
@@ -318,16 +357,41 @@ class Trainer:
         w[:s] = 1.0
         return ids.view(nb, b), w.view(nb, b)
 
+    def step_seed(self, epoch: int, step: int) -> int:
+        """The seed of one step's random draws, from (seed, epoch, step)."""
+        return ((int(self.config["seed"]) * 1_000_003 + epoch) * 1_000_003
+                + step + 1)
+
     def step_generator(self, epoch: int, step: int):
         """A fresh generator for one step's random draws (GraphSAGE's
-        ``num_sample``), seeded from (seed, epoch, step); None for models
-        that draw nothing."""
+        ``num_sample``), seeded with ``step_seed``; None for models that
+        draw nothing."""
         if getattr(self.model, "num_sample", None) is None:
             return None
         g = torch.Generator(device=self.device)
-        g.manual_seed((int(self.config["seed"]) * 1_000_003 + epoch)
-                      * 1_000_003 + step + 1)
+        g.manual_seed(self.step_seed(epoch, step))
         return g
+
+    def runner(self, model, optimizer):
+        """The ``StepRunner`` of (model, optimizer): made at the first call
+        for the pair, kept while the pair is the same (its captured graph
+        holds their tensors), replaced for another pair."""
+        from pcgnn_tpu_torch.train.capture import StepRunner
+        if self._runner is not None and self._runner[0] is model \
+                and self._runner[1] is optimizer:
+            return self._runner[2]
+        graph, consts = self.graph, self.consts
+
+        def step_fn(batch, y, w, generator, hub_plans):
+            return train_step(model, optimizer, graph, batch, y, w, consts,
+                              generator, hub_plans)
+
+        self._runner = None           # the old graph's pool goes first
+        r = StepRunner(step_fn, model.hub_relations(graph), self.device,
+                       capture=self.capture,
+                       draws=getattr(model, "num_sample", None) is not None)
+        self._runner = (model, optimizer, r)
+        return r
 
     def step(self, model, optimizer, batch, y, w,
              generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -343,33 +407,47 @@ class Trainer:
     def single_step(self, model, optimizer, batch, y, w, nscan: int = 1):
         """(fn, args) of the training step, the entry point
         ``utils.roofline.measure`` times: ``fn(*args)`` runs ``nscan``
-        back-to-back optimizer steps (``train_step``), step i on ``batch``,
-        ``y`` and ``w`` rolled by i, as the JAX package's scan rolls them,
-        and returns the last step's loss.  Every call steps ``model`` and
-        ``optimizer`` on; divide a call's time by ``nscan``.  On a sharded
-        trainer each step is the sharded step, as ``step`` takes it (the
-        JAX package's ``single_step`` is single-device only)."""
+        back-to-back optimizer steps, step i on ``batch``, ``y`` and ``w``
+        rolled by i, as the JAX package's scan rolls them, and returns the
+        last step's loss.  The steps are the epoch's (``runner``: replays
+        of the captured step on one CUDA device, with one hub plan for the
+        nscan batches).  Every call steps ``model`` and ``optimizer`` on;
+        divide a call's time by ``nscan``.  On a sharded trainer each step
+        is the sharded step, as ``step`` takes it (the JAX package's
+        ``single_step`` is single-device only)."""
         dev = self.device
         args = (model, optimizer, torch.as_tensor(batch, device=dev),
                 torch.as_tensor(y, device=dev),
                 torch.as_tensor(w, dtype=torch.float32, device=dev))
+        seeds = [self.step_seed(0, i) for i in range(nscan)]
 
         def fn(model, optimizer, batch, y, w):
-            for i in range(nscan):
-                loss = self.step(model, optimizer, torch.roll(batch, i),
-                                 torch.roll(y, i), torch.roll(w, i),
-                                 self.step_generator(0, i))
-            return loss
+            if self.sharded is not None:
+                for i in range(nscan):
+                    loss = self.step(model, optimizer, torch.roll(batch, i),
+                                     torch.roll(y, i), torch.roll(w, i),
+                                     self.step_generator(0, i))
+                return loss
+            rolled = [torch.stack([torch.roll(a, i) for i in range(nscan)])
+                      for a in (batch, y, w)]
+            return self.runner(model, optimizer).run(*rolled, seeds)[-1]
 
         return fn, args
 
     def run_epoch(self, model, optimizer, epoch: int) -> torch.Tensor:
-        """One epoch of steps; returns the mean loss (on the device)."""
+        """One epoch of steps; returns the mean loss (on the device).  On
+        one device the epoch's steps go through ``runner``: one hub plan
+        for the epoch (its only read-back), then a replay of the captured
+        step per batch (or the eager step, on the CPU)."""
         batches, weights = self.epoch_plan(epoch)
-        losses = [self.step(model, optimizer, bt, self.labels[bt], wt,
-                            self.step_generator(epoch, i))
-                  for i, (bt, wt) in enumerate(zip(batches, weights))]
-        return torch.stack(losses).mean()
+        if self.sharded is not None:
+            losses = [self.step(model, optimizer, bt, self.labels[bt], wt,
+                                self.step_generator(epoch, i))
+                      for i, (bt, wt) in enumerate(zip(batches, weights))]
+            return torch.stack(losses).mean()
+        seeds = [self.step_seed(epoch, i) for i in range(self.num_batches)]
+        return self.runner(model, optimizer).run(
+            batches, self.labels[batches], weights, seeds).mean()
 
     def epoch_block(self, model, optimizer, first_epoch: int,
                     num_epochs: int) -> torch.Tensor:

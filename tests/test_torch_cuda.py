@@ -229,7 +229,12 @@ def test_trainer_epoch_on_card(card, tmp_path):
     wg.launches = 0
     loss = float(t.run_epoch(model, opt, 0))
     assert math.isfinite(loss)
-    assert wg.launches == t.num_batches
+    # one window gather a step: the wrapper launched it at the warm-up
+    # step and recorded it at the capture; every other step replayed it
+    r = t.runner(model, opt)
+    assert r.eager_steps + r.replays == t.num_batches
+    assert r.replay_launches["window_gather"] == 1
+    assert wg.launches == r.eager_steps + r.captures
 
 
 @pytest.mark.parametrize("d", [1, 100, 128, 512, 1000, 20480])
@@ -716,7 +721,12 @@ def test_baseline_trainer_epoch_on_card(card, tmp_path, name):
     wg.launches = 0
     loss = float(t.run_epoch(model, opt, 0))
     assert math.isfinite(loss)
-    assert wg.launches == t.num_batches
+    # one window gather a step: the wrapper launched it at the warm-up
+    # step and recorded it at the capture; every other step replayed it
+    r = t.runner(model, opt)
+    assert r.eager_steps + r.replays == t.num_batches
+    assert r.replay_launches["window_gather"] == 1
+    assert wg.launches == r.eager_steps + r.captures
 
 
 # ------------------------------------------------------ epoch plan repeats
@@ -1456,3 +1466,299 @@ def test_spmd_scaling_on_card(card, device, meshes, backends):
         assert r["launches"]["window_gather"] > 0
     for r, (dd, dg) in zip(recs, meshes):
         assert (r["launches"]["window_gather_masked"] > 0) == (dg > 1)
+
+
+# --------------------------------------------- the captured training step
+
+_LANES = {
+    # lane: (preset, config changes, patches of (module name, attribute,
+    # value)), the single-device lanes of the port
+    "fused": ("small", {}, ()),
+    "relation": ("small", {"fused": False}, ()),
+    "score_table": ("small", {"edge_windows": False}, ()),
+    "plain": ("small", {"edge_windows": False},
+              (("pcgnn", "SCORE_FROM_WINDOW_MIN_NODES", 0),)),
+    "hub": ("skew-tiny", {}, ()),
+    "hub_no_stores": ("skew-tiny", {"edge_windows": False}, ()),
+    "learned": ("small", {"learn_features": True}, ()),
+    "csr": ("small", {"edge_windows": False},
+            (("csr", "NBR2D_BUDGET_BYTES", 8), ("csr", "FPAD_BUDGET_BYTES", 0),
+             ("pcgnn", "SCORE_FROM_WINDOW_MIN_NODES", 0))),
+    "gcn": ("small", {"model": "GCN"}, ()),
+    "gcn_hub": ("skew-tiny", {"model": "GCN"}, ()),
+    "sage": ("small", {"model": "SAGE", "num_sample": 5}, ()),
+}
+
+
+def _lane_trainer(tmp_path, monkeypatch, lane, **kw):
+    """A trainer of ``lane`` on the card, with 6 steps an epoch."""
+    from pcgnn_tpu_torch.models import pcgnn as pcgnn_mod
+    from pcgnn_tpu_torch.train.results import ResultManager
+    from pcgnn_tpu_torch.train.trainer import Trainer
+    preset, changes, patches = _LANES[lane]
+    for mod, name, value in patches:
+        monkeypatch.setattr({"csr": csr, "pcgnn": pcgnn_mod}[mod], name,
+                            value)
+    changes = dict(changes)
+    fused = changes.pop("fused", True)
+    cfg = _small_cfg(data_name=f"synthetic:{preset}", epochs=2,
+                     valid_epochs=10 ** 9, **changes)
+    graph = None
+    if not fused:
+        graph = csr.materialize_edge_windows(
+            synthetic_fraud_graph(preset, seed=cfg["seed"]), fused=False)
+    t = Trainer(cfg, graph=graph,
+                result=ResultManager(cfg, root=str(tmp_path / lane)), **kw)
+    t.batch_size = -(-t.sample_size // 6)
+    t.num_batches = -(-t.sample_size // t.batch_size)
+    return t
+
+
+def _run(t, capture: bool, epochs=2):
+    """Two epochs of a fresh model through ``run_epoch``: (model,
+    optimizer, epoch losses)."""
+    t.capture = capture
+    model = t.new_model()
+    opt = t.new_optimizer(model)
+    losses = [t.run_epoch(model, opt, e) for e in range(epochs)]
+    torch.cuda.synchronize()
+    return model, opt, torch.stack(losses)
+
+
+def _assert_same_run(a, b):
+    (ma, oa, la), (mb, ob, lb) = a, b
+    assert torch.equal(la, lb), (la, lb)
+    for (name, p), q in zip(ma.named_parameters(), mb.parameters()):
+        assert torch.equal(p, q), name
+        for k, v in oa.state[p].items():
+            assert torch.equal(v, ob.state[q][k]), (name, k)
+
+
+@pytest.mark.parametrize("lane", sorted(_LANES))
+def test_captured_epochs_equal_eager_bit_for_bit(card, tmp_path, monkeypatch,
+                                                 lane):
+    """Two epochs (12 steps) replayed from the captured step equal the same
+    epochs taken eagerly: losses, parameters and Adam state, bit for bit,
+    in every single-device lane (GraphSAGE's draws included: the graph's
+    generator gives the eager generator's draws).  Every replayed step
+    runs the lane's kernels, and the epoch plan holds the hub lane's
+    chunks."""
+    from pcgnn_tpu_torch.train.capture import launch_counts
+    t = _lane_trainer(tmp_path, monkeypatch, lane)
+    assert t.num_batches == 6 and t.capture
+    eager = _run(t, False)
+    before = launch_counts()
+    captured = _run(t, True)
+    after = launch_counts()
+    _assert_same_run(eager, captured)
+    r = t.runner(*captured[:2]).stats()
+    assert (r["captures"], r["eager_steps"], r["replays"]) == (1, 1, 11)
+    per = r["replay_launches"]
+    # the wrapper ran at the warm-up step and at the capture, and nowhere
+    # else: the replays launched what the capture recorded
+    assert {k: after[k] - before[k] for k in after} == {
+        k: 2 * n for k, n in per.items()}
+    if lane in ("fused", "gcn", "sage"):
+        assert per["window_gather"] == 1
+    if lane == "relation":
+        assert per["window_gather"] == 3
+    if lane == "learned":
+        assert per["mask_build"] == 3 and per["window_gather"] == 0
+    if lane in ("hub", "hub_no_stores", "gcn_hub", "csr"):
+        assert per["ragged_gather"] >= 1
+    assert r["pool_bytes"] > 0
+
+
+def test_captured_replays_run_the_kernels(card, tmp_path, monkeypatch):
+    """The profiler sees each replay launch the lane's kernels: the window
+    gather once a step in the fused lane, and the ragged gather in the hub
+    lane, as many times a step as the capture recorded."""
+    from torch.profiler import ProfilerActivity, profile
+    for lane, name in (("fused", "window_gather"), ("hub", "ragged_gather")):
+        t = _lane_trainer(tmp_path, monkeypatch, lane)
+        model = t.new_model()
+        opt = t.new_optimizer(model)
+        r = t.runner(model, opt)
+        batches, weights = t.epoch_plan(0)
+        r.run(batches, t.labels[batches], weights)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            r.run(batches, t.labels[batches], weights)
+            torch.cuda.synchronize()
+        assert (r.captures, r.replays) == (1, 2 * t.num_batches - 1)
+        seen = sum(e.count for e in prof.key_averages()
+                   if f"{name}_kernel" in e.key)
+        assert seen == t.num_batches * r.replay_launches[name] > 0
+
+
+def test_captured_epoch_makes_no_host_sync(card, tmp_path, monkeypatch):
+    """After the capture, an epoch of a graph without hubs runs under
+    ``set_sync_debug_mode("error")``; on a hub graph the epoch's only sync
+    is the hub plan's read-back."""
+    t = _lane_trainer(tmp_path, monkeypatch, "fused")
+    model = t.new_model()
+    opt = t.new_optimizer(model)
+    t.run_epoch(model, opt, 0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss = t.run_epoch(model, opt, 1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert math.isfinite(float(loss))
+    t = _lane_trainer(tmp_path, monkeypatch, "hub")
+    model = t.new_model()
+    opt = t.new_optimizer(model)
+    t.run_epoch(model, opt, 0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t.run_epoch(model, opt, 1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(w.message) for w in caught if "synchroniz" in str(w.message)]
+    assert len(syncs) == 1, syncs
+
+
+def test_make_optimizer_is_capturable_on_the_card(card):
+    from pcgnn_tpu_torch.train.trainer import make_optimizer
+    opt = make_optimizer(torch.nn.Linear(4, 2).to(card), 0.01, 0.0)
+    assert opt.defaults["capturable"] is True
+
+
+def test_a_larger_plan_captures_once_more(card, tmp_path, monkeypatch):
+    """Stacks whose hub plan the captured one bounds replay; one that
+    exceeds it captures again, once, at the union of the two; a smaller
+    one after it replays."""
+    t = _lane_trainer(tmp_path, monkeypatch, "hub")
+    model = t.new_model()
+    opt = t.new_optimizer(model)
+    r = t.runner(model, opt)
+    rel = t.graph.relations[0]
+    deg = rel.deg
+    order = torch.argsort(deg, descending=True)
+    plain = torch.nonzero(deg <= rel.window_width)[:, 0]
+    b = t.batch_size
+
+    def stack(hubs):
+        rows = torch.cat([hubs, plain[: b - len(hubs)]])
+        return rows.repeat(2, 1)
+
+    # two hub rows fill one chunk; the heaviest hub 40 times fills two
+    light, heavy = stack(order[4:6]), stack(order[:1].repeat(40))
+    for s in (light, light, heavy, light, heavy):
+        r.run(s, t.labels[s], torch.ones(s.shape, device=card))
+    torch.cuda.synchronize()
+    assert r.captures == 2
+    assert r.graph_plans == r.plans
+
+
+def test_load_adam_state_in_place_keeps_the_captured_tensors(card, tmp_path,
+                                                             monkeypatch):
+    """Loading Adam state into a captured trainer copies into the tensors
+    the graph reads, so the next replayed epoch equals an eager one from
+    the same state."""
+    from pcgnn_tpu_torch.train.trainer import adam_state, load_adam_state
+    t = _lane_trainer(tmp_path, monkeypatch, "fused")
+    runs = []
+    for capture in (True, False):
+        t.capture = capture
+        model = t.new_model()
+        opt = t.new_optimizer(model)
+        t.run_epoch(model, opt, 0)
+        saved = adam_state(model, opt), {k: v.clone() for k, v in
+                                         model.state_dict().items()}
+        t.run_epoch(model, opt, 1)
+        ids = [id(v) for p in model.parameters() for v in
+               opt.state[p].values()]
+        load_adam_state(model, opt, saved[0])
+        model.load_state_dict(saved[1])
+        assert ids == [id(v) for p in model.parameters() for v in
+                       opt.state[p].values()]
+        loss = t.run_epoch(model, opt, 1)
+        torch.cuda.synchronize()
+        runs.append((model, opt, loss.view(1)))
+    _assert_same_run(*runs)
+
+
+def test_resume_and_restore_best_with_a_captured_trainer(card, tmp_path):
+    """A captured run of 4 epochs cut after 2 and resumed ends with the
+    uncut captured run's parameters, bit for bit, restores the same best
+    state and scores the test split the same."""
+    from pcgnn_tpu_torch.interop import params_from_jax
+    from pcgnn_tpu_torch.train.checkpoint import load_checkpoint
+    from pcgnn_tpu_torch.train.results import ResultManager
+    from pcgnn_tpu_torch.train.trainer import Trainer
+    cfg = _small_cfg(resume=True)
+    out = []
+    for tag, cut in (("uncut", None), ("cut", 2)):
+        root = str(tmp_path / tag)
+        if cut:
+            Trainer(dict(cfg, epochs=cut),
+                    result=ResultManager(cfg, root=root)).train()
+        t = Trainer(cfg, result=ResultManager(cfg, root=root))
+        assert t.capture
+        res = t.train()
+        out.append((res, load_checkpoint(t._resume_path()),
+                    {k: v.cpu() for k, v in t.model.state_dict().items()}))
+    (res_a, ck_a, best_a), (res_b, ck_b, best_b) = out
+    assert ck_a["epoch"] == ck_b["epoch"] == 3
+    last_a, last_b = (params_from_jax(c["params"]) for c in (ck_a, ck_b))
+    for k in last_a:
+        assert torch.equal(last_a[k], last_b[k]), k
+    for k in best_a:
+        assert torch.equal(best_a[k], best_b[k]), k
+    assert res_a == res_b
+
+
+def test_replayed_draws_equal_a_fresh_generator(card):
+    """A graph that draws from a registered generator, seeded before each
+    replay, gives a fresh generator's draws of that seed."""
+    gen = torch.Generator(device=card)
+    out = torch.empty(1000, device=card)
+    gen.manual_seed(1)
+    out.copy_(torch.rand(1000, generator=gen, device=card))
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(gen)
+    with torch.cuda.graph(graph):
+        out.copy_(torch.rand(1000, generator=gen, device=card))
+    for seed in (5, 6, 5):
+        gen.manual_seed(seed)
+        graph.replay()
+        fresh = torch.Generator(device=card).manual_seed(seed)
+        assert torch.equal(out, torch.rand(1000, generator=fresh,
+                                           device=card))
+
+
+def test_a_capture_that_cannot_succeed_raises(card, tmp_path):
+    """A step that reads a value back cannot be captured: the captured
+    run raises (in a process of its own, which the failed capture leaves
+    behind), and there is no eager fallback."""
+    import subprocess
+    import sys
+    script = tmp_path / "sync_step.py"
+    script.write_text(
+        "import torch\n"
+        "from pcgnn_tpu_torch.train.capture import StepRunner\n"
+        "w = torch.zeros(4, device='cuda', requires_grad=True)\n"
+        "opt = torch.optim.Adam([w], capturable=True)\n"
+        "def step(b, y, x, g, plans):\n"
+        "    opt.zero_grad(set_to_none=True)\n"
+        "    loss = (w * x).sum() * float(x.sum())\n"
+        "    loss.backward()\n"
+        "    opt.step()\n"
+        "    return loss.detach()\n"
+        "r = StepRunner(step, (), torch.device('cuda'), capture=True,\n"
+        "               draws=False)\n"
+        "ones = torch.ones(3, 4, device='cuda')\n"
+        "try:\n"
+        "    r.run(ones.long(), ones.long(), ones)\n"
+        "except RuntimeError as e:\n"
+        "    print('raised', r.replays, r.captures, e)\n")
+    import os
+    env = dict(os.environ, PYTHONPATH=os.getcwd())
+    done = subprocess.run([sys.executable, str(script)], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert done.stdout.startswith("raised 0 0"), (done.stdout, done.stderr)

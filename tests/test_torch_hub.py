@@ -153,8 +153,9 @@ def test_chunk_minor_band_matches_jax(p_valid):
     """Selected minors (through an identity feature table, so the sum IS
     the selection mask), counts and thresholds exactly, with forced ties at
     the band edge, non-fraud rows, m = 0, and m past the valid pool
-    (threshold +inf); then a real feature table to FWD.  The JAX function's
-    ``active`` mask is all true: the port's chunks hold only hub rows."""
+    (threshold +inf); then a real feature table to FWD.  Every row is
+    active here (``test_chunk_minor_band_padding_rows_match_jax`` takes
+    padding rows)."""
     rng = np.random.default_rng(p_valid)
     h, p = 12, 64
     sp = np.round(rng.normal(size=p), 1).astype(np.float32)     # ties
@@ -177,7 +178,8 @@ def test_chunk_minor_band_matches_jax(p_valid):
             jnp.asarray(slot_sorted), jnp.asarray(fs), RHO)
         got = thub.chunk_minor_band(
             torch.from_numpy(c_s0), torch.from_numpy(ks),
-            torch.from_numpy(fraud), torch.from_numpy(sp_sorted), torch.from_numpy(slot_sorted),
+            torch.from_numpy(fraud), torch.ones(h, dtype=torch.bool),
+            torch.from_numpy(sp_sorted), torch.from_numpy(slot_sorted),
             torch.from_numpy(fs), RHO)
         np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
         np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
@@ -197,14 +199,62 @@ def test_chunk_minor_band_matches_jax(p_valid):
     assert any(split)
 
 
+def test_chunk_minor_band_padding_rows_match_jax():
+    """``active`` as the chunk's padding rows give it: inactive rows select
+    nothing (count 0, sum 0, threshold -inf), fraud or not, and the rest
+    equal the JAX function, exactly through an identity feature table."""
+    rng = np.random.default_rng(4)
+    h, p = 16, 48
+    sp = np.round(rng.normal(size=p), 1).astype(np.float32)
+    sp[40:] = np.inf
+    slot = rng.permutation(p).astype(np.int32)
+    order = np.argsort(sp, kind="stable")
+    c_s0 = np.round(rng.normal(size=h), 1).astype(np.float32)
+    ks = rng.integers(2, 90, h).astype(np.int32)
+    fraud = np.ones(h, bool)
+    active = np.arange(h) < 11
+    fs = np.eye(p, dtype=np.float32)[slot[order]]
+    want = jhub.chunk_minor_band(
+        jnp.asarray(c_s0), jnp.asarray(ks), jnp.asarray(fraud),
+        jnp.asarray(active), jnp.asarray(sp[order]),
+        jnp.asarray(slot[order]), jnp.asarray(fs), RHO)
+    got = thub.chunk_minor_band(
+        torch.from_numpy(c_s0), torch.from_numpy(ks), torch.from_numpy(fraud),
+        torch.from_numpy(active), torch.from_numpy(sp[order]),
+        torch.from_numpy(slot[order]), torch.from_numpy(fs), RHO)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert (got[1].numpy()[~active] == 0).all()
+    assert (got[0].numpy()[~active] == 0).all()
+    assert np.isneginf(got[2].numpy()[~active]).all()
+    assert (got[1].numpy()[active] > 0).all()
+
+
 def test_plan_hub_chunks_orders_heaviest_first():
+    """The order puts hub rows first, heaviest first (as the JAX lane's
+    key); the plan of one batch is each chunk's block count from its head
+    row, and the plan of a stack takes the most hub rows of any batch and,
+    chunk by chunk, the widest head."""
     deg = torch.tensor([5, 900, 40, 700, 900, 3, 2000, 41], dtype=torch.int32)
     is_hub = deg > 40
-    order, n_hub, jbs = thub.plan_hub_chunks(deg, is_hub, 2, 512)
+    order = thub.hub_order(deg, is_hub)
     assert order.tolist()[:5] == [6, 1, 4, 3, 7]
     assert order.tolist()[5:] == [0, 2, 5]
-    assert n_hub == 5 and jbs == [4, 2, 1]
-    assert thub.plan_hub_chunks(deg, deg > 5000, 2, 512)[1:] == (0, [])
+    assert thub.plan_hub_chunks(deg, is_hub, 2, 512) == (4, 2, 1)
+    assert thub.plan_hub_chunks(deg, deg > 5000, 2, 512) == ()
+    # another batch: fewer hub rows, a wider second chunk
+    deg2 = torch.tensor([1500, 1200, 3, 3, 3, 3, 3, 3], dtype=torch.int32)
+    stack = torch.stack([deg, deg2])
+    assert thub.plan_hub_chunks(stack, stack > 40, 2, 512) == (4, 2, 1)
+    deg3 = torch.tensor([1500, 1200, 1100, 1100, 3, 3, 3, 3],
+                        dtype=torch.int32)
+    stack = torch.stack([deg, deg3])
+    assert thub.plan_hub_chunks(stack, stack > 40, 2, 512) == (4, 3, 1)
+    assert thub.plan_union(((4, 2), None), ((3, 3, 1), None)) == (
+        (4, 3, 1), None)
+    assert thub.plan_covers(((4, 3, 1), None), ((4, 2), None))
+    assert not thub.plan_covers(((4, 2),), ((4, 2, 1),))
+    assert not thub.plan_covers(((4, 2),), ((4, 3),))
 
 
 # ------------------------------------------------------------ skew-tiny
@@ -407,6 +457,212 @@ def test_eval_probs_match_jax(skew, dtype, lane):
     for got, want in zip(pt, pj):
         np.testing.assert_allclose(got.numpy()[keep], np.asarray(want)[keep],
                                    **FWD)
+
+
+# ------------------------------------------------------------ epoch plans
+
+def _plan_batches(skew):
+    """Four batches of relation 0 of skew-tiny, each of 48 rows: no hub
+    row; the heaviest hub 5 times (more than one chunk of 2) among
+    training rows; every hub; and 40 hub rows drawn with repeats (more
+    than ``HUB_CHUNK``)."""
+    rng = np.random.default_rng(9)
+    gt, hubs = skew["gt"], skew["hubs"]
+    rel = gt.relations[0]
+    deg = rel.deg.numpy()
+    plain = np.flatnonzero(deg <= rel.window_width)
+    heavy = hubs[np.argmax(deg[hubs])]
+    rows = [rng.choice(plain, 48),
+            np.concatenate([[heavy] * 5, rng.choice(plain, 43)]),
+            np.concatenate([hubs, rng.choice(plain, 48 - len(hubs))]),
+            np.concatenate([rng.choice(hubs, 40), rng.choice(plain, 8)])]
+    for b in rows:
+        rng.shuffle(b)
+    n_hub = [int((deg[b] > rel.window_width).sum()) for b in rows]
+    assert n_hub[0] == 0 and n_hub[1] == 5 and n_hub[3] > thub.HUB_CHUNK
+    return np.stack(rows)
+
+
+@pytest.mark.parametrize("chunk,block", [(2, 128), (thub.HUB_CHUNK, 128)])
+def test_epoch_plan_bounds_every_batch(skew, chunk, block, monkeypatch):
+    """The epoch plan holds as many chunks as the batch with the most hub
+    rows fills, each as wide as that chunk's widest head in any batch; it
+    comes back in one read-back for all relations, and a graph without
+    hubs reads nothing back."""
+    gt = skew["gt"]
+    rel = gt.relations[0]
+    batches = torch.from_numpy(_plan_batches(skew))
+    reads = []
+    real = torch.Tensor.tolist
+    monkeypatch.setattr(torch.Tensor, "tolist",
+                        lambda t: reads.append(t.shape) or real(t))
+    plans = thub.epoch_hub_plans(gt.relations, batches, chunk, block)
+    assert len(reads) == 1
+    assert [p is None for p in plans] == [not r.has_hubs
+                                          for r in gt.relations]
+    plan = plans[0]
+    deg = rel.deg.numpy()
+    for b in batches.numpy():
+        d = np.sort(deg[b][deg[b] > rel.window_width])[::-1]
+        assert len(plan) * chunk >= len(d)
+        for c in range(-(-len(d) // chunk)):
+            assert plan[c] * block >= d[c * chunk]
+        own = thub.plan_hub_chunks(rel.deg[torch.from_numpy(b)],
+                                   torch.from_numpy(deg[b]
+                                                    > rel.window_width),
+                                   chunk, block)
+        assert thub.plan_covers((plan,), (own,))
+    assert len(plan) == -(-max((deg[b] > rel.window_width).sum()
+                              for b in batches.numpy()) // chunk)
+    tiny = torch_graph("tiny", seed=0)
+    assert not any(r.has_hubs for r in tiny.relations)
+    reads.clear()
+    assert thub.epoch_hub_plans(tiny.relations, batches % tiny.num_nodes) \
+        == (None,) * tiny.num_relations
+    assert reads == []
+
+
+def _recording(monkeypatch):
+    """Record each hub chunk's fetched ids and keep mask."""
+    seen = {"ids": [], "keep": [], "shapes": []}
+    gather, switch = thub.ragged_gather, thub.keep_nearest_switch
+
+    def rec_gather(col, starts, d, fill):
+        out = gather(col, starts, d, fill)
+        seen["ids"].append(out)
+        seen["shapes"].append((tuple(starts.shape), d))
+        return out
+
+    def rec_switch(dist, kf, jb, block):
+        keep = switch(dist, kf, jb, block)
+        seen["keep"].append(keep)
+        return keep
+
+    monkeypatch.setattr(thub, "ragged_gather", rec_gather)
+    monkeypatch.setattr(thub, "keep_nearest_switch", rec_switch)
+    return seen
+
+
+def _hub_call(skew, batch, lane, train, plan, chunk, block, inp):
+    relt = skew["gt"].relations[0]
+    tb = torch.from_numpy(batch)
+    is_hub = relt.deg[tb] > relt.window_width
+    if lane == "mean":
+        return thub.hub_mean_sum(relt, tb, is_hub,
+                                 torch.from_numpy(inp["xs"][:, :inp["f"]]),
+                                 chunk=chunk, block=block, plan=plan)
+    y = torch.from_numpy(skew["labels"][batch])
+    return thub.hub_choose_sum(
+        relt, tb, is_hub, torch.from_numpy(inp["xs"]), inp["f"],
+        torch.from_numpy(inp["center_s0"]), w0=torch.from_numpy(inp["w0"]),
+        b0=torch.tensor(inp["b0"]),
+        minor_ctx=(tuple(torch.from_numpy(a) for a in inp["minor_ctx"])
+                   if train else None),
+        batch_labels=y if train else None, rho=RHO, chunk=chunk,
+        block=block, plan=plan)
+
+
+@pytest.mark.parametrize("lane,train", [("choose", True), ("choose", False),
+                                        ("mean", False)])
+@pytest.mark.parametrize("chunk,block", [(2, 128), (thub.HUB_CHUNK, 128)])
+def test_hub_lane_under_the_epoch_plan(skew, monkeypatch, lane, train, chunk,
+                                       block):
+    """Each batch's hub lane under the epoch plan (padding chunks and
+    rows, wider chunks) equals the lane under the batch's own plan: the
+    same ids and keep masks on every hub row, nothing kept past them,
+    counts exactly and the float64-rounded sums to 1e-6; and both equal
+    the JAX lane (rows on a near tie left out, as above)."""
+    relj, relt = skew["gj"].relations[0], skew["gt"].relations[0]
+    batches = _plan_batches(skew)
+    plan = thub.epoch_hub_plans(skew["gt"].relations,
+                                torch.from_numpy(batches), chunk, block)[0]
+    seen = _recording(monkeypatch)
+    deg = relt.deg.numpy()
+    for batch in batches:
+        n_hub = int((deg[batch] > relt.window_width).sum())
+        sk = dict(skew, batch=batch)
+        inp = _hub_inputs(sk, False, train, jax_scores=False)
+        got = {}
+        for name, p in (("own", None), ("epoch", plan)):
+            for v in seen.values():
+                v.clear()
+            got[name] = _hub_call(skew, batch, lane, train, p, chunk, block,
+                                  inp)
+            got[name + "_ids"] = list(seen["ids"])
+            got[name + "_keep"] = list(seen["keep"])
+        assert len(got["epoch_ids"]) == len(plan)
+        np.testing.assert_array_equal(got["epoch"][1].numpy(),
+                                      got["own"][1].numpy())
+        np.testing.assert_allclose(got["epoch"][0].numpy(),
+                                   got["own"][0].numpy(), rtol=1e-6,
+                                   atol=1e-7)
+        if lane == "choose":
+            for c, (ids, keep) in enumerate(zip(got["own_ids"],
+                                                got["own_keep"])):
+                rows = min(chunk, n_hub - c * chunk)
+                w = ids.shape[1]
+                np.testing.assert_array_equal(
+                    got["epoch_ids"][c][:rows, :w].numpy(),
+                    ids[:rows].numpy())
+                np.testing.assert_array_equal(
+                    got["epoch_keep"][c][:rows, :w].numpy(),
+                    keep[:rows].numpy())
+            for c, keep in enumerate(got["epoch_keep"]):
+                own_w = (got["own_keep"][c].shape[1]
+                         if c < len(got["own_keep"]) else 0)
+                assert not keep[:, own_w:].any()
+                assert not keep[max(n_hub - c * chunk, 0):].any()
+        # against the JAX lane
+        inj = _hub_inputs(sk, False, train, jax_scores=True)
+        is_hub = jnp.asarray(deg[batch] > relt.window_width)
+        jb = jnp.asarray(batch, jnp.int32)
+        if lane == "mean":
+            want = jhub.hub_mean_sum(relj, jb, is_hub,
+                                     jnp.asarray(inj["xs"][:, :inj["f"]]),
+                                     chunk=chunk, block=block)
+            ok = np.ones(len(batch), bool)
+        else:
+            y = skew["labels"][batch]
+            want = jhub.hub_choose_sum(
+                relj, jb, is_hub, jnp.asarray(inj["xs"]), inj["f"],
+                jnp.asarray(inj["center_s0"]), w0=jnp.asarray(inj["w0"]),
+                b0=jnp.asarray(inj["b0"]),
+                minor_ctx=(tuple(jnp.asarray(a) for a in inj["minor_ctx"])
+                           if train else None),
+                batch_labels=jnp.asarray(y, jnp.int32) if train else None,
+                tp_col=inj["f"] if train else None, rho=RHO, chunk=chunk,
+                block=block)
+            ok = ~_near_tie_rows(skew["gt"],
+                                 _scores64(skew["gt"], skew["params"], False),
+                                 batch, y, skew["tp"], train, [relt])
+            assert (~ok).sum() <= 2
+        for name in ("own", "epoch"):
+            num, cnt = got[name][0].numpy(), got[name][1].numpy()
+            np.testing.assert_array_equal(cnt[ok], np.asarray(want[1])[ok])
+            np.testing.assert_allclose(num[ok], np.asarray(want[0])[ok],
+                                       **FWD)
+
+
+def test_hub_lane_shapes_are_fixed_under_a_plan(skew, monkeypatch):
+    """Under one plan, three batches with different hub counts (0, 5 and
+    more than a chunk) make the same ragged-gather calls and keep-mask
+    shapes, and the same output shapes."""
+    batches = _plan_batches(skew)
+    plan = thub.epoch_hub_plans(skew["gt"].relations,
+                                torch.from_numpy(batches), 2, 128)[0]
+    seen = _recording(monkeypatch)
+    shapes = []
+    for batch in batches[[0, 1, 3]]:
+        for v in seen.values():
+            v.clear()
+        inp = _hub_inputs(dict(skew, batch=batch), False, True,
+                          jax_scores=False)
+        num, cnt = _hub_call(skew, batch, "choose", True, plan, 2, 128, inp)
+        shapes.append((list(seen["shapes"]),
+                       [tuple(k.shape) for k in seen["keep"]],
+                       tuple(num.shape), tuple(cnt.shape)))
+    assert shapes[0] == shapes[1] == shapes[2]
+    assert len(shapes[0][0]) == len(plan) > 2
 
 
 # ------------------------------------------------------------ mirrors
