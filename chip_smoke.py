@@ -23,7 +23,8 @@ result line, on any failure.  In order:
      ``Trainer.run_epoch`` -- the first step eager, the training step
      captured as a CUDA graph, every other step a replay of it -- with
      every launch count set to 0 just before and read just after, then
-     evaluates the validation split;
+     evaluates the validation split (``Trainer.evaluate``: the forward
+     captured as a CUDA graph, a replay a batch, one read-back);
   4. runs steps in the per-relation store lane (fused store off);
   5. profiles one epoch of yelp-like steps (device time by kernel, kernel
      launches and host syncs per step, the card's busy share);
@@ -220,14 +221,26 @@ Phase 11 also times the learned steps in the same turns.  Then:
      and count, the graph pool's bytes, and the host syncs of a captured
      block (the hub plan's one read-back on a graph with hubs, none
      without).
+ 29. the captured forward (``train.capture.PredictRunner``, through
+     ``Trainer.evaluate``) against the eager per-batch evaluate
+     (``train.metrics.evaluate`` over ``Trainer.predict``) on the same
+     graphs, stress-10m's inside phase 24 (its first 256 validation
+     batches): a model trained one epoch, its validation evaluated in
+     turns (eager, captured, captured, eager),
+     the probabilities bit-equal and the AUC the same in every turn; each
+     turn's seconds, host syncs, kernel launches, replays, captures and
+     capture seconds, and the forward's graph pool; the replays must
+     launch kernels 1, 2 and 3 between them.
 
 Training runs through captured steps wherever the trainer's epochs or
-``single_step`` run (phases 3, 8, 13, 16-18, 20-22, 24-26).  A kernel
-wrapper counts its call at a capture, which records the launch and runs
-nothing, and not at a replay, which runs it: the launches a phase reports
-are what the card ran (``card_launches``: the wrappers' counts less the
-captures', plus each replay's recorded launches), and a step's launches are
-its captured step's (``StepEvents``).  The phases that attribute time to a
+``single_step`` run (phases 3, 8, 13, 16-18, 20-22, 24-26), and
+evaluations through the captured forward wherever ``Trainer.evaluate``
+runs (phases 3, 8, 13, 16-18, 20, 21, 24, 26).  A kernel wrapper counts
+its call at a capture, which records the launch and runs nothing, and not
+at a replay, which runs it: the launches a phase reports are what the card
+ran (``card_launches``: the wrappers' counts less the captures', plus each
+replay's recorded launches), and a step's launches are its captured
+step's (``StepEvents``).  The phases that attribute time to a
 profiler range (5, 9, 14, 16-18, 24) and the card-vs-CPU steps (6, 10, 15,
 17-19) take the eager step, ``Trainer.step``, explicitly.
 
@@ -1080,22 +1093,29 @@ class StepEvents:
 
 @contextlib.contextmanager
 def runners_made():
-    """Every ``StepRunner`` (the trainer's epochs and ``single_step``)
-    made while the block runs, each timed by a ``StepEvents``."""
-    from pcgnn_tpu_torch.train.capture import StepRunner
+    """Every runner made while the block runs: each ``StepRunner`` (the
+    trainer's epochs and ``single_step``), timed by a ``StepEvents``, and
+    each ``PredictRunner`` (its evaluations), with no hook."""
+    from pcgnn_tpu_torch.train.capture import GraphRunner, StepRunner
     made = []
-    real = StepRunner.__init__
+    real = GraphRunner.__init__
 
     def init(self, *args, **kw):
         real(self, *args, **kw)
-        self.step_hook = StepEvents(self)
+        if isinstance(self, StepRunner):
+            self.step_hook = StepEvents(self)
         made.append(self)
 
-    StepRunner.__init__ = init
+    GraphRunner.__init__ = init
     try:
         yield made
     finally:
-        StepRunner.__init__ = real
+        GraphRunner.__init__ = real
+
+
+def step_runners(runners) -> list:
+    """The ``StepRunner``s of ``runners_made``'s list."""
+    return [r for r in runners if r.step_hook is not None]
 
 
 def card_launches(counts: dict, runners) -> dict:
@@ -1157,16 +1177,17 @@ def main_path_phase(t) -> dict:
     """Phases 3, 8, 13, 16, 17, 18 and 24: the configuration's epochs of
     training through ``Trainer.run_epoch`` -- the first step eager (the
     warm-up), the graph captured, every other step a replay of it -- then
-    one validation evaluate; every kernel count is 0 just before.  Each
-    step's kernels are the captured step's: the warm-up and the capture
-    each call every wrapper once per launch of the step, and nothing else
-    in the training calls one.  Every step must launch the window gathers
-    its lane reads (``window_launches_per_step``), and every step with a
-    hub row the ragged gather.  Every learned-lane step launches the mask
-    build once per relation and no gather, and the table must move.
-    ``launches`` are what the card ran (``card_launches``)."""
+    one validation evaluate through ``Trainer.evaluate`` (the forward
+    captured the same way, a replay a batch); every kernel count is 0 just
+    before.  Each step's kernels are the captured step's: the warm-up and
+    the capture each call every wrapper once per launch of the step, and
+    nothing else in the training calls one.  Every step must launch the
+    window gathers its lane reads (``window_launches_per_step``), and
+    every step with a hub row the ragged gather.  Every learned-lane step
+    and validation batch launches the mask build once per relation and no
+    gather, and the table must move.  ``launches`` are what the card ran
+    (``card_launches`` over the step's and the forward's runners)."""
     from pcgnn_tpu_torch.bench import edges_per_epoch
-    from pcgnn_tpu_torch.train.metrics import evaluate
     mods = kernel_counters()
     want_wg = window_launches_per_step(t)
     nrel = t.graph.num_relations
@@ -1209,13 +1230,15 @@ def main_path_phase(t) -> dict:
         raise AssertionError(f"{len(hubs)} steps ran as "
                              f"{runner.eager_steps} eager and "
                              f"{runner.replays} replays")
-    before_eval = {k: m.launches for k, m in mods.items()}
     t_eval = time.time()
-    res = evaluate(lambda nodes: t.predict(model, nodes), t.idx_valid,
-                   t.y_valid, t.batch_size, print_line=False)
+    res = t.evaluate(model, t.idx_valid, t.y_valid, print_line=False)
     eval_s = time.time() - t_eval
-    launches = {k: train_launches[k] + m.launches - before_eval[k]
-                for k, m in mods.items()}
+    predictor = t.predict_runner(model)
+    if not predictor.capture or predictor.captures != 1:
+        raise AssertionError(f"{run_name(t)}'s validation was not one "
+                             f"captured forward: {predictor.stats()}")
+    launches = card_launches({k: m.launches for k, m in mods.items()},
+                             [runner, predictor])
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite training loss: {losses}")
     if not res.auc > 0.5:
@@ -1239,7 +1262,8 @@ def main_path_phase(t) -> dict:
                              f"gather: {launches}")
     steady = float(np.median(step_ms[1:]))
     st = runner.stats()
-    t._runner = None                  # the graph's pool goes with it
+    # the graphs' pools go with them
+    t._runner = t._predict_runner = None
     return {"data": run_name(t), "steps": len(step_ms),
             "step_ms": step_ms, "step_ms_median": steady,
             "losses": losses,
@@ -1251,6 +1275,8 @@ def main_path_phase(t) -> dict:
                 st["pool_bytes"], "hub_plans": st["plans"],
             "valid_auc": res.auc, "valid_f1_macro": res.f1_macro,
             "eval_batches": eval_batches(t), "eval_s": eval_s,
+            "eval_capture_s": predictor.capture_s,
+            "eval_graph_pool_bytes": predictor.pool_bytes,
             "embed_moved": embed_moved,
             "edges_per_s": edges_per_epoch(t)
             / (steady * 1e-3 * t.num_batches),
@@ -1736,6 +1762,10 @@ STRESS10M_CFG = dict(BENCH_CFG, data_name="synthetic:stress-10m", epochs=1)
 STRESS10M_PROFILE_STEPS = 20
 # first-epoch batches whose CSR windows are held against the plain version
 STRESS10M_CHECKED_BATCHES = 20
+# phase 29's turns on stress-10m take the first 256 of its 1,934
+# validation batches each way (the main path evaluates all of them,
+# captured), so that the script keeps inside its time
+STRESS10M_PREDICT_BATCHES = 256
 
 
 def csr_path() -> str:
@@ -1925,6 +1955,9 @@ def stress10m_phase(g, build: dict, rate: float, card: str) -> dict:
     t2 = time.time()
     run["capture"] = capture_lane(t, card)
     sec["capture"] = time.time() - t2
+    t2 = time.time()
+    run["predict"] = predict_lane(t, card, STRESS10M_PREDICT_BATCHES)
+    sec["predict"] = time.time() - t2
     t2 = time.time()
     run["ragged_cases"], run["ragged_max_abs_err"] = (
         stress10m_ragged_cases(t, rate))
@@ -2125,6 +2158,148 @@ def capture_phase(lanes: list, stress10m: dict, card: str) -> dict:
     return out
 
 
+# ---------------------------------- phase 29: the captured forward
+
+def runner_counts(r) -> dict:
+    """A ``PredictRunner``'s running totals, to take a turn's share."""
+    return {"captures": r.captures, "replays": r.replays,
+            "capture_s": r.capture_s,
+            "captured": dict(r.captured_launches),
+            "replayed": dict(r.replayed_launches)}
+
+
+def predict_lane(t, card: str, batches: int | None = None) -> dict:
+    """Phase 29 for one trainer: a fresh model trained for one epoch of
+    captured steps, then its validation split (its first ``batches``
+    batches, when given) evaluated two ways in turns
+    (eager, captured, captured, eager): eagerly, ``train.metrics.evaluate``
+    over ``Trainer.predict`` (a forward, an id copy to the card and a
+    read-back a batch; the hub plan read back a batch and hub relation),
+    and through ``Trainer.evaluate`` (a replay of the captured forward a
+    batch, one hub plan, one read-back).  Every turn must give the same
+    probabilities, bit for bit, and so the same AUC.  Each turn records
+    its seconds, its host syncs (``count_syncs``), the kernel launches the
+    card ran (the wrappers' counts from 0, less what a capture recorded,
+    plus what each replay ran) and its replays, captures and capture
+    seconds.  The second captured turn is replays only: it must sync once
+    on a graph without hubs and twice on one with hubs.  Then the
+    captured turn's time split: the replays of one stack alone (host
+    clock to the card's end, and CUDA events a replay), and the metrics
+    on the host (``evaluate_probs``) of its probabilities."""
+    from pcgnn_tpu_torch.train.metrics import evaluate, evaluate_probs
+    mods = kernel_counters()
+    hub_rels = sum(r.has_hubs for r in aggregated_relations(t))
+    m = len(t.idx_valid) if batches is None else batches * t.batch_size
+    nodes, labels = t.idx_valid[:m], t.y_valid[:m]
+    nb = -(-len(nodes) // t.batch_size)
+    model = t.new_model()
+    t.run_epoch(model, t.new_optimizer(model), 0)
+    t._runner = None                  # the step graph's pool goes first
+    prun = t.predict_runner(model)
+    ways = {"eager": lambda: evaluate(lambda b: t.predict(model, b), nodes,
+                                      labels, t.batch_size,
+                                      print_line=False),
+            "captured": lambda: t.evaluate(model, nodes, labels,
+                                           print_line=False)}
+    turns, first = [], None
+    for way in ("eager", "captured", "captured", "eager"):
+        for mod in mods.values():
+            mod.launches = 0
+        was = runner_counts(prun)
+        got = []
+
+        def timed_turn():
+            t0 = time.perf_counter()
+            got.append(ways[way]())
+            got.append(time.perf_counter() - t0)
+
+        syncs = count_syncs(timed_turn)
+        res, seconds = got
+        now = runner_counts(prun)
+        launches = {k: m.launches - (now["captured"][k] - was["captured"][k])
+                    + now["replayed"][k] - was["replayed"][k]
+                    for k, m in mods.items()}
+        if first is None:
+            first = res
+        elif not (np.array_equal(res.anomaly_confidence,
+                                 first.anomaly_confidence)
+                  and res.auc == first.auc):
+            raise AssertionError(f"{run_name(t)}: the {way} evaluate differs "
+                                 f"from the first eager one (AUC {res.auc} "
+                                 f"against {first.auc})")
+        turns.append({"way": way, "seconds": seconds, "host_syncs": syncs,
+                      "launches": launches, "auc": res.auc,
+                      "captures": now["captures"] - was["captures"],
+                      "replays": now["replays"] - was["replays"],
+                      "capture_s": now["capture_s"] - was["capture_s"]})
+    eager, captured = turns[0]["launches"], turns[2]["launches"]
+    if (captured["window_gather"] != eager["window_gather"]
+            or captured["mask_build"] != eager["mask_build"]
+            or captured["ragged_gather"] < eager["ragged_gather"]
+            or (eager["ragged_gather"] and not captured["ragged_gather"])):
+        raise AssertionError(f"{run_name(t)}: the replays launched "
+                             f"{captured}, the eager forwards {eager}")
+    if prun.captures != 1 or turns[2]["replays"] != nb \
+            or turns[2]["host_syncs"] != 1 + int(hub_rels > 0):
+        raise AssertionError(f"{run_name(t)}: {prun.captures} captures, a "
+                             f"captured turn of {turns[2]}")
+    stack = t._stack(nodes)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev[0].record()
+    probs = prun.run(stack)
+    ev[1].record()
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    probs = probs.reshape(-1, 2)[: len(nodes)].cpu().numpy()
+    t0 = time.perf_counter()
+    evaluate_probs(probs, labels, print_line=False)
+    metrics_s = time.perf_counter() - t0
+    out = {"data": run_name(t), "batches": nb, "bit_equal": True,
+           "auc": first.auc, "turns": turns, "replay_s": replay_s,
+           "replay_ms": ev[0].elapsed_time(ev[1]) / nb,
+           "metrics_s": metrics_s,
+           "seconds": {w: [x["seconds"] for x in turns if x["way"] == w]
+                       for w in ways},
+           "graph_pool_bytes": prun.pool_bytes, "capture_s": prun.capture_s,
+           "replay_launches": prun.replay_launches, "hub_plans": prun.plans,
+           "card": card}
+    t._predict_runner = None          # and the forward's
+    print(f"phase 29, {out['data']}: eager and captured evaluates of "
+          f"{nb} batches bit-equal, AUC {first.auc:.4f}; seconds eager "
+          f"{turns[0]['seconds']:.3f} / {turns[3]['seconds']:.3f}, captured "
+          f"{turns[1]['seconds']:.3f} (capture {turns[1]['capture_s']:.2f}) "
+          f"/ {turns[2]['seconds']:.3f}; host syncs eager "
+          f"{turns[0]['host_syncs']}, captured {turns[2]['host_syncs']}; "
+          f"launches eager {eager}, captured {captured}; graph pool "
+          f"{prun.pool_bytes / 2**20:.1f} MB; replays of a stack "
+          f"{replay_s:.3f} s ({out['replay_ms']:.3f} ms each), metrics "
+          f"{metrics_s:.3f} s; on {card}")
+    return out
+
+
+def predict_phase(lanes: list, stress10m: dict, card: str) -> dict:
+    """Phase 29: ``predict_lane`` on each trainer of ``lanes``, beside
+    stress-10m's (run in phase 24).  Between them, the replays must
+    launch kernels 1, 2 and 3."""
+    t1 = time.time()
+    out = {"lanes": {}}
+    for t in lanes:
+        rec = predict_lane(t, card)
+        out["lanes"][rec["data"]] = rec
+    out["lanes"][stress10m["data"]] = stress10m
+    out["launches"] = {k: sum(x["launches"][k] for rec in
+                              out["lanes"].values() for x in rec["turns"]
+                              if x["way"] == "captured")
+                       for k in kernel_counters()}
+    if not all(out["launches"].values()):
+        raise AssertionError(f"the captured forwards launched "
+                             f"{out['launches']}")
+    out["seconds"] = time.time() - t1
+    return out
+
+
 # configs/pcgnn_yelpchi.json, cut to 2 epochs with a validation at the end,
 # on YelpChi-format files written from yelp-like's graph at this seed (the
 # real YelpChi files are not in the repository)
@@ -2246,8 +2421,9 @@ def files_phase(work: str, card: str, like) -> tuple:
     finally:
         os.chdir(cwd)
     # each step's window gathers (the captured step's) and its time
-    gathers = [n["window_gather"] for r in rs for n in r.step_hook.launches]
-    step_ms = [ms for r in rs for ms in r.step_hook.step_ms()]
+    steps = step_runners(rs)
+    gathers = [n["window_gather"] for r in steps for n in r.step_hook.launches]
+    step_ms = [ms for r in steps for ms in r.step_hook.step_ms()]
     loaded = Trainer(cfg, graph=graph, device="cuda", result=ResultManager(
         cfg, root=os.path.join(work, "turns")))
     if (len(gathers) != FILES_RUN["epochs"] * loaded.num_batches
@@ -3482,9 +3658,10 @@ def bench_phase(like_graph, baseline: str, name: str) -> dict:
     with runners_made() as rs:
         line = bench.run(graph=like_graph, baseline=baseline)
     launches = card_launches({k: m.launches for k, m in mods.items()}, rs)
-    steps = [sum(r.eager_steps + r.replays for r in rs)]
+    steps = [sum(r.eager_steps + r.replays for r in step_runners(rs))]
     if not all(r.capture for r in rs) or not all(
-            n["window_gather"] == 1 for r in rs for n in r.step_hook.launches):
+            n["window_gather"] == 1 for r in step_runners(rs)
+            for n in r.step_hook.launches):
         raise AssertionError("a bench step was not the captured step with "
                              "one window gather")
     print(json.dumps(line))
@@ -3997,6 +4174,12 @@ def main() -> int:
         runs[STRESS10M_CFG["data_name"]]["capture"], card)
     print(f"phase 28 done at {time.time() - t0:.1f} s "
           f"({captured['seconds']:.1f} s)", file=sys.stderr)
+    # 29: the captured forward against the eager one on the same graphs
+    predicted = predict_phase(
+        [trainers[0], trainers[2], trainers[1], t16, gcn, sage],
+        runs[STRESS10M_CFG["data_name"]]["predict"], card)
+    print(f"phase 29 done at {time.time() - t0:.1f} s "
+          f"({predicted['seconds']:.1f} s)", file=sys.stderr)
 
     # each kernel's launches: the sum over the main paths' runs, each read
     # with every count set to 0 just before it
@@ -4021,6 +4204,8 @@ def main() -> int:
             harness["quality"]["launches"][kname])
         entry["launches_by_path"]["graft entry and dryrun (phase 27)"] = (
             graft["launches"][kname])
+        entry["launches_by_path"]["captured predict (phase 29)"] = (
+            predicted["launches"][kname])
         entry["launches"] = sum(entry["launches_by_path"].values())
     # kernel 1c (the window gather with ``active``) apart: its only path is
     # the sharded store lane
@@ -4084,7 +4269,7 @@ def main() -> int:
                "files": files, "resume": resume, "full_graph": full,
                "sharded": sharded, "probes": probes, "harness": harness,
                "graft": graft, "captured": captured,
-               "seconds": time.time() - t0}
+               "predicted": predicted, "seconds": time.time() - t0}
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:
         json.dump(details, f, indent=1)
@@ -4232,6 +4417,13 @@ def main() -> int:
                           for k, v in rec["profile"].items()},
            "kernels_per_step": rec["profile"]["captured"]["kernels_per_step"]}
         for data, rec in captured["lanes"].items()}
+    summary["predicted"] = {
+        data: {k: rec[k] for k in ("batches", "auc", "graph_pool_bytes",
+                                   "replay_s", "replay_ms", "metrics_s")}
+        | {"turns": [{k: x[k] for k in (
+            "way", "seconds", "host_syncs", "launches", "captures",
+            "replays", "capture_s")} for x in rec["turns"]]}
+        for data, rec in predicted["lanes"].items()}
     summary["seconds"] = details["seconds"]
     # phase 23 per rank, one line each: step ms, launches a step by kernel
     # (the masked fetch apart), collectives a step by axis, host syncs a

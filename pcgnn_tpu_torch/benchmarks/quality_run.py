@@ -10,7 +10,7 @@ protocol), and write a table of mean±std AUC / F1-macro / GMean / recall
 The JAX script's five settings, flags and defaults.  Each run trains
 through ``Trainer.train`` (validation every ``valid_epochs``, patience,
 restore-best), whose test AUC, recall and F1-macro it reports; GMean is
-the restored model's, from ``train.metrics.evaluate`` on the test split.
+the restored model's, from ``Trainer.evaluate`` on the test split.
 It prints the JAX script's line per run and its JSON rows, and writes its
 table to ``--out`` (under the git-ignored ``build/`` by default; never
 ``RESULTS.md``), with the card's name and power limit in place of "single
@@ -86,7 +86,6 @@ def run(seeds=(2, 3, 5), epochs: int = 300, valid_epochs: int = 10,
     {(data_name, seed): graph} already built, without stores (a trainer
     builds its model's)."""
     from pcgnn_tpu_torch.benchmarks import card_line
-    from pcgnn_tpu_torch.train.metrics import evaluate
     from pcgnn_tpu_torch.train.results import ResultManager
     from pcgnn_tpu_torch.train.trainer import Trainer, resolve_device
     dev = resolve_device(device)
@@ -110,8 +109,8 @@ def run(seeds=(2, 3, 5), epochs: int = 300, valid_epochs: int = 10,
                         result=ResultManager(cfg, root=results_root),
                         device=dev)
             auc, recall, f1 = t.train()
-            res = evaluate(lambda n: t.predict(t.model, n), t.idx_test,
-                           t.y_test, bs, print_line=False)
+            res = t.evaluate(t.model, t.idx_test, t.y_test,
+                             print_line=False)
             aucs.append(auc)
             f1s.append(f1)
             recalls.append(recall)

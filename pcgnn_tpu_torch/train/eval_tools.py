@@ -4,7 +4,8 @@ with that threshold.
 
 Counterpart of ``pcgnn_tpu/train/eval_tools.py``; the checkpoint is the
 JAX parameter tree that both packages write (``interop``), and the model
-runs on the trainer's device.
+runs on the trainer's device, through ``Trainer.evaluate`` (a model of its
+own, so a runner of its own).
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from typing import Optional
 
 from pcgnn_tpu_torch.interop import params_from_jax
 from pcgnn_tpu_torch.train.checkpoint import load_checkpoint
-from pcgnn_tpu_torch.train.metrics import evaluate, get_best_f1
+from pcgnn_tpu_torch.train.metrics import get_best_f1
 from pcgnn_tpu_torch.train.trainer import Trainer
 
 
@@ -27,13 +28,11 @@ def threshold_transfer_eval(trainer: Trainer,
     model = trainer.new_model()
     model.load_state_dict(params_from_jax(load_checkpoint(checkpoint_path)))
 
-    predict = lambda nodes: trainer.predict(model, nodes)  # noqa: E731
-    val_res = evaluate(predict, trainer.idx_valid, trainer.y_valid,
-                       trainer.batch_size, print_line=False)
+    val_res = trainer.evaluate(model, trainer.idx_valid, trainer.y_valid,
+                               print_line=False)
     _, thresh = get_best_f1(trainer.y_valid, val_res.anomaly_confidence)
-    test_res = evaluate(predict, trainer.idx_test, trainer.y_test,
-                        trainer.batch_size, print_line=False,
-                        valid_thresh=thresh)
+    test_res = trainer.evaluate(model, trainer.idx_test, trainer.y_test,
+                                print_line=False, valid_thresh=thresh)
     return val_res, test_res, thresh
 
 

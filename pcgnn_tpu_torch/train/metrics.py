@@ -5,7 +5,9 @@ definitions from scikit-learn; here they are written out (binary labels
 {0, 1}, positive class 1, zero_division 0; macro averages over the classes
 present in labels or predictions; ROC AUC as the trapezoid under the ROC
 curve, NaN when one class is absent).  The model forward runs batched on the
-trainer's device.
+trainer's device: ``evaluate`` calls a forward per batch, as the JAX
+``evaluate`` does; ``Trainer.evaluate`` runs the whole stack of batches on
+the device and hands its probabilities to ``evaluate_probs``.
 """
 
 from __future__ import annotations
@@ -140,10 +142,8 @@ def evaluate(predict_fn, nodes: np.ndarray, labels: np.ndarray,
     """Batched evaluation.
 
     ``predict_fn(batch_ids int64 tensor [B]) -> probs [B, 2]`` (on any
-    device); the last batch is padded with node 0 and trimmed.
-    ``valid_thresh`` recomputes F1 and F1-macro at that threshold;
-    ``sweep_thresh`` takes the best of a 100-threshold F1 sweep instead and
-    records the winning threshold in ``thresh``.
+    device); the last batch is padded with node 0 and trimmed.  The
+    metrics and the keywords are ``evaluate_probs``'.
     """
     nodes = np.asarray(nodes)
     m = len(nodes)
@@ -154,7 +154,25 @@ def evaluate(predict_fn, nodes: np.ndarray, labels: np.ndarray,
         batch[: end - start] = nodes[start:end]
         out = predict_fn(torch.from_numpy(batch))
         probs[start:end] = out[: end - start].detach().cpu().numpy()
+    return evaluate_probs(probs, labels, result=result, epoch=epoch,
+                          epoch_best=epoch_best, flag=flag,
+                          print_line=print_line, valid_thresh=valid_thresh,
+                          sweep_thresh=sweep_thresh)
 
+
+def evaluate_probs(probs: np.ndarray, labels: np.ndarray, *, result=None,
+                   epoch: Optional[int] = None,
+                   epoch_best: Optional[int] = None,
+                   flag: Optional[str] = None, print_line: bool = True,
+                   valid_thresh: Optional[float] = None,
+                   sweep_thresh: bool = False) -> EvalResult:
+    """The metrics of an evaluation from its probabilities [M, 2].
+
+    ``valid_thresh`` recomputes F1 and F1-macro at that threshold;
+    ``sweep_thresh`` takes the best of a 100-threshold F1 sweep instead and
+    records the winning threshold in ``thresh``.  With ``result``, the
+    line is logged as ``flag`` ("val" or "test") says.
+    """
     res = compute_metrics(labels, probs)
     if sweep_thresh:
         res.f1, res.thresh = get_best_f1(labels, probs[:, 1])

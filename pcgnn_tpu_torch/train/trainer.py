@@ -23,7 +23,14 @@ jitted epoch: on one CUDA device every step is a replay of one captured
 CUDA graph (forward, backward, Adam), with the hub lane's chunks planned
 once an epoch; on the CPU, or with ``Trainer(..., capture=False)``, the
 same steps run eagerly (``train_step``).  ``step`` is always the eager
-step, with the hub lane planned from its own batch.
+step, with the hub lane planned from its own batch.  Evaluations
+(``evaluate``: ``train``'s validations and final test,
+``eval_tools.threshold_transfer_eval``, ``quality_run``) run through
+``train.capture.PredictRunner``, the counterpart of the JAX Trainer's
+``predict_jit``: on one CUDA device every batch is a replay of one captured
+forward, with the hub lane planned once a node set, and the probabilities
+are read back once; on the CPU the same forwards run eagerly.
+``predict`` is the eager forward of one batch.
 
 Sharded training (``parallel.spmd``): the process is one rank of a
 ``torch.distributed`` group and trains over a mesh of ranks.
@@ -60,7 +67,7 @@ from pcgnn_tpu_torch.models import build_model
 from pcgnn_tpu_torch.models.pcgnn import PCGNN
 from pcgnn_tpu_torch.sampling.pick import pick_cdf, pick_probs, pick_step
 from pcgnn_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
-from pcgnn_tpu_torch.train.metrics import evaluate
+from pcgnn_tpu_torch.train.metrics import EvalResult, evaluate, evaluate_probs
 from pcgnn_tpu_torch.train.results import ResultManager
 from pcgnn_tpu_torch.utils.profiling import trace
 
@@ -173,6 +180,7 @@ class Trainer:
                              "sharded step and the CPU run eagerly")
         self.capture = capture
         self._runner = None
+        self._predict_runner = None
         self.mesh = self._join_mesh(device) if sharded else None
         if self.mesh is not None and device is None and self.distributed:
             self.device = resolve_device(
@@ -393,6 +401,65 @@ class Trainer:
         self._runner = (model, optimizer, r)
         return r
 
+    def predict_runner(self, model):
+        """The ``PredictRunner`` of ``model``: made at the first call for
+        it, kept while the model holds the same tensors (its captured
+        graph reads them), replaced for another model.  Its static
+        buffers and its hub plan cover the validation and the test
+        stacks, so one capture serves both."""
+        from pcgnn_tpu_torch.train.capture import PredictRunner
+        held = tuple(v.data_ptr() for v in model.state_dict().values())
+        if self._predict_runner is not None \
+                and self._predict_runner[0] is model \
+                and self._predict_runner[1] == held:
+            return self._predict_runner[2]
+        graph = self.graph
+        draws = getattr(model, "num_sample", None) is not None
+
+        def predict_fn(batch, generator, hub_plans):
+            kw = {"generator": generator} if draws else {}
+            with torch.no_grad():
+                return model.to_prob(graph, batch, hub_plans=hub_plans,
+                                     **kw)[0]
+
+        stacks = [self._stack(nodes) for nodes in (self.idx_valid,
+                                                   self.idx_test)]
+        self._predict_runner = None   # the old graph's pool goes first
+        r = PredictRunner(predict_fn, model.hub_relations(graph),
+                          self.device, capture=self.capture, draws=draws,
+                          rows=max(len(s) for s in stacks))
+        for stack in stacks:
+            r.plan(stack)
+        self._predict_runner = (model, held, r)
+        return r
+
+    def _stack(self, nodes) -> torch.Tensor:
+        """``nodes`` padded with id 0 to [nb, B] on the device, as
+        ``train.metrics.evaluate`` pads its batches."""
+        nodes = np.asarray(nodes)
+        b = self.batch_size
+        ids = np.zeros((-(-len(nodes) // b), b), np.int64)
+        ids.reshape(-1)[: len(nodes)] = nodes
+        ids = torch.from_numpy(ids)
+        if self.device.type == "cuda":
+            ids = ids.pin_memory()    # so the copy makes no host sync
+        return ids.to(self.device, non_blocking=True)
+
+    def evaluate(self, model, nodes, labels, **kw) -> EvalResult:
+        """``train.metrics.evaluate`` of ``model`` on ``nodes``, with the
+        batches stacked (``_stack``): one forward a batch through
+        ``predict_runner`` (on one CUDA device a replay of the captured
+        forward), the [m, 2] probabilities read back once and handed to
+        ``train.metrics.evaluate_probs`` with the keywords ``kw``.  The
+        same probabilities, bit for bit, as ``evaluate`` over ``predict``;
+        sharded, it is that."""
+        if self.sharded is not None:
+            return evaluate(lambda batch: self.predict(model, batch), nodes,
+                            labels, self.batch_size, **kw)
+        probs = self.predict_runner(model).run(self._stack(nodes))
+        return evaluate_probs(probs.reshape(-1, 2)[: len(nodes)].cpu()
+                              .numpy(), labels, **kw)
+
     def step(self, model, optimizer, batch, y, w,
              generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """One optimizer step on the full batch; sharded, each rank
@@ -531,11 +598,10 @@ class Trainer:
                 if (epoch + 1) % cfg["valid_epochs"] == 0:
                     print(f"Valid at epoch {epoch} (loss {loss:.4f}, "
                           f"epoch_time {epoch_times[-1]*1e3:.1f}ms)")
-                    res = evaluate(lambda nodes: self.predict(model, nodes),
-                                   self.idx_valid, self.y_valid,
-                                   self.batch_size, result=result,
-                                   epoch=epoch, epoch_best=epoch_best,
-                                   flag="val", sweep_thresh=select_f1)
+                    res = self.evaluate(model, self.idx_valid, self.y_valid,
+                                        result=result, epoch=epoch,
+                                        epoch_best=epoch_best, flag="val",
+                                        sweep_thresh=select_f1)
                     gain_auc = (res.auc - auc_best) / auc_best
                     gain_f1 = (res.f1_macro - f1_mac_best) / f1_mac_best
                     if gain_auc + gain_f1 > 0:
@@ -566,10 +632,9 @@ class Trainer:
             except FileNotFoundError:
                 pass  # no validation improvement was ever recorded
         model.load_state_dict(best_state)
-        res = evaluate(lambda nodes: self.predict(model, nodes),
-                       self.idx_test, self.y_test, self.batch_size,
-                       result=result, epoch_best=epoch_best, flag="test",
-                       valid_thresh=thresh_best if select_f1 else None)
+        res = self.evaluate(model, self.idx_test, self.y_test, result=result,
+                            epoch_best=epoch_best, flag="test",
+                            valid_thresh=thresh_best if select_f1 else None)
         if is_main:
             self.result.save_predictions(res.anomaly_confidence,
                                          "anomaly_confidence")

@@ -1686,9 +1686,12 @@ def test_load_adam_state_in_place_keeps_the_captured_tensors(card, tmp_path,
 def test_resume_and_restore_best_with_a_captured_trainer(card, tmp_path):
     """A captured run of 4 epochs cut after 2 and resumed ends with the
     uncut captured run's parameters, bit for bit, restores the same best
-    state and scores the test split the same."""
+    state and scores the test split the same.  Each run's evaluations
+    replay one forward, captured after the resumed parameters were loaded,
+    and its test scores are the eager evaluate's of the restored model."""
     from pcgnn_tpu_torch.interop import params_from_jax
     from pcgnn_tpu_torch.train.checkpoint import load_checkpoint
+    from pcgnn_tpu_torch.train.metrics import evaluate
     from pcgnn_tpu_torch.train.results import ResultManager
     from pcgnn_tpu_torch.train.trainer import Trainer
     cfg = _small_cfg(resume=True)
@@ -1701,6 +1704,11 @@ def test_resume_and_restore_best_with_a_captured_trainer(card, tmp_path):
         t = Trainer(cfg, result=ResultManager(cfg, root=root))
         assert t.capture
         res = t.train()
+        r = t.predict_runner(t.model)
+        assert r.capture and r.captures == 1
+        want = evaluate(lambda b: t.predict(t.model, b), t.idx_test,
+                        t.y_test, t.batch_size, print_line=False)
+        assert res == (want.auc, want.recall, want.f1_macro)
         out.append((res, load_checkpoint(t._resume_path()),
                     {k: v.cpu() for k, v in t.model.state_dict().items()}))
     (res_a, ck_a, best_a), (res_b, ck_b, best_b) = out
@@ -1762,3 +1770,124 @@ def test_a_capture_that_cannot_succeed_raises(card, tmp_path):
     done = subprocess.run([sys.executable, str(script)], env=env,
                           capture_output=True, text=True, timeout=120)
     assert done.stdout.startswith("raised 0 0"), (done.stdout, done.stderr)
+
+
+# ------------------------------------------- the captured forward (predict)
+
+def _stacked_launches(t, model, nodes, labels, counted):
+    """``t.evaluate`` of ``model`` on ``nodes``, its wrapper launch counts
+    added to ``counted``."""
+    from pcgnn_tpu_torch.train.capture import launch_counts
+    before = launch_counts()
+    res = t.evaluate(model, nodes, labels, print_line=False)
+    after = launch_counts()
+    for k in counted:
+        counted[k] += after[k] - before[k]
+    return res
+
+
+def _assert_same_eval(got, want):
+    assert np.array_equal(got.anomaly_confidence, want.anomaly_confidence)
+    for k in ("accuracy", "f1", "f1_macro", "precision", "recall", "auc",
+              "gmean"):
+        a, b = getattr(got, k), getattr(want, k)
+        assert a == b or (math.isnan(a) and math.isnan(b)), k
+
+
+@pytest.mark.parametrize("lane", sorted(_LANES))
+def test_captured_evaluate_equals_eager_bit_for_bit(card, tmp_path,
+                                                    monkeypatch, lane):
+    """The stacked evaluate of the validation and test splits -- one
+    captured forward, replayed a batch -- equals the per-batch eager
+    ``evaluate`` over ``Trainer.predict`` bit for bit in every
+    single-device lane: after an epoch of captured training (the capture),
+    after another (its replays moved the parameters in place) and after a
+    restore (``load_state_dict``).  One capture; the replays launch the
+    lane's kernels, counted by ``card_launches``."""
+    from pcgnn_tpu_torch.train.capture import launch_counts
+    from pcgnn_tpu_torch.train.metrics import evaluate
+    t = _lane_trainer(tmp_path, monkeypatch, lane)
+    model, opt, _ = _run(t, True, epochs=1)
+    saved = {k: v.clone() for k, v in model.state_dict().items()}
+    splits = ((t.idx_valid, t.y_valid), (t.idx_test, t.y_test))
+    counted = dict.fromkeys(launch_counts(), 0)
+
+    def check():
+        for nodes, labels in splits:
+            want = evaluate(lambda b: t.predict(model, b), nodes, labels,
+                            t.batch_size, print_line=False)
+            got = _stacked_launches(t, model, nodes, labels, counted)
+            _assert_same_eval(got, want)
+
+    check()
+    t.run_epoch(model, opt, 1)
+    check()
+    model.load_state_dict(saved)
+    check()
+    r = t.predict_runner(model)
+    nb = sum(-(-len(n) // t.batch_size) for n, _ in splits)
+    assert (r.captures, r.eager_steps, r.replays) == (1, 1, 3 * nb - 1)
+    per = r.replay_launches
+    assert r.card_launches(counted) == {k: 3 * nb * n for k, n in
+                                        per.items()}
+    if lane in ("fused", "gcn", "sage"):
+        assert per["window_gather"] == 1
+    if lane == "relation":
+        assert per["window_gather"] == 3
+    if lane == "learned":
+        assert per["mask_build"] == 3 and per["window_gather"] == 0
+    if lane in ("hub", "hub_no_stores", "gcn_hub", "csr"):
+        assert per["ragged_gather"] >= 1
+    assert r.pool_bytes > 0
+
+
+def test_captured_evaluate_makes_no_host_sync(card, tmp_path, monkeypatch):
+    """After the capture, the forwards of a stack run under
+    ``set_sync_debug_mode("error")``; a whole evaluate syncs once (the
+    read-back of its probabilities) on a graph without hubs and twice on
+    one with hubs (and the hub plan's)."""
+    for lane, syncs in (("fused", 1), ("hub", 2)):
+        t = _lane_trainer(tmp_path, monkeypatch, lane)
+        model = t.new_model()
+        t.evaluate(model, t.idx_valid, t.y_valid, print_line=False)
+        r = t.predict_runner(model)
+        stack = t._stack(t.idx_valid)
+        torch.cuda.synchronize()
+        if lane == "fused":
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                probs = r.run(stack)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            assert bool(torch.isfinite(probs).all())
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                t.evaluate(model, t.idx_valid, t.y_valid, print_line=False)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        seen = [str(w.message) for w in caught
+                if "synchroniz" in str(w.message)]
+        assert len(seen) == syncs, (lane, seen)
+        assert r.captures == 1
+
+
+@pytest.mark.parametrize("lane", sorted(_LANES))
+def test_a_train_captures_the_forward_once(card, tmp_path, monkeypatch,
+                                           lane):
+    """``train()`` with a validation every epoch and the restore-best test
+    replays one captured forward: one capture for validation and test
+    together, and the test's metrics are the eager evaluate's of the
+    restored model."""
+    from pcgnn_tpu_torch.train.metrics import evaluate
+    t = _lane_trainer(tmp_path, monkeypatch, lane)
+    t.config.update(epochs=2, valid_epochs=1)
+    auc, recall, f1 = t.train()
+    r = t.predict_runner(t.model)
+    nv, nt = (-(-len(n) // t.batch_size) for n in (t.idx_valid, t.idx_test))
+    assert (r.captures, r.replays) == (1, 2 * nv + nt - 1)
+    want = evaluate(lambda b: t.predict(t.model, b), t.idx_test, t.y_test,
+                    t.batch_size, print_line=False)
+    assert (auc, recall, f1) == (want.auc, want.recall, want.f1_macro)
+
