@@ -124,12 +124,14 @@ Phase 11 also times the learned steps in the same turns.  Then:
  23. the sharded step (``pcgnn_tpu_torch.parallel``): two gloo ranks,
      children of this script (``--sharded-rank``), share cuda:0 at
      (data 1, graph 2).  (b) They train yelp-like for 2 epochs as
-     ``distributed: true`` ranks through ``pcgnn_tpu_torch.cli``: test AUC
-     above 0.5 and equal on both ranks, the first epoch's mean loss within
-     rtol 1e-4 of this process's run.  (a) On graphs this process saves
-     meanwhile, each of ``SHARD_CASES`` (yelp-like fused and per-relation
-     store lanes, yelp-skew with stores and without, GCN and GraphSAGE on
-     amazon_new-like) on the first epoch's batch with the most hub rows:
+     ``distributed: true`` ranks through ``pcgnn_tpu_torch.cli`` (captured
+     steps and evaluates, the default on CUDA): test AUC above 0.5 and
+     equal on both ranks, the first epoch's mean loss within rtol 1e-4 of
+     this process's run, a fused fetch a step on the card.  (a) On graphs
+     this process saves meanwhile, each of ``SHARD_CASES`` (yelp-like
+     fused and per-relation store lanes, yelp-skew with stores and
+     without, GCN and GraphSAGE on amazon_new-like) on the first epoch's
+     batch with the most hub rows:
      loss and gradients against this process's single-rank step (as in
      6), parameters bit-equal on both ranks after 3 steps, the lanes'
      kernels launched (the masked fetch, kernel 1c, counted apart);
@@ -137,14 +139,27 @@ Phase 11 also times the learned steps in the same turns.  Then:
      version.  Each rank reports step ms, launches, collectives and bytes
      by axis, host round trips and peak memory a step.  Kernel 1c is then
      checked and timed here at that lane's shape, and (c) a 1-rank NCCL
-     group initializes, all-reduces, and steps at (1, 1) exactly as the
-     single-rank step.  Two ranks on one card give no scaling number.
+     group initializes, all-reduces, and its captured steps at (1, 1) --
+     one piece a step, no collective -- equal the single-rank captured
+     steps exactly.  Two ranks on one card give no scaling number.
      Each case also runs with the collectives async (``RankMesh.overlap``,
      the default) and blocking: loss and gradients from the same weights
      must be the same bits; 8 steps timed in turns (on, off, off, on, ...),
      the host syncs of one step each way, and one profiled step each way
      with the kernel launches between each async collective's issue and its
-     wait (``launches_between_markers``);
+     wait (``launches_between_markers``).  (d) Each case then trains
+     through its rank's ``Trainer`` (the case's configuration as a
+     ``distributed: true`` rank) eagerly and captured -- the sharded step
+     as pieces cut at its collectives (``train.capture.PieceGraph``) --
+     from the same weights in turns (eager, captured, captured, eager;
+     ``SHARD_CAPTURE_STEPS`` steps a turn), overlap on and off: losses,
+     parameters and Adam state bit-equal after the second and fourth
+     turns, and the captured evaluate of the validation split bit-equal to
+     the eager per-batch one.  Each rank reports step ms on CUDA events
+     each way, pieces and collectives a step, gloo's host round trips a
+     step apart from the hub plan's collective and read-back a stack, the
+     kernels the card ran (``card_launches``), capture seconds and
+     graph-pool bytes;
  24. ``synthetic:stress-10m`` (BASELINE.json config 5: 10M nodes, F = 64,
      directed relations of 130M / 70M / 30M CSR edges), built on the host
      through the native graph core, and trained at full width for one
@@ -1207,7 +1222,7 @@ def main_path_phase(t) -> dict:
         losses.append(float(t.run_epoch(model, opt, epoch)))
     step_ms = timer.step_ms()
     wrapper = {k: m.launches for k, m in mods.items()}
-    if wrapper != {k: 2 * n for k, n in runner.captured_launches.items()}:
+    if wrapper != {k: 2 * runner.captured_launches[k] for k in wrapper}:
         raise AssertionError(f"the wrappers counted {wrapper} outside the "
                              f"warm-up steps and captures "
                              f"{runner.captured_launches}")
@@ -2905,6 +2920,8 @@ def single_step_phase(t, card: str, label: str = "phase 22") -> dict:
 # one card and one host
 SHARD_RANKS = 2
 SHARD_STEPS = 3
+# phase 23(d): steps of each turn, eager and captured
+SHARD_CAPTURE_STEPS = 4
 SHARD_TIMEOUT_S = 600.0
 # case: (graph file, model, edge_windows, fused record table)
 SHARD_CASES = {
@@ -2950,16 +2967,155 @@ def sharded_cli_config(port: int, rank: int) -> dict:
                 dist_backend="gloo")
 
 
+def sharded_case_trainer(g, name: str, port: int, rank: int, work: str):
+    """This rank's ``Trainer`` of one phase-23 case on graph ``g`` (no
+    stores; the trainer shards it and builds its block's stores): the
+    case's configuration as a ``distributed: true`` rank of the running
+    gloo group at (1, 2); the per-relation store lane has no fused
+    table."""
+    from pcgnn_tpu_torch.train.results import ResultManager
+    from pcgnn_tpu_torch.train.trainer import Trainer
+    gkey, model_name, ew, fused = SHARD_CASES[name]
+    cfg = {"PCGNN": BENCH_CFG, "GCN": GCN_CFG, "SAGE": SAGE_CFG}[model_name]
+    cfg = dict(cfg, edge_windows=ew, distributed=True,
+               coordinator_address=f"localhost:{port}",
+               num_processes=SHARD_RANKS, process_id=rank,
+               mesh_graph=SHARD_RANKS, dist_backend="gloo")
+    root = os.path.join(work, f"case{rank}-{gkey}-{model_name}")
+    t = Trainer(cfg, graph=g, device="cuda:0",
+                result=ResultManager(cfg, root=root))
+    if not fused:
+        t.sharded = dataclasses.replace(t.sharded, fused=None, fused_off=())
+    return t
+
+
+def sharded_capture_turns(t) -> dict:
+    """Phase 23(d) on one case, on this rank: for the collectives async and
+    blocking, ``SHARD_CAPTURE_STEPS`` steps eager and the same steps
+    captured, each from the same initial weights, in turns (eager,
+    captured, captured, eager); after the second and the fourth turn the
+    two must hold the same bits (losses, parameters, Adam state).  The
+    captured run's second turn is replays only: its host syncs
+    (``count_syncs``: the hub plan's read-back, one a stack with hubs) and
+    gloo's round trips (the collectives' count in ``mesh.stats``, the
+    plan's one graph collective apart).  Then the validation split
+    evaluated eagerly (``Trainer.predict`` a batch) and captured
+    (``Trainer.evaluate``) twice, the first with the capture: the same
+    probabilities, bit for bit.  Returns
+    each schedule's step ms (CUDA events; the captured run's warm-up step
+    left out), pieces and collectives a step, syncs and round trips, the
+    kernels the card ran a step, capture seconds and graph-pool bytes,
+    and the evaluates' seconds."""
+    from pcgnn_tpu_torch.train.metrics import evaluate
+    from pcgnn_tpu_torch.parallel.spmd import plan_relations
+    stack = capture_stack(t, SHARD_CAPTURE_STEPS)
+    hubs = any(sh.has_hubs for sh in plan_relations(t.sharded))
+    out = {}
+    mesh = t.mesh
+    for overlap in (True, False):
+        t.sharded = dataclasses.replace(t.sharded, mesh=dataclasses.replace(
+            mesh, overlap=overlap))
+        runs = {}
+        for capture in (False, True):
+            t.capture = capture
+            model = t.new_model()
+            opt = t.new_optimizer(model)
+            r = t.runner(model, opt)
+            r.step_hook = StepEvents(r)
+            runs[capture] = [model, opt, r, None]
+        t.capture, t._runner = True, None
+        rec = {}
+        for i, capture in enumerate((False, True, True, False)):
+            model, opt, r, _ = runs[capture]
+            if i == 2:
+                was = mesh.stats.snapshot()
+                got = []
+                rec["explicit_syncs_per_stack"] = count_syncs(
+                    lambda: got.append(r.run(*stack)))
+                runs[capture][3] = got[0]
+                now = mesh.stats.snapshot()
+                rec["gloo_round_trips_per_stack"] = (
+                    now["host_syncs"] - was["host_syncs"])
+                rec["collectives_per_stack"] = {
+                    a: now["calls"][a] - was["calls"][a]
+                    for a in now["calls"]}
+            else:
+                runs[capture][3] = r.run(*stack)
+            torch.cuda.synchronize()
+            if i in (1, 3) and not same_bits(
+                    [runs[False][0], runs[False][1], runs[False][3]],
+                    [runs[True][0], runs[True][1], runs[True][3]]):
+                raise AssertionError(
+                    f"{run_name(t)} (overlap {overlap}): eager and captured "
+                    f"sharded steps differ after "
+                    f"{SHARD_CAPTURE_STEPS * (i + 1) // 2} steps")
+        r = runs[True][2]
+        steps = SHARD_CAPTURE_STEPS
+        # the plan's owner pick (with hubs and dg > 1) is the stack's one
+        # collective outside the replays
+        plan_calls = int(hubs and mesh.dg > 1)
+        rec.update({
+            "step_ms_median": {
+                "eager": float(np.median(runs[False][2].step_hook.step_ms())),
+                "captured": float(np.median(r.step_hook.step_ms()[1:]))},
+            "pieces": r.pieces, "collectives": r.collectives,
+            "captures": r.captures, "capture_s": r.capture_s,
+            "graph_pool_bytes": r.pool_bytes,
+            "card_launches_per_step": dict(r.replay_launches),
+            "plan_collectives_per_stack": plan_calls,
+            "gloo_round_trips_per_step":
+                (rec["gloo_round_trips_per_stack"] - plan_calls) / steps,
+            "hub_plans": r.plans})
+        if r.captures != 1 or r.pieces < 2 \
+                or rec["explicit_syncs_per_stack"] != int(hubs) \
+                or rec["gloo_round_trips_per_step"] != r.collectives:
+            raise AssertionError(f"{run_name(t)} (overlap {overlap}): the "
+                                 f"captured sharded run: {rec}")
+        # the validation split, eager a batch and captured
+        model = runs[True][0]
+        for k in list(runs):
+            runs[k] = None
+        t1 = time.perf_counter()
+        want = evaluate(lambda b: t.predict(model, b), t.idx_valid,
+                        t.y_valid, t.batch_size, print_line=False)
+        eager_s = time.perf_counter() - t1
+        captured_s = []
+        for _ in range(2):
+            t1 = time.perf_counter()
+            got = t.evaluate(model, t.idx_valid, t.y_valid, print_line=False)
+            captured_s.append(time.perf_counter() - t1)
+            if not (np.array_equal(got.anomaly_confidence,
+                                   want.anomaly_confidence)
+                    and got.auc == want.auc):
+                raise AssertionError(f"{run_name(t)} (overlap {overlap}): "
+                                     f"the captured sharded evaluate "
+                                     f"differs (AUC {got.auc} against "
+                                     f"{want.auc})")
+        pr = t.predict_runner(model)
+        # the first captured evaluate holds the capture, the second
+        # replays only
+        rec["evaluate"] = {"auc": got.auc, "eager_s": eager_s,
+                           "captured_s": captured_s,
+                           "capture_s": pr.capture_s, "pieces": pr.pieces,
+                           "collectives": pr.collectives,
+                           "graph_pool_bytes": pr.pool_bytes,
+                           "batches": eval_batches(t)}
+        t._predict_runner = None
+        out["on" if overlap else "off"] = rec
+    t.sharded = dataclasses.replace(t.sharded, mesh=mesh)
+    return out
+
+
 def sharded_rank_main(argv) -> int:
     """One rank of phase 23 (``chip_smoke.py --sharded-rank R PORT WORK``):
     (b) the distributed trainer through the CLI, then (a) each case's
     sharded loss, gradients and 3 steps on the graphs the parent saved,
     with kernel launches, collectives, host syncs, step times and peak
-    memory; results to ``WORK/rank<R>.pt``."""
+    memory, and (d) its eager and captured steps and evaluates in turns;
+    results to ``WORK/rank<R>.pt``."""
     from pcgnn_tpu_torch import cli
     from pcgnn_tpu_torch.models import build_model
     from pcgnn_tpu_torch.parallel import spmd
-    from pcgnn_tpu_torch.parallel.mesh import make_mesh
     from pcgnn_tpu_torch.train.trainer import make_optimizer
     rank, port, work = int(argv[0]), int(argv[1]), argv[2]
     torch.cuda.set_device(0)
@@ -2968,11 +3124,14 @@ def sharded_rank_main(argv) -> int:
     from pcgnn_tpu_torch.ops import window_gather as wg
     out = {"rank": rank}
 
-    def counts():
-        return {"window_gather": wg.launches - wg.masked_launches,
-                "window_gather_masked": wg.masked_launches,
-                "ragged_gather": mods["ragged_gather"].launches,
-                "mask_build": mods["mask_build"].launches}
+    def counts(runners=()):
+        """The kernels the card ran since ``zero_counts`` (through
+        ``runners``), the masked fetch (kernel 1c) apart from kernel 1."""
+        c = card_launches({k: m.launches for k, m in mods.items()}
+                          | {"window_gather_masked": wg.masked_launches},
+                          runners)
+        c["window_gather"] -= c["window_gather_masked"]
+        return c
 
     def zero_counts():
         for m in mods.values():
@@ -2998,17 +3157,25 @@ def sharded_rank_main(argv) -> int:
     t1 = time.time()
     zero_counts()
     try:
-        auc, _, _ = cli.main(["--exp_config_path", cfg_path,
-                              "--device", "cuda:0"])
+        with runners_made() as cli_runners:
+            auc, _, _ = cli.main(["--exp_config_path", cfg_path,
+                                  "--device", "cuda:0"])
     finally:
         os.chdir(cwd)
     tr = made[0]
+    step_rs = step_runners(cli_runners)
     out["cli"] = {"test_auc": float(auc), "seconds": time.time() - t1,
                   "epoch_losses": tr.epoch_losses,
                   "epoch_ms": [s * 1e3 for s in tr.epoch_times],
                   "steps": tr.num_batches * len(tr.epoch_losses),
-                  "mesh": tr.mesh.shape, "launches": counts()}
-    del tr, made[:]
+                  "mesh": tr.mesh.shape, "launches": counts(cli_runners),
+                  "captured": tr.capture,
+                  "pieces": [r.pieces for r in step_rs],
+                  "collectives": [r.collectives for r in step_rs],
+                  "step_ms_median": float(np.median(
+                      [ms for r in step_rs
+                       for ms in r.step_hook.step_ms()[1:]]))}
+    del tr, made[:], cli_runners, step_rs
 
     # (a) the cases, once the parent has saved the graphs and references
     ready = os.path.join(work, "ready")
@@ -3016,7 +3183,6 @@ def sharded_rank_main(argv) -> int:
         time.sleep(0.2)
     if open(ready).read() != "ok":
         return 1
-    mesh = make_mesh(data=1, graph=SHARD_RANKS)
     graphs = {}
     out["cases"] = {}
     for name, (gkey, model_name, ew, fused) in SHARD_CASES.items():
@@ -3027,10 +3193,12 @@ def sharded_rank_main(argv) -> int:
         ref = torch.load(os.path.join(work, f"case-{name}.pt"),
                          weights_only=False)
         pcgnn = model_name == "PCGNN"
+        # the case's trainer shards the graph (bf16 block stores, the
+        # fused table unless the case is the store lane) on a mesh of its
+        # own, which (a) takes too
         t1 = time.time()
-        sg = spmd.shard_graph(g, mesh, pcgnn=pcgnn, edge_windows=ew,
-                              ewin_dtype=torch.bfloat16, fused=fused,
-                              device=dev)
+        t = sharded_case_trainer(g, name, port, rank, work)
+        sg, mesh = t.sharded, t.mesh
         torch.cuda.synchronize()
         shard_s = time.time() - t1
         kw = (dict(num_relations=g.num_relations, alpha=BENCH_CFG["alpha"],
@@ -3092,8 +3260,14 @@ def sharded_rank_main(argv) -> int:
                                        mesh, pcgnn, fused)
         if not fused and ew and pcgnn:
             rec["masked_fetch"] = masked_fetch_check(sg, bt, mesh)
+        # (d) eager against captured through the trainer, counts from 0
+        del model, opt, sg
+        zero_counts()
+        with runners_made() as runners:
+            rec["captured"] = sharded_capture_turns(t)
+        rec["captured_launches"] = counts(runners)
         out["cases"][name] = rec
-        del sg
+        del t, runners
         torch.cuda.empty_cache()
     torch.save(out, os.path.join(work, f"rank{rank}.pt"))
     torch.distributed.destroy_process_group()
@@ -3232,8 +3406,10 @@ def masked_fetch_check(sg, batch, mesh) -> dict:
 def nccl_phase(t, card: str) -> dict:
     """Phase 23c: a 1-rank NCCL group on cuda:0 initializes and
     all-reduces once; a Trainer joined to it trains at the (1, 1) mesh,
-    where every collective is elided, and its step equals the single-rank
-    step exactly (loss and parameters)."""
+    where every collective is elided, so its captured step is one piece
+    with no collective, and ``SHARD_CAPTURE_STEPS`` captured steps equal
+    the single-rank trainer's captured steps exactly (losses and
+    parameters)."""
     import torch.distributed as dist
 
     from pcgnn_tpu_torch.parallel.distributed import init_distributed
@@ -3256,21 +3432,25 @@ def nccl_phase(t, card: str) -> dict:
         for tr in (t, rank):
             model = tr.new_model()
             opt = tr.new_optimizer(model)
-            batches, weights = tr.epoch_plan(0)
-            loss = tr.step(model, opt, batches[0], tr.labels[batches[0]],
-                           weights[0])
-            got.append((loss, [p.detach() for p in model.parameters()]))
+            r = tr.runner(model, opt)
+            loss = r.run(*capture_stack(tr, SHARD_CAPTURE_STEPS))
+            got.append((loss, [p.detach() for p in model.parameters()], r))
         exact = bool(torch.equal(got[0][0], got[1][0]) and all(
             torch.equal(a, b) for a, b in zip(got[0][1], got[1][1])))
-        if not exact:
-            raise AssertionError(f"the (1, 1) NCCL step differs from the "
-                                 f"single-rank step: loss {got[1][0]} vs "
-                                 f"{got[0][0]}")
+        r = got[1][2]
+        if not exact or (r.pieces, r.collectives, r.captures) != (1, 0, 1):
+            raise AssertionError(f"the (1, 1) NCCL captured steps differ "
+                                 f"from the single-rank ones, or are not "
+                                 f"one piece a step: losses {got[1][0]} vs "
+                                 f"{got[0][0]}, {r.stats()}")
+        pieces = {"pieces": r.pieces, "collectives": r.collectives}
+        t._runner = rank._runner = None
+        del got, r
         calls = rank.mesh.stats.snapshot()
     finally:
         dist.destroy_process_group()
-    return {"init_s": init_s, "loss": float(got[0][0]), "exact": exact,
-            "collectives": calls, "card": card}
+    return {"init_s": init_s, "loss": float(loss[-1]), "exact": exact,
+            "captured": pieces, "collectives": calls, "card": card}
 
 
 def masked_window_case(t, refs, rate: float) -> dict:
@@ -3376,12 +3556,36 @@ def sharded_phase(trainers, gcn, sage, card: str, rate: float) -> dict:
               f"issue and wait {under}; host syncs on/off "
               f"{ov['explicit_syncs']['on']}/{ov['explicit_syncs']['off']}; "
               f"loss and gradients bit-equal ({card})", file=sys.stderr)
+        for r, rk in enumerate(c["ranks"]):
+            for sched, x in rk["captured"].items():
+                ev = x["evaluate"]
+                print(f"phase 23(d), {name} rank {r}, overlap {sched}: "
+                      f"eager and captured bit-equal after "
+                      f"{2 * SHARD_CAPTURE_STEPS} steps; step ms eager "
+                      f"{x['step_ms_median']['eager']:.3f}, captured "
+                      f"{x['step_ms_median']['captured']:.3f}; {x['pieces']} "
+                      f"pieces, {x['collectives']} collectives a step; gloo "
+                      f"round trips a step "
+                      f"{x['gloo_round_trips_per_step']:.0f}, plan "
+                      f"collectives / read-backs a stack "
+                      f"{x['plan_collectives_per_stack']} / "
+                      f"{x['explicit_syncs_per_stack']}; card launches a "
+                      f"step {x['card_launches_per_step']}; capture "
+                      f"{x['capture_s']:.2f} s, graph pool "
+                      f"{x['graph_pool_bytes'] / 2**20:.1f} MB; evaluate of "
+                      f"{ev['batches']} batches bit-equal, eager "
+                      f"{ev['eager_s']:.3f} s, captured "
+                      f"{ev['captured_s'][0]:.3f} s with its capture "
+                      f"({ev['capture_s']:.2f} s, {ev['pieces']} pieces), "
+                      f"{ev['captured_s'][1]:.3f} s replays only ({card})",
+                      file=sys.stderr)
     out["rank_log_tail"] = logs[0][-1500:]
     out["masked_case"] = masked_window_case(like, refs, rate)
     # the phase's launches by kernel, both ranks: the CLI run and every
-    # case's counted run
+    # case's counted runs, eager (a) and through the trainer (d)
     out["launches"] = {k: sum(r["cli"]["launches"][k]
                               + sum(c["launches"][k]
+                                    + c["captured_launches"][k]
                                     for c in r["cases"].values())
                               for r in ranks)
                        for k in ranks[0]["cli"]["launches"]}
@@ -3429,11 +3633,17 @@ def sharded_cli_check(ranks, like) -> dict:
     if any(c["launches"]["window_gather"] < c["steps"] for c in clis):
         raise AssertionError(f"a distributed step launched no fused fetch: "
                              f"{[c['launches'] for c in clis]}")
+    if not all(c["captured"] and min(c["pieces"]) > 1 for c in clis):
+        raise AssertionError(f"the distributed trainer did not train "
+                             f"captured pieces: {clis}")
     return {"test_auc": aucs, "first_epoch_loss": got,
             "single_first_epoch_loss": losses[0],
             "epoch_ms": [c["epoch_ms"] for c in clis],
             "steps": clis[0]["steps"], "mesh": clis[0]["mesh"],
             "launches": [c["launches"] for c in clis],
+            "pieces": [c["pieces"] for c in clis],
+            "collectives": [c["collectives"] for c in clis],
+            "step_ms_median": [c["step_ms_median"] for c in clis],
             "seconds": [c["seconds"] for c in clis]}
 
 
@@ -3482,9 +3692,27 @@ def sharded_case_check(name, ref, ranks) -> dict:
             raise AssertionError(f"{name} rank {r}: the profiler shows no "
                                  f"async collective with overlap on, or one "
                                  f"with it off: {ov['launches_between']}")
+    for r, rec in enumerate(ranks):
+        for sched, x in rec["captured"].items():
+            first = ranks[0]["captured"][sched]
+            if (x["pieces"], x["collectives"]) != (first["pieces"],
+                                                   first["collectives"]):
+                raise AssertionError(f"{name}: the ranks cut different "
+                                     f"pieces: {x} against {first}")
+        got = rec["captured_launches"]
+        if ew and fused and ranks[0]["fused"] and got["window_gather"] < 1:
+            raise AssertionError(f"{name} rank {r}: the card ran no fused "
+                                 f"fetch in (d): {got}")
+        if ew and not fused and got["window_gather_masked"] < 1:
+            raise AssertionError(f"{name} rank {r}: the card ran no masked "
+                                 f"fetch in (d): {got}")
+        if ref["hub_rows"] and got["ragged_gather"] < 1:
+            raise AssertionError(f"{name} rank {r}: the card ran no ragged "
+                                 f"gather in (d): {got}")
     keys = ("step_ms_median", "launches_per_step", "collectives_per_step",
             "gloo_host_round_trips_per_step", "explicit_syncs_per_step",
-            "peak_mem_bytes", "shard_s", "stores", "fused", "overlap")
+            "peak_mem_bytes", "shard_s", "stores", "fused", "overlap",
+            "captured", "captured_launches")
     return {"loss": ref["loss"], "hub_rows": ref["hub_rows"],
             "loss_ranks": [r["loss"] for r in ranks],
             "max_grad_diff": max(float((r["grads"][k] - g).abs().max())
@@ -4361,7 +4589,8 @@ def main() -> int:
     summary["sharded"] = {
         "scaling": sharded["scaling"], "cli": sharded["cli"],
         "nccl": {k: sharded["nccl"][k] for k in ("init_s", "exact",
-                                                 "collectives", "seconds")},
+                                                 "captured", "collectives",
+                                                 "seconds")},
         "launches": sharded["launches"],
         "cases": {case: {k: c[k] for k in ("loss", "hub_rows",
                                            "max_grad_diff", "masked_fetch")}

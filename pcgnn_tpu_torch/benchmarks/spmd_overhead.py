@@ -6,9 +6,11 @@
 
 Runs the sharded training step (``parallel.spmd.spmd_train_step``) as the
 only rank of a 1-rank ``torch.distributed`` group (NCCL on the card, gloo
-on the CPU) at the (1, 1) mesh, next to the plain single-device step
-(``Trainer.single_step``), on the same graph, batch and yelp-like
-configuration, both ``nscan`` steps a call.  The sharded trainer is
+on the CPU) at the (1, 1) mesh, next to the plain single-device step, on
+the same graph, batch and yelp-like configuration, both through
+``Trainer.single_step`` (on the card replays of the captured step; the
+1-rank group's has no collective, so it is one piece too), ``nscan``
+steps a call.  The sharded trainer is
 configured as a ``distributed: true`` rank is: bf16 sharded edge-window
 stores and the sharded fused record table.  The first call of each, from
 the same initial weights, must return the same loss (the 1-rank group

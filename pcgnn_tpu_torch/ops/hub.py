@@ -145,11 +145,21 @@ def epoch_hub_plans(relations, batches: torch.Tensor,
     """One plan per relation (None where it has no hubs) bounding every
     batch of ``batches`` [nb, B]: all relations' counts come back in ONE
     device-to-host copy, and a graph without hubs reads nothing back."""
-    heads = []
-    for rel in relations:
-        deg = rel.deg[batches] if rel.has_hubs else None
-        heads.append(None if deg is None else
-                     hub_heads(deg, deg > rel.window_width, chunk))
+    return stack_hub_plans(
+        relations, [rel.deg[batches] if rel.has_hubs else None
+                    for rel in relations], chunk, block)
+
+
+def stack_hub_plans(relations, degs, chunk: int = HUB_CHUNK,
+                    block: int = HUB_BLOCK) -> tuple:
+    """``epoch_hub_plans`` from a stack of each relation's batch degrees
+    the caller supplies (``degs[r]`` [nb, B], None where relation r has no
+    hubs; a row is a hub above ``window_width``): the sharded plan gathers
+    them from the row blocks (``parallel.spmd.spmd_epoch_hub_plans``).
+    One device-to-host copy; none when every entry is None."""
+    heads = [None if deg is None else
+             hub_heads(deg, deg > rel.window_width, chunk)
+             for rel, deg in zip(relations, degs)]
     live = [h for h in heads if h is not None]
     if not live:
         return tuple(None for _ in relations)

@@ -48,11 +48,21 @@ completion: the schedule a test reads.  Under an enabled profiler each
 issue and each wait also leaves a zero-length range,
 ``collective_issue:<name>`` and ``collective_wait:<name>``, so a trace
 shows which kernels were launched in between.
+
+Cut points.  Every collective passes through ``RankMesh._issue`` and its
+handle's ``wait``.  While a :class:`CutRecorder` is active
+(:func:`recording`: a capture of the sharded step, ``train.capture``),
+each issue and each wait of a collective is a cut point: the recorder is
+told of it and of the collective, a :class:`Collective` that can be issued
+again on the same tensors.  A collective of extent 1 issues nothing and is
+no cut.  Outside a recording nothing changes: the eager schedule and
+``CollectiveStats`` are as described above.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 from typing import Optional
 
@@ -72,6 +82,8 @@ SCHEDULE_KEPT = 64
 # the collective schedule of the RankMeshes this process builds
 # (``rank_mesh``); ``parallel.distributed`` sets it before the group exists
 _overlap = True
+# the recorder of the capture in progress in this process (``recording``)
+_recorder = None
 
 
 def set_collective_overlap(on: bool) -> None:
@@ -164,6 +176,85 @@ class Pending:
         return self._out
 
 
+class Collective:
+    """One collective of a mesh on fixed tensors: ``call(async_op)``
+    leaves its result in ``out``.  :meth:`start` counts and issues it on
+    the mesh's schedule; a capture keeps it to issue again at each replay
+    (``train.capture``)."""
+
+    def __init__(self, mesh: "RankMesh", name: str, axis: str,
+                 out: torch.Tensor, call, nbytes: int):
+        self.mesh, self.name, self.axis = mesh, name, axis
+        self.out, self.call, self.nbytes = out, call, nbytes
+
+    def start(self):
+        """Issue it: the work handle under ``mesh.overlap``, else None (it
+        completed where it was issued)."""
+        st = self.mesh.stats
+        st.calls[self.axis] += 1
+        st.bytes[self.axis] += self.nbytes
+        if self.mesh.backend == "gloo" and self.out.device.type == "cuda":
+            st.host_syncs += 1
+        if not self.mesh.overlap:
+            self.call(False)
+            st.issued += 1
+            return None
+        st.async_calls[self.axis] += 1
+        _marker("collective_issue", self.name)
+        work = self.call(True)
+        st.issued += 1
+        return work
+
+
+class CutRecorder:
+    """What happens at the cut points of a recording (:func:`recording`).
+    This base captures nothing: it logs each cut, ``(kind, name, axis)``
+    with kind ``issue`` (async), ``call`` (blocking) or ``wait``, and
+    runs the collective where it stands -- the dry mode, which also runs
+    on the CPU.  ``train.capture.PieceGraph`` ends a CUDA graph at each
+    cut instead and keeps the collective for its replays."""
+
+    def __init__(self):
+        self.cuts = []
+
+    def issue(self, op: Collective):
+        """A collective is issued: returns its work handle (None when it
+        completed)."""
+        self.cuts.append(("issue" if op.mesh.overlap else "call", op.name,
+                          op.axis))
+        return op.start()
+
+    def wait(self, op: Collective, work) -> None:
+        """The step waits for a collective ``issue`` returned ``work``
+        for."""
+        self.cuts.append(("wait", op.name, op.axis))
+        work.wait()
+
+
+class _Cut:
+    """The work handle of a recorded collective: its wait is a cut."""
+
+    def __init__(self, recorder: CutRecorder, op: Collective, work):
+        self.recorder, self.op, self.work = recorder, op, work
+
+    def wait(self) -> None:
+        self.recorder.wait(self.op, self.work)
+
+
+@contextlib.contextmanager
+def recording(recorder: CutRecorder):
+    """Make ``recorder`` the process's recorder for the block: every
+    collective issued and waited in it is a cut point.  One at a time."""
+    global _recorder
+    if _recorder is not None:
+        raise RuntimeError("a recording is already in progress")
+    _recorder = recorder
+    try:
+        yield recorder
+    finally:
+        _recorder = None
+
+
 def _marker(kind: str, name: str) -> None:
     """A zero-length profiler range, only when a profiler records."""
     if torch.autograd._profiler_enabled():
@@ -218,21 +309,18 @@ class RankMesh:
     def _issue(self, name: str, axis: str, out: torch.Tensor, call,
                nbytes: int) -> Pending:
         """Count and issue one collective, ``call(async_op)``, which leaves
-        its result in ``out``."""
-        st = self.stats
-        st.calls[axis] += 1
-        st.bytes[axis] += nbytes
-        if self.backend == "gloo" and out.device.type == "cuda":
-            st.host_syncs += 1
-        if not self.overlap:
-            call(False)
-            st.issued += 1
-            return Pending(st, name, out)
-        st.async_calls[axis] += 1
-        _marker("collective_issue", name)
-        work = call(True)
-        st.issued += 1
-        return Pending(st, name, out, work, keep=call)
+        its result in ``out``; while a recording is active, hand it to the
+        recorder instead (a cut point)."""
+        op = Collective(self, name, axis, out, call, nbytes)
+        rec = _recorder
+        if rec is not None:
+            work = rec.issue(op)
+            return Pending(None, name, out,
+                           None if work is None else _Cut(rec, op, work),
+                           keep=op)
+        work = op.start()
+        return Pending(self.stats, name, out, work,
+                       keep=None if work is None else call)
 
     def _sum_async(self, t: torch.Tensor, group, axis: str,
                    name: str) -> Pending:

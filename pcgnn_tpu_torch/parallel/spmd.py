@@ -26,7 +26,9 @@ Per relation one of three lanes, as in the JAX package:
   hub lane (rows above the window cap): every graph rank runs the same
     choose sweep over the replicated hub sub-CSR (kernel 2 fetches each
     chunk's edge tails) and sums the neighbors in its own block; the graph
-    leader alone adds the replicated minor band.
+    leader alone adds the replicated minor band.  Its chunks come from the
+    caller's ``hub_plans`` (one plan a stack of batches,
+    :func:`spmd_epoch_hub_plans`), or from the batch's own, read back.
 
 Collectives are batched as in the JAX package: one packed [Bd, 4R]
 metadata sum, one packed keep-minor sum over the fast lanes, one packed
@@ -71,7 +73,8 @@ from pcgnn_tpu_torch.ops.aggregate import (
     window_sum_from_gathered,
 )
 from pcgnn_tpu_torch.ops.hub import (HUB_BLOCK, HUB_CHUNK, chunk_minor_band,
-                                     keep_nearest_switch, run_hub_chunks)
+                                     keep_nearest_switch, run_hub_chunks,
+                                     stack_hub_plans)
 from pcgnn_tpu_torch.ops.ragged_gather import ragged_gather
 from pcgnn_tpu_torch.ops.window_gather import window_gather
 from pcgnn_tpu_torch.parallel.mesh import RankMesh
@@ -451,14 +454,16 @@ def spmd_hub_sum(sh: ShardedRel, mesh: RankMesh, is_hub: torch.Tensor,
                  tp_block: Optional[torch.Tensor] = None,
                  minor_ctx: Optional[tuple] = None,
                  labels: Optional[torch.Tensor] = None, rho: float = 0.5,
-                 chunk: int = HUB_CHUNK, block_w: int = HUB_BLOCK):
+                 plan=None, chunk: int = HUB_CHUNK,
+                 block_w: int = HUB_BLOCK):
     """Choose and partial sum over the hub rows (the sharded form of
     ``ops.hub.hub_choose_sum``).
 
     The hub sub-CSR is replicated and the scores ``s0_full`` are global, so
     every graph rank plans and sweeps the same chunks (``ops.hub``'s
-    ``run_hub_chunks`` with this batch's own plan: one read-back per call)
-    and keeps the same neighbors; only the feature sum
+    ``run_hub_chunks`` at ``plan``, the same on every rank of the graph
+    group, :func:`spmd_epoch_hub_plans`; None plans this batch: one
+    read-back per call) and keeps the same neighbors; only the feature sum
     is local (neighbors in this block), so the packed output sum completes
     it.  ``tp_block`` [block] marks this block's valid train positives for
     the duplicate-minor subtraction, done by the rank that added the
@@ -500,19 +505,20 @@ def spmd_hub_sum(sh: ShardedRel, mesh: RankMesh, is_hub: torch.Tensor,
             num_c, cnt_c = num_c + mnum, cnt_c + mcnt
         return num_c, cnt_c
 
-    return run_hub_chunks(deg_b, is_hub, None, chunk, block_w, x, f,
+    return run_hub_chunks(deg_b, is_hub, plan, chunk, block_w, x, f,
                           chunk_fn)
 
 
 def spmd_hub_mean(sh: ShardedRel, is_hub: torch.Tensor, deg_b: torch.Tensor,
                   hslot: torch.Tensor, x_local: torch.Tensor, col_lo: int,
-                  batch: torch.Tensor, *, include_self: bool,
+                  batch: torch.Tensor, *, include_self: bool, plan=None,
                   chunk: int = HUB_CHUNK, block_w: int = HUB_BLOCK):
     """All-neighbor partial sums over hub rows (the sharded form of
     ``ops.hub.hub_mean_sum``, for GraphSAGE and GCN; no choose).  Every
-    graph rank sweeps the same full lists and sums the neighbors in its
-    block; the conditional self row is added by the row's block owner.
-    Sums in float64, rounded once per rank."""
+    graph rank sweeps the same full lists, at ``plan`` (None: this
+    batch's own, one read-back), and sums the neighbors in its block; the
+    conditional self row is added by the row's block owner.  Sums in
+    float64, rounded once per rank."""
     x = x_local.detach()
     block, f = x.shape
 
@@ -540,8 +546,44 @@ def spmd_hub_mean(sh: ShardedRel, is_hub: torch.Tensor, deg_b: torch.Tensor,
             cnt_c = cnt_c + miss
         return num_c, cnt_c
 
-    return run_hub_chunks(deg_b, is_hub, None, chunk, block_w, x, f,
+    return run_hub_chunks(deg_b, is_hub, plan, chunk, block_w, x, f,
                           chunk_fn)
+
+
+def plan_relations(sg: ShardedGraph) -> tuple:
+    """The relations a sharded model's hub lanes plan: PC-GNN's shards, or
+    the homo graph's of GCN and GraphSAGE (``model.hub_relations`` on one
+    device)."""
+    return sg.shards if sg.homo is None else (sg.homo,)
+
+
+def spmd_epoch_hub_plans(sg: ShardedGraph, batches: torch.Tensor,
+                         chunk: int = HUB_CHUNK,
+                         block: int = HUB_BLOCK) -> tuple:
+    """The hub plans of a stack of full batches [n, B] for this rank's
+    blocks [n, Bd] (the sharded ``ops.hub.epoch_hub_plans``; the JAX body
+    plans each batch inside its ``while_loop``): each graph rank reads the
+    degrees of the rows it owns, for every relation with hubs, and ONE
+    owner pick over the graph axis publishes them all; then ONE read-back
+    of the heads (``ops.hub.stack_hub_plans``).  Every rank of a graph
+    group holds the same blocks and so gets the same plans; a graph
+    without hubs issues nothing and reads nothing back.  One plan per
+    :func:`plan_relations` entry, None where it has no hubs."""
+    rels = plan_relations(sg)
+    hubs = [r for r, sh in enumerate(rels) if sh.has_hubs]
+    if not hubs:
+        return tuple(None for _ in rels)
+    mesh = sg.mesh
+    blocks = mesh.batch_block(batches.t()).t()                 # [n, Bd]
+    local = (blocks - sg.col_lo).reshape(-1)
+    mine = (local >= 0) & (local < sg.block)
+    lclip = local.clamp(0, sg.block - 1)
+    degs = mesh.owner_pick(mine, torch.stack(
+        [rels[r].deg[lclip] for r in hubs], dim=1))       # [n * Bd, H]
+    degs = degs.view(*blocks.shape, len(hubs))
+    return stack_hub_plans(
+        rels, [degs[..., hubs.index(r)] if r in hubs else None
+               for r in range(len(rels))], chunk, block)
 
 
 # ------------------------------------------------------------------ PC-GNN
@@ -551,7 +593,8 @@ def spmd_forward(model, sg: ShardedGraph, batch: torch.Tensor,
                  train_pos: Optional[torch.Tensor] = None,
                  train_pos_valid: Optional[torch.Tensor] = None,
                  train_pos_feats: Optional[torch.Tensor] = None,
-                 fused: bool = True, record: Optional[dict] = None):
+                 fused: bool = True, record: Optional[dict] = None,
+                 hub_plans: Optional[tuple] = None):
     """This rank's (gnn_logits [Bd, C], center_scores [Bd, C]) for its
     block of the full [B] ``batch`` (and ``batch_labels``, read in
     training: fraud centers get oversampled minors).
@@ -565,6 +608,9 @@ def spmd_forward(model, sg: ShardedGraph, batch: torch.Tensor,
     selection: ``kept<r>`` [Bd, D] kept window ids + 1 (0 = none; a fast
     lane publishes them for this with one more graph sum),
     ``keep_minor<r>`` [Bd, M] over ``cand_ids``, and ``cnt<r>``.
+    ``hub_plans`` (one per relation, :func:`spmd_epoch_hub_plans`) fixes
+    the hub lanes' chunks, so nothing is read back; None plans this
+    batch, one read-back per hub relation.
 
     Schedule: the self-row, train-positive and metadata owner picks and the
     score gather are issued first and waited just before their first use;
@@ -716,7 +762,8 @@ def spmd_forward(model, sg: ShardedGraph, batch: torch.Tensor,
             h_num, h_cnt = spmd_hub_sum(
                 sh, mesh, is_hub, deg_b, hslot, s0_h.wait(), center_s0,
                 x_local, col_lo, tp_block=tp_block, minor_ctx=minor_ctx,
-                labels=y, rho=model.rho)
+                labels=y, rho=model.rho,
+                plan=None if hub_plans is None else hub_plans[r])
             num, cnt = num + h_num, cnt + h_cnt     # disjoint row sets
         rel_sums.append([num, cnt, keep_minor])
 
@@ -780,7 +827,7 @@ def _data_mean(mesh: RankMesh, ces: list, w: torch.Tensor,
 def spmd_loss(model, sg: ShardedGraph, batch, batch_labels, batch_weight,
               train_pos, train_pos_valid, *,
               train_pos_feats: Optional[torch.Tensor] = None,
-              fused: bool = True):
+              fused: bool = True, hub_plans: Optional[tuple] = None):
     """(loss, local) of the joint weighted-mean CE
     ``CE(gnn) + alpha * CE(scores)`` over the full batch (see
     :func:`_data_mean`; the JAX package sums ``(ce_gnn + alpha * ce_lab)
@@ -790,7 +837,7 @@ def spmd_loss(model, sg: ShardedGraph, batch, batch_labels, batch_weight,
     gnn_logits, center_scores = spmd_forward(
         model, sg, batch, batch_labels, train=True, train_pos=train_pos,
         train_pos_valid=train_pos_valid, train_pos_feats=train_pos_feats,
-        fused=fused)
+        fused=fused, hub_plans=hub_plans)
     y = sg.mesh.batch_block(batch_labels)
     return _data_mean(sg.mesh, [int_label_ce(gnn_logits, y),
                                 int_label_ce(center_scores, y)],
@@ -798,21 +845,23 @@ def spmd_loss(model, sg: ShardedGraph, batch, batch_labels, batch_weight,
 
 
 def spmd_predict(model, sg: ShardedGraph, batch, train_pos=None,
-                 train_pos_valid=None, *, fused: bool = True):
+                 train_pos_valid=None, *, fused: bool = True,
+                 hub_plans: Optional[tuple] = None):
     """[B, 2] sigmoid of the GNN head for the full ``batch``, on every
     rank (gathered over the data axes)."""
     with torch.no_grad():
         gnn_logits, _ = spmd_forward(model, sg, batch, None, train=False,
                                      train_pos=train_pos,
                                      train_pos_valid=train_pos_valid,
-                                     fused=fused)
+                                     fused=fused, hub_plans=hub_plans)
         return sg.mesh.data_gather(torch.sigmoid(gnn_logits))
 
 
 # --------------------------------------------------------------- baselines
 
 def spmd_homo_forward(model, sg: ShardedGraph, batch: torch.Tensor, *,
-                      generator: Optional[torch.Generator] = None):
+                      generator: Optional[torch.Generator] = None,
+                      hub_plans: Optional[tuple] = None):
     """This rank's logits [Bd, C] of GraphSAGE or GCN for its block of the
     full [B] ``batch`` (the JAX SPMD homo body, ``spmd.py:1000-1085``):
     one owner-computes window lane (store, kernel 1c at dg > 1, or plain)
@@ -820,7 +869,9 @@ def spmd_homo_forward(model, sg: ShardedGraph, batch: torch.Tensor, *,
     sqrt-count (GCN) normalization.  GraphSAGE's ``num_sample`` draws the
     full [B, D] priorities from ``generator`` on every rank (seeded alike,
     so the draw is replicated) and takes this block's rows, the draw the
-    single-device model makes for the same batch."""
+    single-device model makes for the same batch.  ``hub_plans`` (one
+    entry, :func:`spmd_epoch_hub_plans`) fixes the hub lane's chunks; None
+    plans this batch, one read-back."""
     from pcgnn_tpu_torch.models.gcn import GCN
 
     mesh = sg.mesh
@@ -896,8 +947,10 @@ def spmd_homo_forward(model, sg: ShardedGraph, batch: torch.Tensor, *,
                                     block, x_local)
             num, cnt = num + pn, cnt + pc
     if sh.has_hubs:
-        h_num, h_cnt = spmd_hub_mean(sh, is_hub, deg_b, hslot, x_local,
-                                     col_lo, batch, include_self=gcn_style)
+        h_num, h_cnt = spmd_hub_mean(
+            sh, is_hub, deg_b, hslot, x_local, col_lo, batch,
+            include_self=gcn_style,
+            plan=None if hub_plans is None else hub_plans[0])
         num, cnt = num + h_num, cnt + h_cnt
     f = x_local.shape[1]
     out = mesh.graph_sum(torch.cat([num, cnt[:, None]], dim=1))
@@ -912,23 +965,29 @@ def spmd_homo_forward(model, sg: ShardedGraph, batch: torch.Tensor, *,
 
 def spmd_homo_loss(model, sg: ShardedGraph, batch, batch_labels,
                    batch_weight, *,
-                   generator: Optional[torch.Generator] = None):
+                   generator: Optional[torch.Generator] = None,
+                   hub_plans: Optional[tuple] = None):
     """(loss, local) of the weighted-mean CE of GraphSAGE or GCN over the
     full batch (:func:`_data_mean`)."""
     from pcgnn_tpu_torch.models.lossfns import int_label_ce
 
-    logits = spmd_homo_forward(model, sg, batch, generator=generator)
+    logits = spmd_homo_forward(model, sg, batch, generator=generator,
+                               hub_plans=hub_plans)
     ce = int_label_ce(logits, sg.mesh.batch_block(batch_labels))
     return _data_mean(sg.mesh, [ce], sg.mesh.batch_block(batch_weight))
 
 
-def spmd_homo_predict(model, sg: ShardedGraph, batch) -> torch.Tensor:
+def spmd_homo_predict(model, sg: ShardedGraph, batch, *,
+                      generator: Optional[torch.Generator] = None,
+                      hub_plans: Optional[tuple] = None) -> torch.Tensor:
     """[B, 2] probabilities for the full ``batch`` on every rank: a
-    sigmoid for GCN, a softmax for GraphSAGE."""
+    sigmoid for GCN, a softmax for GraphSAGE (its draws from
+    ``generator``, by default a fresh one seeded 0)."""
     from pcgnn_tpu_torch.models.gcn import GCN
 
     with torch.no_grad():
-        logits = spmd_homo_forward(model, sg, batch)
+        logits = spmd_homo_forward(model, sg, batch, generator=generator,
+                                   hub_plans=hub_plans)
         probs = (torch.sigmoid(logits) if isinstance(model, GCN)
                  else torch.softmax(logits, dim=-1))
         return sg.mesh.data_gather(probs)
@@ -956,20 +1015,25 @@ def data_sum_grads(model, mesh: RankMesh) -> None:
 
 def spmd_train_step(model, optimizer, sg: ShardedGraph, batch, y, w,
                     consts: Optional[dict] = None,
-                    generator: Optional[torch.Generator] = None
-                    ) -> torch.Tensor:
+                    generator: Optional[torch.Generator] = None,
+                    hub_plans: Optional[tuple] = None) -> torch.Tensor:
     """One sharded optimizer step on the full batch (each rank computes
     its block): loss -> local backward -> data-axis gradient sum -> Adam.
     Returns the loss (detached, the same on every rank).  PC-GNN reads the
-    train positives in ``consts`` (``tp``, ``tpv``, optional ``tpf``)."""
+    train positives in ``consts`` (``tp``, ``tpv``, optional ``tpf``);
+    ``hub_plans`` fixes the hub lanes' chunks (None: planned from this
+    batch).  This is the step that ``train.capture.StepRunner`` captures
+    for a sharded trainer, cut at its collectives."""
     optimizer.zero_grad(set_to_none=True)
     if sg.homo is None:
         loss, local = spmd_loss(model, sg, batch, y, w, consts["tp"],
                                 consts["tpv"],
-                                train_pos_feats=consts.get("tpf"))
+                                train_pos_feats=consts.get("tpf"),
+                                hub_plans=hub_plans)
     else:
         loss, local = spmd_homo_loss(model, sg, batch, y, w,
-                                     generator=generator)
+                                     generator=generator,
+                                     hub_plans=hub_plans)
     local.backward()
     data_sum_grads(model, sg.mesh)
     optimizer.step()

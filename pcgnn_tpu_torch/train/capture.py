@@ -2,11 +2,12 @@
 
 Counterpart of the JAX Trainer's compiled epoch (``pcgnn_tpu/train/
 trainer.py``: ``_epoch``, a jitted ``lax.scan`` of loss -> grad -> Adam
-over the epoch's batches; ``_epoch_block``; ``_step1``) and of its compiled
-forward (``_predict`` / ``predict_jit``).  ``StepRunner`` runs a stack of
-training steps for one (model, optimizer) pair, ``PredictRunner`` a stack
-of forwards for one model, each in one of two ways, with the same
-arithmetic:
+over the epoch's batches, on one device or over the SPMD graph;
+``_epoch_block``; ``_step1``) and of its compiled forward (``_predict`` /
+``predict_jit``, and the sharded ``spmd_predict``).  ``StepRunner`` runs a
+stack of training steps for one (model, optimizer) pair,
+``PredictRunner`` a stack of forwards for one model, each in one of two
+ways, with the same arithmetic:
 
   * captured (the default on CUDA): one step -- forward, backward and
     Adam -- or one forward is captured once as a CUDA graph and replayed
@@ -19,8 +20,9 @@ arithmetic:
   * eager (the CPU, and the card when asked): the same function per batch.
 
 Both take the hub lane's chunks from one plan for the whole stack
-(``ops.hub.epoch_hub_plans``), read back in one copy, so a batch's shapes
-are fixed and nothing in a replay reads from the card.  A runner keeps the
+(``ops.hub.epoch_hub_plans``; sharded, ``parallel.spmd.
+spmd_epoch_hub_plans``), read back in one copy, so a batch's shapes are
+fixed and nothing in a replay reads from the card.  A runner keeps the
 largest plan it has seen (``plan_union``), so both ways run every batch at
 the same widths; the graph is captured again only when a stack's plan
 exceeds the captured one (``captures`` counts them).
@@ -36,25 +38,171 @@ generator: from (seed, epoch, step) for a step, with 0 for a forward.  A
 capture that fails raises: there is no eager fallback on the card.  A graph
 reads the model's parameters where they were at its capture, so they must
 be updated in place (Adam, ``load_state_dict``), never replaced.
+
+A sharded body (``parallel.spmd``) runs collectives, which a graph cannot
+hold here: gloo's go through the host, and NCCL's, captured, would need a
+card a rank.  So the body is captured as pieces (``PieceGraph``): CUDA
+graphs cut at each collective's issue and wait (``parallel.mesh``'s cut
+points), captured in order on one stream into one memory pool, and
+replayed in that order with the collectives issued and waited between
+them, on the tensors they had at the capture.  Under the async schedule a
+collective is issued after the piece that made its input and waited
+before the piece that first reads it, so the work between still runs
+under it.  The capture itself runs no collective (the warm-up step before
+it does), so ranks that capture at different steps still issue the same
+collectives in the same order; every rank of a graph group plans alike
+and so recaptures at the same step.  A body with no collective (one
+device, or a mesh whose every axis has extent 1) is one piece.
 """
 
 from __future__ import annotations
 
+import ctypes
 import gc
 import time
+import warnings
 from typing import Optional
 
 import torch
 
 from pcgnn_tpu_torch.ops.hub import epoch_hub_plans, plan_covers, plan_union
+from pcgnn_tpu_torch.parallel.mesh import Collective, CutRecorder, recording
 
 
 def launch_counts() -> dict:
-    """Every kernel wrapper's launch count, by kernel name."""
+    """Every kernel wrapper's launch count, by kernel name; the window
+    gathers with ``active`` (kernel 1c, the sharded store lane) also
+    apart, as ``window_gather_masked``."""
     from pcgnn_tpu_torch.ops import mask_build, ragged_gather, window_gather
     return {"window_gather": window_gather.launches,
+            "window_gather_masked": window_gather.masked_launches,
             "ragged_gather": ragged_gather.launches,
             "mask_build": mask_build.launches}
+
+
+# libcuda, for the node count of a capture in progress
+_libcuda = None
+
+
+def _capture_nodes(stream: torch.cuda.Stream) -> int:
+    """The nodes captured so far into the graph that ``stream`` is
+    capturing (``libcuda.so.1``: ``cuStreamGetCaptureInfo_v2``,
+    ``cuGraphGetNodes``).  Raises when the stream is not capturing."""
+    global _libcuda
+    if _libcuda is None:
+        lib = ctypes.CDLL("libcuda.so.1")
+        lib.cuStreamGetCaptureInfo_v2.argtypes = [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
+            ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p,
+            ctypes.c_void_p]
+        lib.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                        ctypes.POINTER(ctypes.c_size_t)]
+        lib.cuStreamGetCaptureInfo_v2.restype = ctypes.c_int
+        lib.cuGraphGetNodes.restype = ctypes.c_int
+        _libcuda = lib
+    status, graph, n = ctypes.c_int(), ctypes.c_void_p(), ctypes.c_size_t()
+    rc = _libcuda.cuStreamGetCaptureInfo_v2(
+        ctypes.c_void_p(stream.cuda_stream), ctypes.byref(status), None,
+        ctypes.byref(graph), None, None)
+    # CU_STREAM_CAPTURE_STATUS_ACTIVE is 1
+    if rc != 0 or status.value != 1:
+        raise RuntimeError(f"the capture stream is not capturing (CUresult "
+                           f"{rc}, capture status {status.value})")
+    rc = _libcuda.cuGraphGetNodes(graph, None, ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"cuGraphGetNodes failed with status {rc}")
+    return n.value
+
+
+class PieceGraph(CutRecorder):
+    """A body captured as CUDA graphs cut at its collectives (module
+    docstring).  ``items`` is the replay schedule: ``("graph", g)``,
+    ``("start", collective)`` and ``("wait", collective)`` in capture
+    order.  A cut with no node captured since the last one adds no graph
+    (the cuts merge).  ``generator`` (GraphSAGE's draws) is registered
+    with every piece, so each replay draws from its seed and offset."""
+
+    def __init__(self, device: torch.device,
+                 generator: Optional[torch.Generator] = None):
+        self.items: list = []
+        self.stream = torch.cuda.Stream(device)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.generator = generator
+        self._open = None               # the piece being captured
+
+    @property
+    def pieces(self) -> int:
+        return sum(kind == "graph" for kind, _ in self.items)
+
+    @property
+    def collectives(self) -> int:
+        return sum(kind == "start" for kind, _ in self.items)
+
+    def capture(self, body) -> None:
+        """Capture ``body()`` (its collectives are cut points, and none
+        runs)."""
+        with torch.cuda.stream(self.stream), recording(self):
+            self._begin()
+            try:
+                body()
+                self._end(keep_empty=self.pieces == 0)
+            except BaseException:
+                if self._open is not None:
+                    # leave the stream out of capture mode; the body's own
+                    # error is the one raised
+                    try:
+                        self._open.capture_end()
+                    except RuntimeError:
+                        pass
+                    self._open = None
+                raise
+
+    def _begin(self) -> None:
+        g = torch.cuda.CUDAGraph()
+        if self.generator is not None:
+            g.register_generator_state(self.generator)
+        # thread_local: a gloo thread may touch the card while this one
+        # captures; nothing of it enters the graph
+        g.capture_begin(pool=self.pool, capture_error_mode="thread_local")
+        self._open = g
+
+    def _end(self, keep_empty: bool = False) -> None:
+        nodes = _capture_nodes(self.stream)
+        g, self._open = self._open, None
+        if nodes == 0 and not keep_empty:
+            # nothing to replay: the piece is dropped
+            with warnings.catch_warnings():
+                warnings.filterwarnings("ignore", "The CUDA Graph is empty")
+                g.capture_end()
+            return
+        g.capture_end()
+        self.items.append(("graph", g))
+
+    def _cut(self) -> None:
+        if _capture_nodes(self.stream):
+            self._end()
+            self._begin()
+
+    def issue(self, op: Collective):
+        self._cut()
+        self.items.append(("start", op))
+        return op if op.mesh.overlap else None
+
+    def wait(self, op: Collective, work) -> None:
+        self._cut()
+        self.items.append(("wait", op))
+
+    def replay(self) -> None:
+        """The pieces in capture order, each collective issued and waited
+        where the capture cut."""
+        works = {}
+        for kind, x in self.items:
+            if kind == "graph":
+                x.replay()
+            elif kind == "start":
+                works[x] = x.start()
+            else:
+                works.pop(x).wait()
 
 
 class GraphRunner:
@@ -62,32 +210,38 @@ class GraphRunner:
     captured or eager (module docstring); ``StepRunner`` and
     ``PredictRunner`` say what ``fn`` is and what it returns.
     ``relations`` are the ones the model's hub lanes plan
-    (``model.hub_relations``); ``rows``, the batches the static buffers
-    hold at least (a longer stack allocates them at its length)."""
+    (``model.hub_relations``), or ``planner(batches)`` gives the plans of
+    a stack (the sharded ``spmd_epoch_hub_plans``); ``rows``, the batches
+    the static buffers hold at least (a longer stack allocates them at its
+    length)."""
 
     # what the capture message calls one run of ``fn``
     what = "the function"
 
     def __init__(self, fn, relations, device: torch.device, *,
-                 capture: bool, draws: bool, rows: int = 0):
+                 capture: bool, draws: bool, rows: int = 0, planner=None):
         if capture and device.type != "cuda":
             raise ValueError(f"capturing {self.what} needs a CUDA device, "
                              f"got {device}")
         self.fn = fn
         self.relations = tuple(relations)
+        self.planner = planner or (
+            lambda batches: epoch_hub_plans(self.relations, batches))
         self.device = device
         self.capture = capture
         self.rows = rows
         self.plans: Optional[tuple] = None
         # one generator for every batch's draws, seeded before each batch
         self.generator = (torch.Generator(device=device) if draws else None)
-        self.graph = None
+        self.graph: Optional[PieceGraph] = None
         self.graph_plans: Optional[tuple] = None
         self.bufs = None                       # (*inputs, outputs)
         self.counter = torch.zeros((), dtype=torch.int64, device=device)
         # what the runs did: captures, replays, eager runs (every batch on
         # CPU; the warm-up of each capture on the card), seconds spent
-        # capturing, the graph pool's bytes; the wrapper launch counts of
+        # capturing, the graph pool's bytes, the pieces and collectives of
+        # one replay (1 and 0 without collectives); the wrapper launch
+        # counts of
         # the last capture (the kernels one replay launches), summed over
         # every capture (recorded, not run) and over every replay (run on
         # the card, not counted by the wrappers)
@@ -96,6 +250,8 @@ class GraphRunner:
         self.eager_steps = 0
         self.capture_s = 0.0
         self.pool_bytes = 0
+        self.pieces = 0
+        self.collectives = 0
         self.replay_launches: dict = {}
         self.captured_launches = dict.fromkeys(launch_counts(), 0)
         self.replayed_launches = dict.fromkeys(launch_counts(), 0)
@@ -107,7 +263,7 @@ class GraphRunner:
         """The hub plan for a stack of batches [n, B]: the stack's own
         (one read-back; none on a graph without hubs), grown to the
         largest this runner has seen."""
-        plans = epoch_hub_plans(self.relations, batches)
+        plans = self.planner(batches)
         self.plans = plans if self.plans is None else plan_union(self.plans,
                                                                  plans)
         return self.plans
@@ -205,11 +361,9 @@ class GraphRunner:
         torch.cuda.synchronize(self.device)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(self.device)
-        graph = torch.cuda.CUDAGraph()
-        if self.generator is not None:
-            # the captured draws read the generator's seed and offset at
-            # each replay, as a fresh generator of that seed would draw
-            graph.register_generator_state(self.generator)
+        # the captured draws read the generator's seed and offset at each
+        # replay, as a fresh generator of that seed would draw
+        graph = PieceGraph(self.device, self.generator)
         before = launch_counts()
         # a dead reference cycle that holds another graph or an event must
         # not be collected while this one captures: freeing it is a CUDA
@@ -218,20 +372,23 @@ class GraphRunner:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph):
-                self._body(plans)
+            graph.capture(lambda: self._body(plans))
         finally:
             if collecting:
                 gc.enable()
         after = launch_counts()
         self.graph, self.graph_plans = graph, plans
+        self.pieces, self.collectives = graph.pieces, graph.collectives
         self.replay_launches = {k: after[k] - before[k] for k in after}
         for k, c in self.replay_launches.items():
             self.captured_launches[k] += c
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
         self.captures += 1
         self.capture_s += time.perf_counter() - t0
-        print(f"Captured {self.what} as a CUDA graph (capture "
+        shape = ("a CUDA graph" if graph.pieces == 1 else
+                 f"{graph.pieces} CUDA graphs cut at "
+                 f"{graph.collectives} collectives")
+        print(f"Captured {self.what} as {shape} (capture "
               f"{self.captures}, hub plan {plans}, "
               f"{time.perf_counter() - t0:.2f} s)")
 
@@ -247,6 +404,7 @@ class GraphRunner:
         return {"captures": self.captures, "replays": self.replays,
                 "eager_steps": self.eager_steps,
                 "capture_s": self.capture_s, "pool_bytes": self.pool_bytes,
+                "pieces": self.pieces, "collectives": self.collectives,
                 "replay_launches": dict(self.replay_launches),
                 "plans": self.plans}
 

@@ -19,18 +19,21 @@ raises when CUDA is asked for and absent.  Random streams come from
 
 Epochs (``run_epoch``, ``epoch_block``, ``train``) and ``single_step`` run
 through ``train.capture.StepRunner``, the counterpart of the JAX Trainer's
-jitted epoch: on one CUDA device every step is a replay of one captured
-CUDA graph (forward, backward, Adam), with the hub lane's chunks planned
-once an epoch; on the CPU, or with ``Trainer(..., capture=False)``, the
-same steps run eagerly (``train_step``).  ``step`` is always the eager
-step, with the hub lane planned from its own batch.  Evaluations
-(``evaluate``: ``train``'s validations and final test,
+jitted epoch: on CUDA every step is a replay of one captured CUDA graph
+(forward, backward, Adam) -- sharded, of its pieces cut at the mesh's
+collectives, with the collectives run between them -- with the hub lane's
+chunks planned once an epoch; on the CPU, or with ``Trainer(...,
+capture=False)``, the same steps run eagerly (``train_step``, sharded
+``parallel.spmd.spmd_train_step``).  ``step`` is always the eager step,
+with the hub lane planned from its own batch.  Evaluations (``evaluate``:
+``train``'s validations and final test,
 ``eval_tools.threshold_transfer_eval``, ``quality_run``) run through
 ``train.capture.PredictRunner``, the counterpart of the JAX Trainer's
-``predict_jit``: on one CUDA device every batch is a replay of one captured
-forward, with the hub lane planned once a node set, and the probabilities
-are read back once; on the CPU the same forwards run eagerly.
-``predict`` is the eager forward of one batch.
+``predict_jit`` (sharded, its ``spmd_predict``): on CUDA every batch is a
+replay of one captured forward (or its pieces), with the hub lane planned
+once a node set, and the probabilities are read back once; on the CPU the
+same forwards run eagerly.  ``predict`` is the eager forward of one
+batch.
 
 Sharded training (``parallel.spmd``): the process is one rank of a
 ``torch.distributed`` group and trains over a mesh of ranks.
@@ -67,7 +70,7 @@ from pcgnn_tpu_torch.models import build_model
 from pcgnn_tpu_torch.models.pcgnn import PCGNN
 from pcgnn_tpu_torch.sampling.pick import pick_cdf, pick_probs, pick_step
 from pcgnn_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
-from pcgnn_tpu_torch.train.metrics import EvalResult, evaluate, evaluate_probs
+from pcgnn_tpu_torch.train.metrics import EvalResult, evaluate_probs
 from pcgnn_tpu_torch.train.results import ResultManager
 from pcgnn_tpu_torch.utils.profiling import trace
 
@@ -157,9 +160,9 @@ class Trainer:
     def __init__(self, config: dict, graph: Optional[MultiRelGraph] = None,
                  result: Optional[ResultManager] = None, device=None,
                  capture: Optional[bool] = None):
-        """``capture``: run epochs as replays of a captured CUDA graph
-        (``train.capture``); by default on a single CUDA device, never on
-        the CPU or sharded."""
+        """``capture``: run epochs and evaluations as replays of a
+        captured CUDA graph (``train.capture``; sharded, its pieces cut at
+        the collectives); by default on CUDA, never on the CPU."""
         self.config = dict(config)
         cfg = self.config
         self.learn_features = bool(cfg.get("learn_features"))
@@ -174,10 +177,10 @@ class Trainer:
                 "distributed or learn_features")
         self.device = resolve_device(device)
         if capture is None:
-            capture = self.device.type == "cuda" and not sharded
-        if capture and (sharded or self.device.type != "cuda"):
-            raise ValueError("capture=True needs a single CUDA device: the "
-                             "sharded step and the CPU run eagerly")
+            capture = self.device.type == "cuda"
+        if capture and self.device.type != "cuda":
+            raise ValueError("capture=True needs a single CUDA device a "
+                             "rank: the CPU runs eagerly")
         self.capture = capture
         self._runner = None
         self._predict_runner = None
@@ -380,24 +383,40 @@ class Trainer:
         g.manual_seed(self.step_seed(epoch, step))
         return g
 
+    def _planner(self):
+        """The hub plan of a stack for the runners: None (the model's
+        relations, ``ops.hub.epoch_hub_plans``) on one device, the sharded
+        plan (``parallel.spmd.spmd_epoch_hub_plans``) over the mesh."""
+        if self.sharded is None:
+            return None
+        from pcgnn_tpu_torch.parallel.spmd import spmd_epoch_hub_plans
+        sg = self.sharded
+        return lambda batches: spmd_epoch_hub_plans(sg, batches)
+
     def runner(self, model, optimizer):
         """The ``StepRunner`` of (model, optimizer): made at the first call
         for the pair, kept while the pair is the same (its captured graph
-        holds their tensors), replaced for another pair."""
+        holds their tensors), replaced for another pair.  Its step is
+        ``train_step``, or ``spmd_train_step`` on a sharded trainer."""
         from pcgnn_tpu_torch.train.capture import StepRunner
         if self._runner is not None and self._runner[0] is model \
                 and self._runner[1] is optimizer:
             return self._runner[2]
-        graph, consts = self.graph, self.consts
+        graph, consts, sg = self.graph, self.consts, self.sharded
 
         def step_fn(batch, y, w, generator, hub_plans):
+            if sg is not None:
+                from pcgnn_tpu_torch.parallel.spmd import spmd_train_step
+                return spmd_train_step(model, optimizer, sg, batch, y, w,
+                                       consts, generator, hub_plans)
             return train_step(model, optimizer, graph, batch, y, w, consts,
                               generator, hub_plans)
 
         self._runner = None           # the old graph's pool goes first
         r = StepRunner(step_fn, model.hub_relations(graph), self.device,
                        capture=self.capture,
-                       draws=getattr(model, "num_sample", None) is not None)
+                       draws=getattr(model, "num_sample", None) is not None,
+                       planner=self._planner())
         self._runner = (model, optimizer, r)
         return r
 
@@ -413,11 +432,19 @@ class Trainer:
                 and self._predict_runner[0] is model \
                 and self._predict_runner[1] == held:
             return self._predict_runner[2]
-        graph = self.graph
+        graph, sg, consts = self.graph, self.sharded, self.consts
         draws = getattr(model, "num_sample", None) is not None
 
         def predict_fn(batch, generator, hub_plans):
             kw = {"generator": generator} if draws else {}
+            if sg is not None:
+                from pcgnn_tpu_torch.parallel.spmd import (spmd_homo_predict,
+                                                           spmd_predict)
+                if self.is_pcgnn:
+                    return spmd_predict(model, sg, batch, consts["tp"],
+                                        consts["tpv"], hub_plans=hub_plans)
+                return spmd_homo_predict(model, sg, batch,
+                                         hub_plans=hub_plans, **kw)
             with torch.no_grad():
                 return model.to_prob(graph, batch, hub_plans=hub_plans,
                                      **kw)[0]
@@ -427,7 +454,8 @@ class Trainer:
         self._predict_runner = None   # the old graph's pool goes first
         r = PredictRunner(predict_fn, model.hub_relations(graph),
                           self.device, capture=self.capture, draws=draws,
-                          rows=max(len(s) for s in stacks))
+                          rows=max(len(s) for s in stacks),
+                          planner=self._planner())
         for stack in stacks:
             r.plan(stack)
         self._predict_runner = (model, held, r)
@@ -448,14 +476,12 @@ class Trainer:
     def evaluate(self, model, nodes, labels, **kw) -> EvalResult:
         """``train.metrics.evaluate`` of ``model`` on ``nodes``, with the
         batches stacked (``_stack``): one forward a batch through
-        ``predict_runner`` (on one CUDA device a replay of the captured
-        forward), the [m, 2] probabilities read back once and handed to
+        ``predict_runner`` (on CUDA a replay of the captured forward;
+        sharded, of its pieces, the full batch's probabilities on every
+        rank), the [m, 2] probabilities read back once and handed to
         ``train.metrics.evaluate_probs`` with the keywords ``kw``.  The
-        same probabilities, bit for bit, as ``evaluate`` over ``predict``;
-        sharded, it is that."""
-        if self.sharded is not None:
-            return evaluate(lambda batch: self.predict(model, batch), nodes,
-                            labels, self.batch_size, **kw)
+        same probabilities, bit for bit, as ``evaluate`` over
+        ``predict``."""
         probs = self.predict_runner(model).run(self._stack(nodes))
         return evaluate_probs(probs.reshape(-1, 2)[: len(nodes)].cpu()
                               .numpy(), labels, **kw)
@@ -477,11 +503,11 @@ class Trainer:
         back-to-back optimizer steps, step i on ``batch``, ``y`` and ``w``
         rolled by i, as the JAX package's scan rolls them, and returns the
         last step's loss.  The steps are the epoch's (``runner``: replays
-        of the captured step on one CUDA device, with one hub plan for the
-        nscan batches).  Every call steps ``model`` and ``optimizer`` on;
-        divide a call's time by ``nscan``.  On a sharded trainer each step
-        is the sharded step, as ``step`` takes it (the JAX package's
-        ``single_step`` is single-device only)."""
+        of the captured step on CUDA, with one hub plan for the nscan
+        batches; on a sharded trainer the sharded step, which the JAX
+        package's single-device ``single_step`` does not take).  Every call
+        steps ``model`` and ``optimizer`` on; divide a call's time by
+        ``nscan``."""
         dev = self.device
         args = (model, optimizer, torch.as_tensor(batch, device=dev),
                 torch.as_tensor(y, device=dev),
@@ -489,12 +515,6 @@ class Trainer:
         seeds = [self.step_seed(0, i) for i in range(nscan)]
 
         def fn(model, optimizer, batch, y, w):
-            if self.sharded is not None:
-                for i in range(nscan):
-                    loss = self.step(model, optimizer, torch.roll(batch, i),
-                                     torch.roll(y, i), torch.roll(w, i),
-                                     self.step_generator(0, i))
-                return loss
             rolled = [torch.stack([torch.roll(a, i) for i in range(nscan)])
                       for a in (batch, y, w)]
             return self.runner(model, optimizer).run(*rolled, seeds)[-1]
@@ -502,16 +522,13 @@ class Trainer:
         return fn, args
 
     def run_epoch(self, model, optimizer, epoch: int) -> torch.Tensor:
-        """One epoch of steps; returns the mean loss (on the device).  On
-        one device the epoch's steps go through ``runner``: one hub plan
-        for the epoch (its only read-back), then a replay of the captured
-        step per batch (or the eager step, on the CPU)."""
+        """One epoch of steps; returns the mean loss (on the device).  The
+        epoch's steps go through ``runner``: one hub plan for the epoch
+        (its only read-back), then a replay of the captured step per batch
+        (or the eager step, on the CPU); sharded, the plan's one graph
+        collective comes first and gloo's round trips run between a
+        replay's pieces."""
         batches, weights = self.epoch_plan(epoch)
-        if self.sharded is not None:
-            losses = [self.step(model, optimizer, bt, self.labels[bt], wt,
-                                self.step_generator(epoch, i))
-                      for i, (bt, wt) in enumerate(zip(batches, weights))]
-            return torch.stack(losses).mean()
         seeds = [self.step_seed(epoch, i) for i in range(self.num_batches)]
         return self.runner(model, optimizer).run(
             batches, self.labels[batches], weights, seeds).mean()

@@ -1891,3 +1891,234 @@ def test_a_train_captures_the_forward_once(card, tmp_path, monkeypatch,
                     t.batch_size, print_line=False)
     assert (auc, recall, f1) == (want.auc, want.recall, want.f1_macro)
 
+
+
+# ------------------------------- the captured sharded step and evaluate
+
+_CAPTURED_SHARD_WORKER = r'''
+import dataclasses, json, os, sys
+import numpy as np
+import torch
+rank, port, out, dd, dg = (int(sys.argv[1]), sys.argv[2], sys.argv[3],
+                           int(sys.argv[4]), int(sys.argv[5]))
+os.chdir(os.path.dirname(out))
+from pcgnn_tpu_torch.graph import csr
+from pcgnn_tpu_torch.train.capture import launch_counts
+from pcgnn_tpu_torch.train.metrics import evaluate
+from pcgnn_tpu_torch.train.results import ResultManager
+from pcgnn_tpu_torch.train.trainer import Trainer
+torch.cuda.set_device(0)
+# case: (preset, config changes, fused record table)
+cases = json.loads(sys.argv[6])
+base = dict(seed=2, model="PCGNN", train_ratio=0.4, test_ratio=0.67,
+            emb_size=16, lr=0.01, weight_decay=0.001, alpha=2.0, rho=0.5,
+            epochs=2, valid_epochs=10 ** 9, batch_size=64,
+            patience=10 ** 9, exp_num=0,
+            distributed=True, coordinator_address=f"localhost:{port}",
+            num_processes=2, process_id=rank, mesh_graph=dg,
+            dist_backend="gloo")
+res = {}
+
+
+def heavy_stack(t):
+    """Two batches whose first data block is relation 0's heaviest hub row
+    over and over (two hub chunks) and whose second holds no hub row."""
+    rel = t.graph.relations[0]
+    plain = [v for v in t.idx_train.tolist()
+             if int(rel.deg[v]) <= rel.window_width]
+    bd = t.batch_size // 2
+    row = [int(torch.argmax(rel.deg))] * bd + plain[:bd]
+    b = torch.tensor([row, row], device=t.device)
+    return b, t.labels[b], torch.ones(b.shape, device=t.device), [0, 0]
+
+
+def run(t, capture, epochs=2):
+    """Two epochs of a fresh model through the runner (at dd = 2 then the
+    heavy stack, which only data rank 0's plan must grow for): (model,
+    optimizer, losses, the captures the heavy stack made)."""
+    t.capture = capture
+    model = t.new_model()
+    opt = t.new_optimizer(model)
+    losses = [t.run_epoch(model, opt, e) for e in range(epochs)]
+    r = t.runner(model, opt)
+    before = r.captures
+    if dd == 2:
+        losses.append(r.run(*heavy_stack(t)).mean())
+    torch.cuda.synchronize()
+    return model, opt, torch.stack(losses), r.captures - before
+
+
+for name, (preset, changes, fused) in cases.items():
+    cfg = dict(base, data_name="synthetic:" + preset, **changes)
+    t = Trainer(cfg, device="cuda:0", result=ResultManager(
+        cfg, root=os.path.join(os.path.dirname(out), f"r{rank}-{name}")))
+    assert t.capture and t.mesh.backend == "gloo"
+    if not fused:
+        t.sharded = dataclasses.replace(t.sharded, fused=None, fused_off=())
+    # 3-4 steps an epoch; at dd = 2 blocks over one hub chunk (32 rows)
+    t.batch_size = max(-(-t.sample_size // 4), 33 * dd)
+    t.batch_size = -(-t.batch_size // dd) * dd
+    t.num_batches = -(-t.sample_size // t.batch_size)
+    for overlap in (True, False):
+        key = f"{name}.{int(overlap)}"
+        t.sharded = dataclasses.replace(t.sharded, mesh=dataclasses.replace(
+            t.mesh, overlap=overlap))
+        counted, got = [], []
+        for capture in (False, True):
+            before = launch_counts()
+            got.append(run(t, capture))
+            after = launch_counts()
+            counted.append({k: after[k] - before[k] for k in after})
+        eager, captured = got
+        r = t.runner(*captured[:2])
+        res[key + ".eager_launches"] = counted[0]
+        res[key + ".card_launches"] = r.card_launches(counted[1])
+        res[key + ".stats"] = r.stats()
+        res[key + ".heavy_captures"] = captured[3]
+        same = torch.equal(eager[2], captured[2])
+        for (n, p), q in zip(eager[0].named_parameters(),
+                             captured[0].parameters()):
+            same = same and torch.equal(p, q) and all(
+                torch.equal(v, captured[1].state[q][k])
+                for k, v in eager[1].state[p].items())
+        res[key + ".same"] = bool(same)
+        res[key + ".losses"] = captured[2].tolist()
+        # the evaluate: eager per batch, then the captured stacked one
+        model = captured[0]
+        t._runner = None
+        want = evaluate(lambda b: t.predict(model, b), t.idx_valid,
+                        t.y_valid, t.batch_size, print_line=False)
+        got = t.evaluate(model, t.idx_valid, t.y_valid, print_line=False)
+        pr = t.predict_runner(model)
+        res[key + ".eval_same"] = bool(np.array_equal(
+            got.anomaly_confidence, want.anomaly_confidence)
+            and got.auc == want.auc)
+        res[key + ".predict_stats"] = pr.stats()
+        t._predict_runner = None
+    del t
+    torch.cuda.empty_cache()
+json.dump(res, open(out, "w"))
+torch.distributed.destroy_process_group()
+'''
+
+# case: (preset, config changes, fused record table); the lanes each
+# capture exercises: the fused records (kernel 1a) and the hub lane
+# (kernel 2) on skew-tiny, the per-relation store lane (kernel 1c), GCN's
+# and GraphSAGE's store and hub lanes, GraphSAGE's draws
+_SHARD_CAPTURE_CASES = {
+    "skew_stores": ("skew-tiny", {"ewin_dtype": "bfloat16"}, True),
+    "store_lane": ("small", {"ewin_dtype": "bfloat16"}, False),
+    "gcn_hub": ("skew-tiny", {"model": "GCN"}, False),
+    "sage_draws": ("small", {"model": "SAGE", "num_sample": 5}, False),
+}
+
+
+def _sharded_capture_gang(tmp_path, cases, dd, dg):
+    """Two gloo ranks on cuda:0 running ``_CAPTURED_SHARD_WORKER`` over
+    ``cases`` at the (dd, dg) mesh: the ranks' reports."""
+    import json
+
+    from pcgnn_tpu_torch.ops import kernels
+    from pcgnn_tpu_torch.utils.multiproc import (gang_with_fresh_port,
+                                                 run_workers, worker_env)
+    kernels.build()
+    worker = tmp_path / "worker.py"
+    worker.write_text(_CAPTURED_SHARD_WORKER)
+    outs = [tmp_path / f"r{r}.json" for r in range(2)]
+    gang_with_fresh_port(lambda port: run_workers(
+        str(worker), [(r, port, outs[r], dd, dg, json.dumps(cases))
+                      for r in range(2)],
+        env=worker_env(), timeout=600))
+    return [json.loads(o.read_text()) for o in outs]
+
+
+def test_captured_sharded_epochs_equal_eager_bit_for_bit(card, tmp_path):
+    """Two gloo ranks sharing the card at (data 1, graph 2): two sharded
+    epochs replayed from the captured pieces equal the same epochs taken
+    eagerly -- losses, parameters and Adam state, bit for bit -- with the
+    collectives async and blocking, in the fused and hub lanes (kernels 1a
+    and 2), the store lane (kernel 1c), GCN's hub lane and GraphSAGE's
+    draws; the stacked captured evaluate gives the eager per-batch
+    probabilities bit for bit.  Each replay is several pieces with the
+    collectives between them, and runs the lanes' kernels; the ranks
+    agree."""
+    ranks = _sharded_capture_gang(tmp_path, _SHARD_CAPTURE_CASES, 1, 2)
+    for res in ranks:
+        for name in _SHARD_CAPTURE_CASES:
+            for overlap in (1, 0):
+                key = f"{name}.{overlap}"
+                assert res[key + ".same"], key
+                assert res[key + ".eval_same"], key
+                assert res[key + ".losses"] == ranks[0][key + ".losses"]
+                st = res[key + ".stats"]
+                assert st["captures"] >= 1, st
+                assert st["eager_steps"] == st["captures"], st
+                assert st["pieces"] > 1 and st["collectives"] >= 3, st
+                assert st["pieces"] <= st["collectives"] * (1 + overlap) + 1
+                assert res[key + ".predict_stats"]["pieces"] > 1
+                # the replays ran what the eager steps launched
+                assert res[key + ".card_launches"] == res[
+                    key + ".eager_launches"], key
+        assert res["skew_stores.1.stats"]["replay_launches"][
+            "window_gather"] == 1
+        assert res["skew_stores.1.stats"]["replay_launches"][
+            "ragged_gather"] >= 1
+        assert res["store_lane.1.stats"]["replay_launches"][
+            "window_gather"] == 3
+        assert res["gcn_hub.1.stats"]["replay_launches"]["ragged_gather"] >= 1
+
+
+def test_data_groups_capture_at_different_steps(card, tmp_path):
+    """At (data 2, graph 1) each data rank plans its own block, so the two
+    ranks may capture at different stacks: a capture runs no collective,
+    so their data-axis sums still pair, and every step equals the eager
+    one bit for bit."""
+    cases = {"skew_stores": _SHARD_CAPTURE_CASES["skew_stores"]}
+    ranks = _sharded_capture_gang(tmp_path, cases, 2, 1)
+    for overlap in (1, 0):
+        key = f"skew_stores.{overlap}"
+        for res in ranks:
+            assert res[key + ".same"] and res[key + ".eval_same"], key
+            st = res[key + ".stats"]
+            # the loss terms' and the gradients' data sums: no graph axis
+            assert st["collectives"] == 2, st
+            assert res[key + ".losses"] == ranks[0][key + ".losses"]
+        # the heavy stack grew data rank 0's plan only: rank 0 captured
+        # again (its warm-up step ran the data sums) while rank 1 replayed
+        assert [r[key + ".heavy_captures"] for r in ranks] == [1, 0]
+
+
+def test_one_rank_nccl_group_captures_one_piece_a_step(card, tmp_path,
+                                                       monkeypatch):
+    """A 1-rank NCCL group's (1, 1) mesh issues no collective, so its
+    captured step and forward are one piece each, with nothing between
+    replays; two captured epochs and the captured evaluate equal the
+    single device's captured ones bit for bit."""
+    import torch.distributed as dist
+
+    from pcgnn_tpu_torch.parallel.distributed import init_distributed
+    from pcgnn_tpu_torch.train.trainer import Trainer
+    from pcgnn_tpu_torch.utils.multiproc import free_port
+    monkeypatch.chdir(tmp_path)
+    torch.cuda.set_device(0)
+    init_distributed(f"localhost:{free_port()}", 1, 0, backend="nccl")
+    try:
+        cfg = _small_cfg(data_name="synthetic:skew-tiny", batch_size=64,
+                         epochs=2, valid_epochs=10 ** 9)
+        single = Trainer(cfg, device=card)
+        rank = Trainer(dict(cfg, distributed=True), device="cuda:0",
+                       graph=single.graph)
+        assert rank.mesh.backend == "nccl" and rank.capture
+        got = []
+        for t in (single, rank):
+            model, opt, losses = _run(t, True)
+            ev = t.evaluate(model, t.idx_valid, t.y_valid, print_line=False)
+            got.append((model, opt, losses, ev))
+        _assert_same_run(got[0][:3], got[1][:3])
+        _assert_same_eval(got[1][3], got[0][3])
+        for r in (rank.runner(*got[1][:2]), rank.predict_runner(got[1][0])):
+            assert (r.pieces, r.collectives) == (1, 0)
+            assert r.captures == 1
+        assert rank.mesh.stats.calls == {"graph": 0, "data": 0}
+    finally:
+        dist.destroy_process_group()
