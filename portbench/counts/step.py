@@ -1,0 +1,42 @@
+"""The training step's least work.
+
+Bytes, each input read once and each output written once, at the stored
+width: the batch's fused records (bfloat16, the windows of every
+relation), the batch's ids and labels (int64) and weights (float32), the
+centers' feature rows (float32), the train positives' feature rows that
+the oversample scores, every hub row's neighbors that the choose step
+scores (feature row and id), and the parameters and Adam's two moments,
+read and written (float32).  Operations: the dense layers, forward, and
+backward as far as a gradient is needed (no gradient reaches the
+features or the aggregates)."""
+
+
+def byte_terms(*, rows: int, steps: int, feat_dim: int, record_width: int,
+               train_pos: int, hub_neighbors: int, params: int) -> dict:
+    """Bytes by term, over ``rows`` real batch rows in ``steps`` steps;
+    ``hub_neighbors`` is the degree sum of the hub rows among them."""
+    f = feat_dim
+    return {
+        "records": rows * record_width * 2,
+        "ids_labels_weights": rows * (8 + 8 + 4),
+        "center_rows": rows * f * 4,
+        "train_pos_rows": steps * train_pos * f * 4,
+        "hub_neighbor_rows": hub_neighbors * (f * 4 + 4),
+        "params_and_moments": steps * params * 4 * 6,
+    }
+
+
+def flops(*, rows: int, feat_dim: int, emb: int, relations: int,
+          classes: int = 2) -> int:
+    """Dense-layer operations of ``rows`` batch rows, forward and
+    backward."""
+    f, e, r, c = feat_dim, emb, relations, classes
+    fwd = 2 * (f * c + r * 2 * f * e + (f + r * e) * e + e * c)
+    weight_grads = fwd
+    input_grads = 2 * (e * c + r * e * e)   # into z, and into each h_r
+    return rows * (fwd + weight_grads + input_grads)
+
+
+def least_seconds(bytes_: float, flops_: float, peaks) -> float:
+    bw, peak_flops = peaks
+    return max(bytes_ / bw, flops_ / peak_flops)

@@ -1,0 +1,63 @@
+"""Small cells for the CPU tests: the configurations' files with the
+graph cut to a test preset's size."""
+
+import copy
+import json
+import time
+from pathlib import Path
+
+import torch
+
+from portbench import harness
+
+# the tests run side by side: a few threads each
+torch.set_num_threads(2)
+
+HERE = Path(__file__).resolve().parents[1]
+ROOT = HERE.parent
+
+# preset statistics of pcgnn_tpu_torch/data/synthetic.py, as the
+# generator takes them
+PRESETS = {
+    "tiny": ({"num_nodes": 512, "feat_dim": 16, "fraud_rate": 0.15,
+              "edges_per_relation": [2048, 3072, 1024]}, {}),
+    "small": ({"num_nodes": 4096, "feat_dim": 32, "fraud_rate": 0.1,
+               "edges_per_relation": [16384, 32768, 8192]}, {}),
+    "skew-tiny": ({"num_nodes": 2048, "feat_dim": 16, "fraud_rate": 0.15,
+                   "edges_per_relation": [8192, 6144, 4096]},
+                  {"0": [6, 512]}),
+}
+
+
+def bench() -> dict:
+    return harness.load_json(ROOT / "BENCHMARK.json")
+
+
+def small_cell(workload: str, preset: str, batch_size: int) -> tuple:
+    """(configuration, traffic) of ``workload`` with the graph of
+    ``preset`` and batches of ``batch_size``."""
+    b = bench()
+    _, cfg, traffic = harness.cell_files(b, workload, ROOT)
+    cfg, traffic = copy.deepcopy(cfg), copy.deepcopy(traffic)
+    graph, hubs = PRESETS[preset]
+    cfg["graph"] = dict(graph)
+    cfg["model"]["batch_size"] = batch_size
+    # a validation every other epoch, so a short window holds several
+    cfg["model"]["valid_epochs"] = 2
+    traffic["graph"]["hubs"] = dict(hubs)
+    traffic["traced_epochs"] = 12
+    return cfg, traffic
+
+
+def run_small(workload: str, preset: str, batch_size: int, *, seed: int,
+              traced: bool = False, seconds: float = 2.0):
+    """One run on the CPU: (result line, compared rows)."""
+    cfg, traffic = small_cell(workload, preset, batch_size)
+    metrics = harness.cell_metrics(bench(), workload, traced)
+    return harness.run_cell(cfg, traffic, metrics, seed, seconds, traced,
+                            "cpu", time.perf_counter())
+
+
+def load(path) -> dict:
+    with open(path) as f:
+        return json.load(f)
