@@ -62,6 +62,7 @@ from pcgnn_tpu_torch.ops.aggregate import (
     window_sum_from_gathered,
 )
 from pcgnn_tpu_torch.ops.hub import hub_choose_sum, hub_table
+from pcgnn_tpu_torch.utils.profiling import section
 
 # node count from which a graph without a store on every relation scores
 # the gathered rows instead of building an [N] score table each step (the
@@ -170,16 +171,22 @@ class PCGNN(nn.Module):
         # the similarity loss on center_scores
         w0 = clf.w[:, 0].detach()
         b0 = clf.b[0].detach()
+        # the graph nodes of each part of a captured step
+        # (``utils.profiling.section``; no-ops outside a capture)
+        section("gather")
         self_feats = x[batch]
+        section("dense")
         center_scores = self_feats @ clf.w + clf.b
         any_hub = any(rel.has_hubs for rel in rels)
         need_tp = train and any_hub
         tp_args = (train_pos, train_pos_valid) if need_tp else ()
         clamp_ids = False
         s0_col = None
+        section("choose")
         if score_from_window:
             center_s0 = selection_score(sel_round(self_feats), w0, b0)
             tp_col = f
+            section("hub")
             if need_tp:
                 xs = hub_table(x, *tp_args)
             elif graph.features_pad is not None:
@@ -196,8 +203,10 @@ class PCGNN(nn.Module):
             # same values, so a self-loop's distance is exactly 0
             s0 = selection_score(x.detach(), w0, b0)
             center_s0 = s0[batch]
+            section("hub")
             xs = hub_table(x, *tp_args, s0=s0)
             s0_col, tp_col = f, f + 1
+        section("gather")
         if use_fused:
             rec = batch_record_window(graph, batch)        # [B, W] float32
 
@@ -206,8 +215,10 @@ class PCGNN(nn.Module):
             m_max = self.minor_window(int(train_pos.shape[0]), rels)
             tp_rows_f = (train_pos_feats if train_pos_feats is not None
                          else x[train_pos])
+            section("choose")
             tp_s0 = (selection_score(sel_round(tp_rows_f), w0, b0)
                      if score_from_window else s0[train_pos])
+            section("oversample")
             cand_ids, cand_valid, _, cand_slots = oversample_candidates_values(
                 center_s0, tp_s0, train_pos, train_pos_valid, m_max)
             if any_hub:
@@ -221,16 +232,19 @@ class PCGNN(nn.Module):
 
         rel_sums = []       # per relation: (num, cnt, keep_minor)
         for r, rel in enumerate(rels):
+            section("gather")
             if rel.ewin is not None and score_from_window:
                 d_w = max(rel.window_width, 1)
                 raw = (rec[:, graph.fused_off[r]: graph.fused_off[r + 1]]
                        if use_fused else batch_raw_window(rel, batch))
                 xw = unpack_window(raw, d_w, f)            # [B, D, F]
                 deg_b = rel.deg[batch]
+                section("choose")
                 valid = (torch.arange(d_w, device=x.device)[None, :]
                          < deg_b.clamp(max=d_w)[:, None])
                 # slots past a row's degree hold the next node's run: valid
                 # masks them before any use; ids only for the minor dedup
+                section("oversample")
                 nbr = rel.nbr2d[batch] if train else None
             else:
                 nbr, valid = batch_neighbor_window(rel, batch,
@@ -239,8 +253,10 @@ class PCGNN(nn.Module):
                 rows = xs[nbr.clamp(max=n - 1) if clamp_ids else nbr]
                 xw = rows[..., :f]
             if rel.has_hubs:
+                section("hub")
                 is_hub = deg_b > rel.window_width
                 valid = valid & ~is_hub[:, None]   # hubs leave the window lane
+            section("choose")
             nbr_s0 = (selection_score(sel_round(xw), w0, b0)
                       if score_from_window else rows[..., s0_col])
             dist = (center_s0[:, None] - nbr_s0).abs()
@@ -253,10 +269,12 @@ class PCGNN(nn.Module):
                     s0_col=s0_col, tp_col=tp_col, round_sel=bf16,
                     minor_ctx=minor_ctx, batch_labels=batch_labels,
                     rho=self.rho, plan=hub_plans[r] if hub_plans else None)
+                section("hub")
                 num = torch.where(is_hub[:, None], h_num, num)
                 cnt = torch.where(is_hub, h_cnt, cnt)
             keep_minor = None
             if train:
+                section("oversample")
                 keep_minor = oversample_keep(rel, batch, batch_labels,
                                              cand_valid, self.rho)
                 if rel.has_hubs:
@@ -272,12 +290,14 @@ class PCGNN(nn.Module):
             rel_sums.append((num, cnt, keep_minor))
 
         if train and score_from_window and rels:
+            section("oversample")
             # minors come from the compact [P, F] exact float32 table
             minors = minor_sum_compact_multi(
                 tp_rows_f, cand_slots, [km for _, _, km in rel_sums])
             rel_sums = [(num + mn, cnt + mc, None)
                         for (num, cnt, _), (mn, mc) in zip(rel_sums, minors)]
 
+        section("dense")
         rel_embs = []
         for layer, (num, cnt, _) in zip(self.intra, rel_sums):
             agg = num / cnt.clamp(min=1.0)[:, None]

@@ -50,6 +50,7 @@ import torch
 from pcgnn_tpu_torch.ops.aggregate import (_INF, dedup_threshold,
                                           keep_nearest, selection_score)
 from pcgnn_tpu_torch.ops.ragged_gather import ragged_gather
+from pcgnn_tpu_torch.utils.profiling import in_section, span
 
 # chunk: hub rows processed together.  Each chunk reads
 # ceil(max_deg_in_chunk / block) blocks for ALL its rows, so degree-descending
@@ -136,8 +137,10 @@ def plan_hub_chunks(deg_b: torch.Tensor, is_hub: torch.Tensor, chunk: int,
     each chunk's block count, which bounds every batch of the stack (its
     hub rows fit the chunks, and each chunk's width covers its rows'
     degrees).  One device-to-host copy."""
-    return plan_from_heads(hub_heads(deg_b, is_hub, chunk).tolist(), chunk,
-                           block)
+    heads = hub_heads(deg_b, is_hub, chunk)
+    with span("pcgnn.hub.readback"):
+        counts = heads.tolist()
+    return plan_from_heads(counts, chunk, block)
 
 
 def epoch_hub_plans(relations, batches: torch.Tensor,
@@ -163,7 +166,9 @@ def stack_hub_plans(relations, degs, chunk: int = HUB_CHUNK,
     live = [h for h in heads if h is not None]
     if not live:
         return tuple(None for _ in relations)
-    flat = torch.cat(live).tolist()
+    counts = torch.cat(live)
+    with span("pcgnn.hub.readback"):
+        flat = counts.tolist()
     plans, at = [], 0
     for h in heads:
         if h is None:
@@ -273,8 +278,7 @@ def chunk_minor_band(c_s0, ks_rows, fraud, active, sp_sorted, slot_sorted,
     return mnum, mcnt, t
 
 
-# a profiler range, so a trace attributes the lane's host and device time
-@torch.profiler.record_function("hub_choose_sum")
+@in_section("hub")
 def hub_choose_sum(rel, batch: torch.Tensor, is_hub: torch.Tensor,
                    xs: torch.Tensor, f: int, center_s0: torch.Tensor, *,
                    w0: torch.Tensor, b0: torch.Tensor,
@@ -367,8 +371,7 @@ def hub_choose_sum(rel, batch: torch.Tensor, is_hub: torch.Tensor,
                           chunk_fn)
 
 
-# a profiler range, as for hub_choose_sum
-@torch.profiler.record_function("hub_mean_sum")
+@in_section("hub")
 def hub_mean_sum(rel, batch: torch.Tensor, is_hub: torch.Tensor,
                  x_padded: torch.Tensor, *, include_self: bool = True,
                  chunk: int = HUB_CHUNK, block: int = HUB_BLOCK,

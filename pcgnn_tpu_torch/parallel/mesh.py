@@ -69,6 +69,8 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from pcgnn_tpu_torch.utils import profiling
+
 
 def factor_mesh(n_devices: int) -> tuple:
     """Default (data, graph) factorization for n devices: graph axis gets 2
@@ -257,9 +259,7 @@ def recording(recorder: CutRecorder):
 
 def _marker(kind: str, name: str) -> None:
     """A zero-length profiler range, only when a profiler records."""
-    if torch.autograd._profiler_enabled():
-        with torch.profiler.record_function(f"{kind}:{name}"):
-            pass
+    profiling.marker(f"{kind}:{name}")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -67,6 +67,8 @@ import torch
 
 from pcgnn_tpu_torch.ops.hub import epoch_hub_plans, plan_covers, plan_union
 from pcgnn_tpu_torch.parallel.mesh import Collective, CutRecorder, recording
+from pcgnn_tpu_torch.utils import profiling
+from pcgnn_tpu_torch.utils.profiling import section, span
 
 
 def launch_counts() -> dict:
@@ -114,13 +116,26 @@ def _capture_nodes(stream: torch.cuda.Stream) -> int:
     return n.value
 
 
+def sections_marker(sections: dict) -> str:
+    """The name of the zero-length range a replay leaves while a profiler
+    records: ``pcgnn.runner.sections:<nodes>:<name>=<first>-<end>,...``,
+    the section map of the graph it replays, so a reader of the trace
+    finds each replay's map beside it."""
+    runs = ",".join(f"{name}={first}-{end}"
+                    for name, first, end in sections["runs"])
+    return f"pcgnn.runner.sections:{sections['nodes']}:{runs}"
+
+
 class PieceGraph(CutRecorder):
     """A body captured as CUDA graphs cut at its collectives (module
     docstring).  ``items`` is the replay schedule: ``("graph", g)``,
     ``("start", collective)`` and ``("wait", collective)`` in capture
     order.  A cut with no node captured since the last one adds no graph
     (the cuts merge).  ``generator`` (GraphSAGE's draws) is registered
-    with every piece, so each replay draws from its seed and offset."""
+    with every piece, so each replay draws from its seed and offset.
+    ``sections`` is the capture's section map (``utils.profiling.
+    SectionMap.close``) over the pieces' nodes in replay order: kernel and
+    copy nodes, each one operation in a replay's device trace."""
 
     def __init__(self, device: torch.device,
                  generator: Optional[torch.Generator] = None):
@@ -128,7 +143,9 @@ class PieceGraph(CutRecorder):
         self.stream = torch.cuda.Stream(device)
         self.pool = torch.cuda.graph_pool_handle()
         self.generator = generator
+        self.sections: Optional[dict] = None
         self._open = None               # the piece being captured
+        self._nodes_done = 0            # nodes of the ended pieces
 
     @property
     def pieces(self) -> int:
@@ -138,14 +155,22 @@ class PieceGraph(CutRecorder):
     def collectives(self) -> int:
         return sum(kind == "start" for kind, _ in self.items)
 
+    def nodes(self) -> int:
+        """Nodes captured so far, over the pieces."""
+        if self._open is None:
+            return self._nodes_done
+        return self._nodes_done + _capture_nodes(self.stream)
+
     def capture(self, body) -> None:
         """Capture ``body()`` (its collectives are cut points, and none
-        runs)."""
-        with torch.cuda.stream(self.stream), recording(self):
+        runs), recording its section map."""
+        with torch.cuda.stream(self.stream), recording(self), \
+                profiling.recording_sections(self.nodes) as sections:
             self._begin()
             try:
                 body()
                 self._end(keep_empty=self.pieces == 0)
+                self.sections = sections.close()
             except BaseException:
                 if self._open is not None:
                     # leave the stream out of capture mode; the body's own
@@ -168,6 +193,7 @@ class PieceGraph(CutRecorder):
 
     def _end(self, keep_empty: bool = False) -> None:
         nodes = _capture_nodes(self.stream)
+        self._nodes_done += nodes
         g, self._open = self._open, None
         if nodes == 0 and not keep_empty:
             # nothing to replay: the piece is dropped
@@ -255,6 +281,10 @@ class GraphRunner:
         self.replay_launches: dict = {}
         self.captured_launches = dict.fromkeys(launch_counts(), 0)
         self.replayed_launches = dict.fromkeys(launch_counts(), 0)
+        # the section map of the current capture (``PieceGraph.sections``)
+        # with the marker each replay leaves while a profiler records
+        self.sections: Optional[dict] = None
+        self.sections_marker = ""
         # called as step_hook("start") and step_hook("end") around each
         # batch, when set (a caller's timer)
         self.step_hook = None
@@ -263,7 +293,8 @@ class GraphRunner:
         """The hub plan for a stack of batches [n, B]: the stack's own
         (one read-back; none on a graph without hubs), grown to the
         largest this runner has seen."""
-        plans = self.planner(batches)
+        with span("pcgnn.runner.plan"):
+            plans = self.planner(batches)
         self.plans = plans if self.plans is None else plan_union(self.plans,
                                                                  plans)
         return self.plans
@@ -279,8 +310,9 @@ class GraphRunner:
             outs = []
             for i in range(n):
                 hook("start")
-                outs.append(self.fn(*(x[i] for x in inputs),
-                                    self._seeded(seeds, i), plans))
+                with span("pcgnn.runner.step"):
+                    outs.append(self.fn(*(x[i] for x in inputs),
+                                        self._seeded(seeds, i), plans))
                 hook("end")
                 self.eager_steps += 1
             return torch.stack(outs)
@@ -292,17 +324,21 @@ class GraphRunner:
         outs = []
         for lo in range(0, n, rows):
             m = min(rows, n - lo)
-            self._load([x[lo: lo + m] for x in inputs], plans)
+            with span("pcgnn.runner.load"):
+                self._load([x[lo: lo + m] for x in inputs], plans)
             for i in range(lo, lo + m):
                 self._seeded(seeds, i)
                 hook("start")
-                if self.graph is None:
-                    self._warm_up_and_capture(plans)
-                else:
-                    self.graph.replay()
-                    self.replays += 1
-                    for k, c in self.replay_launches.items():
-                        self.replayed_launches[k] += c
+                with span("pcgnn.runner.step"):
+                    if self.graph is None:
+                        with span("pcgnn.runner.capture"):
+                            self._warm_up_and_capture(plans)
+                    else:
+                        profiling.marker(self.sections_marker)
+                        self.graph.replay()
+                        self.replays += 1
+                        for k, c in self.replay_launches.items():
+                            self.replayed_launches[k] += c
                 hook("end")
             outs.append(self.bufs[-1][:m].clone())
         return torch.cat(outs)
@@ -339,13 +375,19 @@ class GraphRunner:
         self.counter.zero_()
 
     def _body(self, plans) -> None:
-        """One batch at the counter: the captured work."""
+        """One batch at the counter: the captured work.  Its reads and
+        writes of the static buffers are section ``io``; ``fn`` marks its
+        own sections."""
         *inputs, outs = self.bufs
         at = self.counter.view(1)
-        out = self.fn(*(x.index_select(0, at)[0] for x in inputs),
-                      self.generator, plans)
+        section("io")
+        args = [x.index_select(0, at)[0] for x in inputs]
+        section(None)
+        out = self.fn(*args, self.generator, plans)
+        section("io")
         outs.index_copy_(0, at, out[None].to(outs.dtype))
         self.counter.add_(1)
+        section(None)
 
     def _warm_up_and_capture(self, plans) -> None:
         """Run this batch eagerly on a side stream (the warm-up), then
@@ -379,6 +421,8 @@ class GraphRunner:
         after = launch_counts()
         self.graph, self.graph_plans = graph, plans
         self.pieces, self.collectives = graph.pieces, graph.collectives
+        self.sections = graph.sections
+        self.sections_marker = sections_marker(graph.sections)
         self.replay_launches = {k: after[k] - before[k] for k in after}
         for k, c in self.replay_launches.items():
             self.captured_launches[k] += c
@@ -406,7 +450,7 @@ class GraphRunner:
                 "capture_s": self.capture_s, "pool_bytes": self.pool_bytes,
                 "pieces": self.pieces, "collectives": self.collectives,
                 "replay_launches": dict(self.replay_launches),
-                "plans": self.plans}
+                "plans": self.plans, "sections": self.sections}
 
 
 class StepRunner(GraphRunner):

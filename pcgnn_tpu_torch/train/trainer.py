@@ -72,7 +72,7 @@ from pcgnn_tpu_torch.sampling.pick import pick_cdf, pick_probs, pick_step
 from pcgnn_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from pcgnn_tpu_torch.train.metrics import EvalResult, evaluate_probs
 from pcgnn_tpu_torch.train.results import ResultManager
-from pcgnn_tpu_torch.utils.profiling import trace
+from pcgnn_tpu_torch.utils.profiling import section, span, trace
 
 _EWIN_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -151,8 +151,11 @@ def train_step(model, optimizer, graph: MultiRelGraph, batch: torch.Tensor,
     else:
         loss = model.loss(graph, batch, y, w, generator=generator,
                           hub_plans=hub_plans)
+    section("backward")
     loss.backward()
+    section("adam")
     optimizer.step()
+    section(None)
     return loss.detach()
 
 
@@ -482,9 +485,14 @@ class Trainer:
         ``train.metrics.evaluate_probs`` with the keywords ``kw``.  The
         same probabilities, bit for bit, as ``evaluate`` over
         ``predict``."""
-        probs = self.predict_runner(model).run(self._stack(nodes))
-        return evaluate_probs(probs.reshape(-1, 2)[: len(nodes)].cpu()
-                              .numpy(), labels, **kw)
+        with span("pcgnn.evaluate"):
+            with span("pcgnn.evaluate.stack"):
+                stack = self._stack(nodes)
+            probs = self.predict_runner(model).run(stack)
+            with span("pcgnn.evaluate.readback"):
+                probs = probs.reshape(-1, 2)[: len(nodes)].cpu().numpy()
+            with span("pcgnn.evaluate.metrics"):
+                return evaluate_probs(probs, labels, **kw)
 
     def step(self, model, optimizer, batch, y, w,
              generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -528,10 +536,14 @@ class Trainer:
         (or the eager step, on the CPU); sharded, the plan's one graph
         collective comes first and gloo's round trips run between a
         replay's pieces."""
-        batches, weights = self.epoch_plan(epoch)
-        seeds = [self.step_seed(epoch, i) for i in range(self.num_batches)]
-        return self.runner(model, optimizer).run(
-            batches, self.labels[batches], weights, seeds).mean()
+        with span("pcgnn.epoch"):
+            with span("pcgnn.epoch.pick"):
+                batches, weights = self.epoch_plan(epoch)
+                labels = self.labels[batches]
+                seeds = [self.step_seed(epoch, i)
+                         for i in range(self.num_batches)]
+            return self.runner(model, optimizer).run(
+                batches, labels, weights, seeds).mean()
 
     def epoch_block(self, model, optimizer, first_epoch: int,
                     num_epochs: int) -> torch.Tensor:

@@ -1591,6 +1591,59 @@ def test_captured_replays_run_the_kernels(card, tmp_path, monkeypatch):
         assert seen == t.num_batches * r.replay_launches[name] > 0
 
 
+def test_replays_run_their_section_map(card, tmp_path, monkeypatch):
+    """Each replay of a captured PC-GNN step runs one device operation a
+    node of the capture's section map (``stats()["sections"]``), so the
+    k-th operation of a replay is the map's k-th node; every section of
+    the step is there, the hub lane's in the hub lane, and the nodes
+    outside every section take at most 5% of a replay's device time."""
+    import collections
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from pcgnn_tpu_torch.utils.profiling import node_sections
+    for lane in ("fused", "hub"):
+        t = _lane_trainer(tmp_path, monkeypatch, lane)
+        model = t.new_model()
+        opt = t.new_optimizer(model)
+        r = t.runner(model, opt)
+        batches, weights = t.epoch_plan(0)
+        r.run(batches, t.labels[batches], weights)
+        torch.cuda.synchronize()
+        names = node_sections(r.stats()["sections"])
+        # the profiler can miss the first operations after it starts: the
+        # second stack's replays are the ones held to the map
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                r.run(batches, t.labels[batches], weights)
+                torch.cuda.synchronize()
+        events = list(prof.profiler.kineto_results.events())
+        launches = {e.correlation_id() for e in events
+                    if e.device_type().name == "CPU"
+                    and e.name().startswith("cudaGraphLaunch")}
+        # a device operation carries the correlation id of the call that
+        # launched it
+        replays = collections.defaultdict(list)
+        for e in events:
+            if e.device_type().name != "CPU" \
+                    and e.correlation_id() in launches:
+                replays[e.correlation_id()].append(
+                    (e.start_ns(), e.duration_ns()))
+        assert len(replays) == 2 * t.num_batches
+        second = sorted(replays.values(), key=min)[t.num_batches:]
+        assert [len(ops) for ops in second] == \
+            [len(names)] * t.num_batches, lane
+        ms = collections.Counter()
+        for ops in second:
+            for name, (_, dur) in zip(names, sorted(ops)):
+                ms[name] += dur
+        want = {"io", "gather", "choose", "oversample", "dense", "backward",
+                "adam"} | ({"hub"} if lane == "hub" else set())
+        assert set(ms) - {"other"} == want, lane
+        assert ms["other"] <= 0.05 * sum(ms.values()), (lane, ms)
+
+
 def test_captured_epoch_makes_no_host_sync(card, tmp_path, monkeypatch):
     """After the capture, an epoch of a graph without hubs runs under
     ``set_sync_debug_mode("error")``; on a hub graph the epoch's only sync
