@@ -786,6 +786,78 @@ def queued_ragged(col, starts, d, fill, bound_ms: float) -> dict:
     return q
 
 
+# the choose kernel's shapes in the kernels line: the benchmark cells'
+# sections of the fused records, (rows, F, relation widths); YelpChi's are
+# 16-byte aligned, Amazon's (F = 25, rows of 23,925 floats) are not
+CHOOSE_SHAPES = {"pcgnn-yelpchi": (1024, 32, (17, 49, 200)),
+                 "pcgnn-amazon": (256, 25, (52, 700, 205))}
+
+
+def choose_phase(rate: float) -> dict:
+    """The choose kernel (``csrc/choose_window.cu``) at ``CHOOSE_SHAPES``,
+    the three relations of a batch in turn as the training step calls it
+    (keep masks written), every slot valid and keff = ceil(D / 2): equal
+    to the plain version (keep and counts exactly, sums within rtol 1e-6),
+    then timed by ``queued_ms`` over records that exceed the L2 together,
+    beside the plain version (``time_ms``: its kernels' own time).  The
+    bound counts the records read once and the sums, counts and keep masks
+    written once, over ``rate``.  Returns the kernels-line entry."""
+    from pcgnn_tpu_torch.ops import aggregate as agg
+    dev = torch.device("cuda")
+    cells = {}
+    for cell, (rows, f, widths) in CHOOSE_SHAPES.items():
+        gen = torch.Generator(device=dev).manual_seed(rows + f)
+        width = sum(widths) * f
+        sets = max(2, math.ceil(100e6 / (rows * width * 4)))
+        recs = [(torch.rand((rows, width), generator=gen, device=dev) + 0.5)
+                .to(torch.bfloat16).float() for _ in range(sets)]
+        w0 = torch.randn((f, 2), generator=gen, device=dev)[:, 0]
+        b0 = torch.randn(2, generator=gen, device=dev)[0]
+        center = torch.randn(rows, generator=gen, device=dev)
+        rels, off = [], 0
+        for d in widths:
+            deg = torch.full((rows,), d, dtype=torch.int32, device=dev)
+            rels.append((off, d, deg, (deg + 1) // 2))
+            off += d * f
+
+        def each(fn):
+            def call(rec):
+                return [fn(rec[:, o: o + d * f], d, f, center, w0, b0, deg, k)
+                        for o, d, deg, k in rels]
+            return call
+
+        kernel = each(agg.choose_window_sum)
+        plain = each(agg.choose_window_sum_plain)
+        for got, want in zip(kernel(recs[0]), plain(recs[0])):
+            if not (torch.equal(got[2], want[2])
+                    and torch.equal(got[1], want[1])
+                    and torch.allclose(got[0], want[0], rtol=1e-6, atol=0)):
+                raise AssertionError(f"choose_window at {cell} differs from "
+                                     f"its plain version")
+        nbytes = rows * (width * 4 + sum(f * 4 + 4 + d for d in widths)
+                         + 12 * len(widths))
+        bound_ms = nbytes / rate * 1e3
+        args = [(r,) for r in recs]
+        q = queued_ms(kernel, args, bound_ms, f"choose_window {cell}")
+        # the plain version launches some forty kernels a relation, more
+        # than the card's queue holds for a queued run: back to back
+        plain_ms, plain_run_ms = time_ms(plain, args * 4)
+        cells[cell] = {"rows": rows, "f": f, "widths": list(widths),
+                       "bytes": nbytes, "bound_ms": bound_ms, "ms": q["ms"],
+                       "readings_ms": q["readings_ms"], "plain_ms": plain_ms,
+                       "plain_run_ms": plain_run_ms}
+    first = cells["pcgnn-yelpchi"]
+    return {"name": "choose_window", "route": "cuda",
+            "source": "pcgnn_tpu_torch/csrc/choose_window.cu",
+            "replaces": "none: XLA ops (pcgnn_tpu/models/pcgnn.py:218, "
+                        "ops/aggregate.py:216 and :674)",
+            "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": "bytes",
+            "library_ms": None,
+            "range_ms": [first["readings_ms"][0], first["readings_ms"][-1]],
+            "cells": cells}
+
+
 def ragged_phase(t, rate: float) -> tuple[dict, dict]:
     """Phase 7: the ragged-gather kernel against its plain version at the
     hub lane's real calls on yelp-skew and at edge cases, and its timings.
@@ -1074,9 +1146,10 @@ def csr_branch_phase(t) -> dict:
 
 def kernel_counters() -> dict:
     """Every kernel wrapper module of the package, by kernel name."""
-    from pcgnn_tpu_torch.ops import mask_build, ragged_gather, window_gather
+    from pcgnn_tpu_torch.ops import (choose_window, mask_build, ragged_gather,
+                                     window_gather)
     return {"window_gather": window_gather, "ragged_gather": ragged_gather,
-            "mask_build": mask_build}
+            "mask_build": mask_build, "choose_window": choose_window}
 
 
 class StepEvents:
@@ -4409,10 +4482,15 @@ def main() -> int:
     print(f"phase 29 done at {time.time() - t0:.1f} s "
           f"({predicted['seconds']:.1f} s)", file=sys.stderr)
 
+    # 30: the choose kernel at the benchmark cells' record sections
+    choose = choose_phase(rate)
+    print(f"phase 30 done at {time.time() - t0:.1f} s", file=sys.stderr)
+
     # each kernel's launches: the sum over the main paths' runs, each read
     # with every count set to 0 just before it
     entries = {"window_gather": like["entry"],
-               "ragged_gather": skew["entry"], "mask_build": learned["entry"]}
+               "ragged_gather": skew["entry"], "mask_build": learned["entry"],
+               "choose_window": choose}
     for kname, entry in entries.items():
         entry["launches_by_path"] = {
             data: run["main_path"]["launches"][kname]

@@ -95,17 +95,15 @@ def entry(device=None):
 # ------------------------------------------------------------- the ranks
 
 def _launches() -> dict:
-    from pcgnn_tpu_torch.ops import mask_build, ragged_gather, window_gather
-    return {"window_gather": window_gather.launches,
-            "window_gather_masked": window_gather.masked_launches,
-            "ragged_gather": ragged_gather.launches,
-            "mask_build": mask_build.launches}
+    from pcgnn_tpu_torch.train.capture import launch_counts
+    return launch_counts()
 
 
 def _zero_launches() -> None:
-    from pcgnn_tpu_torch.ops import mask_build, ragged_gather, window_gather
+    from pcgnn_tpu_torch.ops import (choose_window, mask_build, ragged_gather,
+                                     window_gather)
     window_gather.launches = window_gather.masked_launches = 0
-    ragged_gather.launches = mask_build.launches = 0
+    ragged_gather.launches = mask_build.launches = choose_window.launches = 0
 
 
 def _step(model, sg, labels, batch: np.ndarray, tp, tpv, what: str,

@@ -5,7 +5,8 @@ Counterpart of ``pcgnn_tpu/models/pcgnn.py``, with its lanes:
   * store lanes: every relation carries an edge-window store
     (``graph.csr.attach_edge_windows``), read as fused records (one fetch
     per batch row for all relations) or per relation (one fetch each);
-    selection scores come from the fetched rows;
+    each relation's selection scores, choose and kept-row sum come from
+    the fetched rows in one kernel (``ops.aggregate.choose_window_sum``);
   * score-table lane: a graph without a store on every relation, under
     ``SCORE_FROM_WINDOW_MIN_NODES`` nodes, builds one [N] selection-score
     table per step and gathers ``[x ; s0 (; train-positive indicator)]``
@@ -49,6 +50,7 @@ from pcgnn_tpu_torch.ops.aggregate import (
     batch_neighbor_window,
     batch_raw_window,
     batch_record_window,
+    choose_window_sum,
     dedup_minor_keep,
     keep_nearest,
     masked_mean_aggregate,
@@ -58,7 +60,6 @@ from pcgnn_tpu_torch.ops.aggregate import (
     oversample_keep,
     scatter_batch_mask_counts,
     selection_score,
-    unpack_window,
     window_sum_from_gathered,
 )
 from pcgnn_tpu_torch.ops.hub import hub_choose_sum, hub_table
@@ -233,17 +234,12 @@ class PCGNN(nn.Module):
         rel_sums = []       # per relation: (num, cnt, keep_minor)
         for r, rel in enumerate(rels):
             section("gather")
-            if rel.ewin is not None and score_from_window:
-                d_w = max(rel.window_width, 1)
+            store_lane = rel.ewin is not None and score_from_window
+            if store_lane:
                 raw = (rec[:, graph.fused_off[r]: graph.fused_off[r + 1]]
                        if use_fused else batch_raw_window(rel, batch))
-                xw = unpack_window(raw, d_w, f)            # [B, D, F]
                 deg_b = rel.deg[batch]
-                section("choose")
-                valid = (torch.arange(d_w, device=x.device)[None, :]
-                         < deg_b.clamp(max=d_w)[:, None])
-                # slots past a row's degree hold the next node's run: valid
-                # masks them before any use; ids only for the minor dedup
+                # ids only for the minor dedup
                 section("oversample")
                 nbr = rel.nbr2d[batch] if train else None
             else:
@@ -255,14 +251,26 @@ class PCGNN(nn.Module):
             if rel.has_hubs:
                 section("hub")
                 is_hub = deg_b > rel.window_width
-                valid = valid & ~is_hub[:, None]   # hubs leave the window lane
+                if not store_lane:
+                    valid = valid & ~is_hub[:, None]   # hubs leave the lane
             section("choose")
-            nbr_s0 = (selection_score(sel_round(xw), w0, b0)
-                      if score_from_window else rows[..., s0_col])
-            dist = (center_s0[:, None] - nbr_s0).abs()
-            dist = torch.where(valid, dist, _INF)
-            keep = keep_nearest(dist, rel.keff[batch], valid)
-            num, cnt = window_sum_from_gathered(xw, keep)
+            if store_lane:
+                # one kernel: scores, the keff nearest and their sum; slots
+                # past a row's degree (the next node's run) and hub rows
+                # are invalid there
+                num, cnt, keep = choose_window_sum(
+                    raw, max(rel.window_width, 1), f, center_s0, w0, b0,
+                    deg_b, rel.keff[batch],
+                    hub_cap=rel.window_width if rel.has_hubs else None,
+                    round_bf16=bf16 and rel.ewin.dtype != torch.bfloat16,
+                    want_keep=train)
+            else:
+                nbr_s0 = (selection_score(sel_round(xw), w0, b0)
+                          if score_from_window else rows[..., s0_col])
+                dist = (center_s0[:, None] - nbr_s0).abs()
+                dist = torch.where(valid, dist, _INF)
+                keep = keep_nearest(dist, rel.keff[batch], valid)
+                num, cnt = window_sum_from_gathered(xw, keep)
             if rel.has_hubs:
                 h_num, h_cnt = hub_choose_sum(
                     rel, batch, is_hub, xs, f, center_s0, w0=w0, b0=b0,

@@ -11,6 +11,11 @@ Counterpart of ``pcgnn_tpu/ops/aggregate.py``, with its full-graph mean
     lexicographic sort is two stable sorts, secondary key first;
   * ids stay in integer tensors throughout.
 
+The window lane's choose of a relation (scores, ``keep_nearest`` and the
+kept rows' sum) is one hand-written kernel on the card,
+``choose_window_sum`` (``ops.choose_window``); its plain version is that
+chain of ops.
+
 Selection is non-differentiable: everything that feeds it is detached.
 """
 
@@ -18,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from pcgnn_tpu_torch.ops import choose_window
 from pcgnn_tpu_torch.ops.mask_build import build_batch_mask_counts
 from pcgnn_tpu_torch.ops.ragged_gather import ragged_gather
 from pcgnn_tpu_torch.ops.window_gather import window_gather
@@ -172,6 +178,100 @@ def keep_nearest(dist: torch.Tensor, k: torch.Tensor,
     n_less = less.sum(dim=1, keepdim=True)
     keep_tie = eq & ((n_less + tie_prefix) <= k[:, None])
     return valid & (k[:, None] > 0) & (less | keep_tie)
+
+
+def choose_window_sum_plain(raw: torch.Tensor, d: int, f: int,
+                            center_s0: torch.Tensor, w0: torch.Tensor,
+                            b0: torch.Tensor, deg: torch.Tensor,
+                            keff: torch.Tensor, *, hub_cap: int | None = None,
+                            round_bf16: bool = False):
+    """The plain version of :func:`choose_window_sum`, the chain of ops it
+    replaces: the valid mask, ``selection_score`` of the (rounded) window
+    rows, the distances, ``keep_nearest`` and
+    ``window_sum_from_gathered``."""
+    xw = unpack_window(raw, d, f)
+    valid = (torch.arange(d, device=raw.device)[None, :]
+             < deg.clamp(max=d)[:, None])
+    if hub_cap is not None:
+        valid = valid & ~(deg > hub_cap)[:, None]
+    rows = xw.to(torch.bfloat16).to(torch.float32) if round_bf16 else xw
+    dist = (center_s0[:, None] - selection_score(rows, w0, b0)).abs()
+    dist = torch.where(valid, dist, _INF)
+    keep = keep_nearest(dist, keff, valid)
+    num, cnt = window_sum_from_gathered(xw, keep)
+    return num, cnt, keep
+
+
+def choose_window_sum(raw: torch.Tensor, d: int, f: int,
+                      center_s0: torch.Tensor, w0: torch.Tensor,
+                      b0: torch.Tensor, deg: torch.Tensor, keff: torch.Tensor,
+                      *, hub_cap: int | None = None, round_bf16: bool = False,
+                      want_keep: bool = True):
+    """The window lane's choose of one relation: (num [B, f] float32, cnt
+    [B] float32, keep [B, d] bool, or None without ``want_keep``).
+
+    ``raw`` [B, >= d*f] float32 holds each row's window of d slots of f
+    values (a relation's section of the fused records, a view);
+    ``center_s0`` [B] the centers' selection scores; ``w0`` [f] and
+    ``b0`` (one value) the score's weight and bias; ``deg`` and ``keff``
+    [B] the rows' degrees and keep counts.  Slots at or past min(deg, d)
+    are invalid, and so is every slot of a row with deg > ``hub_cap`` (a
+    hub, which the hub lane takes).  Each valid slot is scored as
+    ``selection_score`` scores it, from its values rounded to bfloat16
+    when ``round_bf16`` (a float32 store among bfloat16 ones), and each
+    row keeps its keff nearest to the center by ``keep_nearest``'s rule;
+    ``num`` sums the kept slots' values as stored, ``cnt`` counts them.
+
+    On a CUDA tensor the wrapper launches the hand-written kernel
+    (``ops.choose_window``, ``csrc/choose_window.cu``) or raises; on a CPU
+    tensor it takes :func:`choose_window_sum_plain`.  It reads nothing
+    back from the card.  The kernel's selection equals the plain
+    version's and its sums add the same rows in another order.
+    """
+    if raw.dim() != 2 or raw.dtype != torch.float32:
+        raise ValueError(f"choose_window_sum wants [B, W] float32 rows, got "
+                         f"{tuple(raw.shape)} {raw.dtype}")
+    b = int(raw.shape[0])
+    if d < 1 or f < 1 or raw.shape[1] < d * f:
+        raise ValueError(f"choose_window_sum: rows of {raw.shape[1]} values "
+                         f"do not hold {d} slots of {f}")
+    if (center_s0.shape != (b,) or deg.shape != (b,) or keff.shape != (b,)
+            or w0.shape != (f,) or b0.numel() != 1):
+        raise ValueError(
+            f"choose_window_sum: B={b}, F={f} but center_s0 "
+            f"{tuple(center_s0.shape)}, deg {tuple(deg.shape)}, keff "
+            f"{tuple(keff.shape)}, w0 {tuple(w0.shape)}, b0 "
+            f"{tuple(b0.shape)}")
+    args = (center_s0, w0, b0, deg, keff)
+    if any(a.device != raw.device for a in args):
+        raise ValueError("choose_window_sum: arguments on different devices")
+    if raw.device.type == "cpu":
+        num, cnt, keep = choose_window_sum_plain(
+            raw, d, f, center_s0, w0, b0, deg, keff, hub_cap=hub_cap,
+            round_bf16=round_bf16)
+        return num, cnt, keep if want_keep else None
+    if raw.device.type != "cuda":
+        raise ValueError(f"choose_window_sum: unsupported device "
+                         f"{raw.device}")
+    if raw.stride(1) != 1 or any(a.dtype != torch.float32
+                                 for a in (center_s0, w0, b0)):
+        raise ValueError("choose_window_sum: rows need unit column stride "
+                         "and the scores float32")
+    if d * f >= 2 ** 31 or d >= 2 ** 30:
+        raise ValueError(f"choose_window_sum: {d} slots of {f} values "
+                         f"exceed the kernel's 32-bit row indexing")
+    dev = raw.device
+    num = torch.empty((b, f), dtype=torch.float32, device=dev)
+    cnt = torch.empty((b,), dtype=torch.float32, device=dev)
+    keep = (torch.empty((b, d), dtype=torch.bool, device=dev) if want_keep
+            else None)
+    if b:
+        choose_window.launch(
+            raw.detach(), d, f, center_s0.detach().contiguous(), w0.detach(),
+            b0.detach(), deg.to(torch.int32).contiguous(),
+            keff.to(torch.int32).contiguous(), hub_cap, round_bf16, num, cnt,
+            keep)
+    return num, cnt, keep
 
 
 def choose_keep_mask(rel, batch: torch.Tensor, nbr: torch.Tensor,

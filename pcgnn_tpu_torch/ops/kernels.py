@@ -22,7 +22,8 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 # every kernel source of the package, by name (csrc/<name>.cu)
-KERNELS = ("gather_probe", "mask_build", "ragged_gather", "window_gather")
+KERNELS = ("choose_window", "gather_probe", "mask_build", "ragged_gather",
+           "window_gather")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -83,10 +84,11 @@ def build(names=KERNELS) -> dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The named kernel's library, built first if needed."""
+    """The named kernel's library; the first load that finds it unbuilt
+    builds every kernel not built yet, in one parallel batch."""
     lib = _loaded.get(name)
     if lib is None:
-        build([name])
+        build()
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib

@@ -64,6 +64,7 @@ from pcgnn_tpu_torch.graph.csr import _build_store, _ref_words_per_slot
 from pcgnn_tpu_torch.ops.aggregate import (
     _INF,
     MINOR_CHUNK,
+    choose_window_sum,
     dedup_minor_keep,
     keep_nearest,
     oversample_candidates_values,
@@ -430,19 +431,26 @@ def block_partials_chunked_multi(ids: torch.Tensor, keeps: list,
     return out
 
 
-def sharded_feature_window(sh: ShardedRel, starts: torch.Tensor,
-                           mine: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
-    """[B, D, F] float32 windows from this rank's LOCAL store block, one
-    window-gather fetch.  With ``mine`` (dg > 1) rows this rank does not
-    own are not copied (the kernel's ``active``) and are then set to 0,
-    so a zero-weight contraction cannot pick up what the card's memory
+def sharded_raw_window(sh: ShardedRel, starts: torch.Tensor,
+                       mine: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[B, ewin_dp] float32 store rows from this rank's LOCAL store block,
+    one window-gather fetch.  With ``mine`` (dg > 1) rows this rank does
+    not own are not copied (the kernel's ``active``) and are then set to
+    0, so a zero-weight contraction cannot pick up what the card's memory
     held."""
     raw = window_gather(sh.ewin, starts, sh.ewin_dp, active=mine,
                         out_dtype=torch.float32)
     if mine is not None:
         raw.masked_fill_(~mine[:, None], 0.0)
-    return unpack_window(raw, max(sh.width, 1), sh.ewin_f)
+    return raw
+
+
+def sharded_feature_window(sh: ShardedRel, starts: torch.Tensor,
+                           mine: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """:func:`sharded_raw_window` as [B, D, F] float32 windows."""
+    return unpack_window(sharded_raw_window(sh, starts, mine),
+                         max(sh.width, 1), sh.ewin_f)
 
 
 # ----------------------------------------------------------------- hub lane
@@ -673,25 +681,25 @@ def spmd_forward(model, sg: ShardedGraph, batch: torch.Tensor,
         rec = window_gather(sg.fused.view(-1), lclip * width, width,
                             out_dtype=torch.float32)
         mesh.note()
-    lanes = []          # per relation (valid_o, nbr, xw, s0 of xw)
+    # per relation (nbr, then a fast lane's owned degrees (0 where not
+    # mine) and store rows, or a plain lane's valid mask)
+    lanes = []
     for r, sh in enumerate(shards):
         d = sh.width
-        offs = torch.arange(d, device=batch.device)[None, :]
         deg_l = sh.deg[lclip]
-        valid_o = mine[:, None] & (offs < deg_l.clamp(max=d)[:, None])
-        if sh.has_hubs:
-            valid_o = valid_o & (deg_l <= d)[:, None]   # hubs leave the window
         nbr = sh.nbr2d[lclip]
-        xw = s0w = None
         if sh.ewin is not None:
-            if use_fused:
-                xw = unpack_window(
-                    rec[:, sg.fused_off[r]: sg.fused_off[r + 1]], d, f)
-            else:
-                xw = sharded_feature_window(sh, sh.estart[lclip],
-                                            mine if dg > 1 else None)
-            s0w = s0_of(xw)
-        lanes.append((valid_o, nbr, xw, s0w))
+            raw = (rec[:, sg.fused_off[r]: sg.fused_off[r + 1]] if use_fused
+                   else sharded_raw_window(sh, sh.estart[lclip],
+                                           mine if dg > 1 else None))
+            lanes.append((nbr, torch.where(mine, deg_l, 0), raw))
+        else:
+            offs = torch.arange(d, device=batch.device)[None, :]
+            valid_o = mine[:, None] & (offs < deg_l.clamp(max=d)[:, None])
+            if sh.has_hubs:
+                # hubs leave the window
+                valid_o = valid_o & (deg_l <= d)[:, None]
+            lanes.append((nbr, valid_o))
         mesh.note()
 
     self_feats = self_h.wait()                                   # [Bd, F]
@@ -723,7 +731,7 @@ def spmd_forward(model, sg: ShardedGraph, batch: torch.Tensor,
         d = sh.width
         deg_b, keff_b, ks_b, hslot = meta_all[:, 4 * r: 4 * r + 4].unbind(1)
         is_hub = deg_b > d if sh.has_hubs else None
-        valid_o, nbr, xw, s0w = lanes[r]
+        nbr = lanes[r][0]
         if train:
             base_minor = oversample_keep(None, None, y, cand_valid, model.rho,
                                          ksample_b=ks_b)
@@ -731,11 +739,14 @@ def spmd_forward(model, sg: ShardedGraph, batch: torch.Tensor,
                 base_minor = base_minor & ~is_hub[:, None]
         keep_minor = None
         if sh.ewin is not None:
-            # fast lane: the owner chooses and sums its rows' windows
-            dist = (center_s0[:, None] - s0w).abs()
-            dist = torch.where(valid_o, dist, _INF)
-            keep = keep_nearest(dist, keff_b, valid_o)
-            num, cnt = window_sum_from_gathered(xw, keep)
+            # fast lane: the owner chooses and sums its rows' windows, in
+            # one kernel (hub rows leave the window)
+            _, deg_o, raw = lanes[r]
+            num, cnt, keep = choose_window_sum(
+                raw, d, f, center_s0, w0, b0, deg_o, keff_b,
+                hub_cap=d if sh.has_hubs else None,
+                round_bf16=packed_sel and not sh.packed,
+                want_keep=train or record is not None)
             if record is not None:
                 record[f"kept{r}"] = mesh.graph_sum(
                     torch.where(keep, nbr + 1, 0))
@@ -745,6 +756,7 @@ def spmd_forward(model, sg: ShardedGraph, batch: torch.Tensor,
                 km_defer.append((r, km))
         else:
             # plain lane: publish the kept ids, sum this block's rows
+            valid_o = lanes[r][1]
             s0_full = s0_h.wait()
             dist = (center_s0[:, None]
                     - s0_full[nbr.to(torch.int64).clamp(0, n_pad - 1)]).abs()

@@ -75,11 +75,13 @@ def launch_counts() -> dict:
     """Every kernel wrapper's launch count, by kernel name; the window
     gathers with ``active`` (kernel 1c, the sharded store lane) also
     apart, as ``window_gather_masked``."""
-    from pcgnn_tpu_torch.ops import mask_build, ragged_gather, window_gather
+    from pcgnn_tpu_torch.ops import (choose_window, mask_build, ragged_gather,
+                                     window_gather)
     return {"window_gather": window_gather.launches,
             "window_gather_masked": window_gather.masked_launches,
             "ragged_gather": ragged_gather.launches,
-            "mask_build": mask_build.launches}
+            "mask_build": mask_build.launches,
+            "choose_window": choose_window.launches}
 
 
 # libcuda, for the node count of a capture in progress

@@ -237,6 +237,119 @@ def test_trainer_epoch_on_card(card, tmp_path):
     assert wg.launches == r.eager_steps + r.captures
 
 
+# the choose kernel's cases: (rows, F, relation widths, the width of the
+# relation with hub rows or None, round to bfloat16): the benchmark cells'
+# sections of the fused records (YelpChi's [1024, 8,512], 16-byte aligned
+# at F = 32; Amazon's [256, 23,925], unaligned at F = 25; the hub cell's
+# R-S-R capped at 192), a float32 store among bfloat16 ones, and widths past
+# the kernel's shared-memory budgets (distances spilled to a scratch row;
+# a tile of two slots; more features than threads)
+_CHOOSE_CASES = {
+    "yelpchi": (1024, 32, (17, 49, 200), None, False),
+    "amazon": (256, 25, (52, 700, 205), None, False),
+    "hubs": (1024, 32, (17, 49, 192), 192, False),
+    "mixed": (256, 25, (52, 700), None, True),
+    "wide": (8, 4, (20000,), None, False),
+    "deep": (16, 3000, (40,), None, False),
+}
+
+
+def _choose_windows(card, case, seed):
+    """Fused records of ``case`` and each relation's (raw section, width,
+    degrees, keep counts, hub cap); the centers' scores, w0 (a strided view,
+    as the model's) and b0.  Values are positive and multiples of 2^-12
+    under 2, so every sum of them is exact in float32 (bfloat16 values where
+    the store is bfloat16; 2^-12 more, which rounding to bfloat16 drops,
+    where ``round``).  Rows 0-63 repeat slot 0 in slots 1-3 (ties) and
+    their centers score as slot 0 (a self-loop at distance 0); rows 64-95
+    keep 0, 96-127 their valid count, 128-159 more than the width; a
+    relation with hubs has rows past its cap."""
+    from pcgnn_tpu_torch.ops.aggregate import selection_score
+    rows, f, widths, hub_cap, rnd = _CHOOSE_CASES[case]
+    gen = torch.Generator(device=card).manual_seed(seed)
+    rec = (torch.rand((rows, sum(widths) * f), generator=gen, device=card)
+           + 0.5).to(torch.bfloat16).float()
+    if rnd:
+        rec += 2.0 ** -12
+    w = torch.randn((f, 2), generator=gen, device=card)
+    w0, b0 = w[:, 0], torch.randn(2, generator=gen, device=card)[0]
+    center = torch.randn(rows, generator=gen, device=card) * w0.norm() + b0
+    rels, off = [], 0
+    for d in widths:
+        raw = rec[:, off: off + d * f]
+        off += d * f
+        if d >= 4:
+            raw[:64, f: 4 * f] = raw[:64, :f].repeat(1, 3)
+        top = d + 8 if hub_cap else d
+        deg = torch.randint(0, top + 1, (rows,), generator=gen, device=card,
+                            dtype=torch.int32)
+        k = (deg + 1) // 2
+        keff = torch.where(deg <= k + 1, deg, k)
+        keff[64:96] = 0
+        keff[96:128] = deg[96:128].clamp(max=d)
+        keff[128:160] = d + 1
+        rels.append((raw, d, deg, keff, hub_cap if d == hub_cap else None))
+    slot0 = rels[0][0][:, :f]
+    if rnd:
+        slot0 = slot0.to(torch.bfloat16).float()
+    center[:64] = selection_score(slot0, w0, b0)[:64]
+    return rels, center, w0, b0
+
+
+@pytest.mark.parametrize("case", sorted(_CHOOSE_CASES))
+def test_choose_kernel_equals_plain(card, case):
+    """The choose kernel against its plain version (the chain of ops it
+    replaced): its scores equal ``selection_score``'s bits, keep masks and
+    counts are equal, and sums, exact in float32 here, within rtol 1e-6;
+    a second launch repeats every bit, a launch is counted and makes no
+    host sync, and without ``want_keep`` no mask is written."""
+    from pcgnn_tpu_torch.ops import aggregate as agg
+    from pcgnn_tpu_torch.ops import choose_window as cw
+    rels, center, w0, b0 = _choose_windows(card, case, seed=7)
+    rows_in, f, _, _, rnd = _CHOOSE_CASES[case]
+    for raw, d, deg, keff, hub_cap in rels:
+        args = (raw, d, f, center, w0, b0, deg, keff)
+        kw = dict(hub_cap=hub_cap, round_bf16=rnd)
+        want = agg.choose_window_sum_plain(*args, **kw)
+        before = cw.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = agg.choose_window_sum(*args, **kw)
+            again = agg.choose_window_sum(*args, **kw)
+            bare = agg.choose_window_sum(*args, **kw, want_keep=False)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        assert cw.launches == before + 3
+        num, cnt, keep = got
+        assert torch.equal(keep, want[2]), (case, d)
+        assert torch.equal(cnt, want[1]), (case, d)
+        torch.testing.assert_close(num, want[0], rtol=1e-6, atol=0)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        assert bare[2] is None and torch.equal(bare[0], num)
+        assert torch.equal(bare[1], cnt)
+        # the cases are there: partial keeps, ties and hub rows
+        n = deg.clamp(max=d)
+        if hub_cap is not None:
+            n = torch.where(deg > hub_cap, 0, n)
+            assert (deg > hub_cap).any() and not keep[deg > hub_cap].any()
+        chose = (keff > 0) & (keff < n)
+        assert chose.sum() >= min(8, rows_in // 4)
+        # the scores the kernel took: selection_score's bits at every
+        # scored slot
+        scores = torch.full((raw.shape[0], d), float("nan"), device=card)
+        out = (torch.empty_like(num), torch.empty_like(cnt))
+        cw.launch(raw, d, f, center, w0, b0, deg, keff, hub_cap, rnd, *out,
+                  None, scores=scores)
+        rows = raw[:, : d * f].reshape(-1, d, f)
+        if rnd:
+            rows = rows.to(torch.bfloat16).float()
+        ref = agg.selection_score(rows, w0, b0)
+        scored = chose[:, None] & (torch.arange(d, device=card) < n[:, None])
+        assert torch.equal(scores[scored], ref[scored]), (case, d)
+        assert torch.isnan(scores[~scored]).all()
+
+
 @pytest.mark.parametrize("d", [1, 100, 128, 512, 1000, 20480])
 @pytest.mark.parametrize("rows", [1, 7, 32, 1024])
 def test_ragged_kernel_equals_plain(card, d, rows):
@@ -1564,6 +1677,9 @@ def test_captured_epochs_equal_eager_bit_for_bit(card, tmp_path, monkeypatch,
         assert per["window_gather"] == 3
     if lane == "learned":
         assert per["mask_build"] == 3 and per["window_gather"] == 0
+    # the store lanes choose in one kernel a relation; no other lane does
+    assert per["choose_window"] == (
+        3 if lane in ("fused", "relation", "hub") else 0), lane
     if lane in ("hub", "hub_no_stores", "gcn_hub", "csr"):
         assert per["ragged_gather"] >= 1
     assert r["pool_bytes"] > 0
@@ -1595,8 +1711,9 @@ def test_replays_run_their_section_map(card, tmp_path, monkeypatch):
     """Each replay of a captured PC-GNN step runs one device operation a
     node of the capture's section map (``stats()["sections"]``), so the
     k-th operation of a replay is the map's k-th node; every section of
-    the step is there, the hub lane's in the hub lane, and the nodes
-    outside every section take at most 5% of a replay's device time."""
+    the step is there, the hub lane's in the hub lane, the choose kernel
+    (one a relation) in ``choose``, and the nodes outside every section
+    take at most 5% of a replay's device time."""
     import collections
 
     from torch.profiler import ProfilerActivity, profile
@@ -1629,15 +1746,19 @@ def test_replays_run_their_section_map(card, tmp_path, monkeypatch):
             if e.device_type().name != "CPU" \
                     and e.correlation_id() in launches:
                 replays[e.correlation_id()].append(
-                    (e.start_ns(), e.duration_ns()))
+                    (e.start_ns(), e.duration_ns(), e.name()))
         assert len(replays) == 2 * t.num_batches
         second = sorted(replays.values(), key=min)[t.num_batches:]
         assert [len(ops) for ops in second] == \
             [len(names)] * t.num_batches, lane
         ms = collections.Counter()
+        choose = collections.Counter()
         for ops in second:
-            for name, (_, dur) in zip(names, sorted(ops)):
+            for name, (_, dur, kernel) in zip(names, sorted(ops)):
                 ms[name] += dur
+                if "choose_window_kernel" in kernel:
+                    choose[name] += 1
+        assert choose == {"choose": 3 * t.num_batches}, (lane, choose)
         want = {"io", "gather", "choose", "oversample", "dense", "backward",
                 "adam"} | ({"hub"} if lane == "hub" else set())
         assert set(ms) - {"other"} == want, lane

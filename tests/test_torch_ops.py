@@ -8,6 +8,8 @@ another order by each framework; their inputs are positive here, so no sum
 cancels and rtol 1e-6 bounds the difference.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -157,3 +159,98 @@ def test_minor_sum_compact_multi_matches_jax(m):
     for (nj, cj), (nt, ct) in zip(want, got):
         np.testing.assert_allclose(nt.numpy(), np.asarray(nj), rtol=1e-6)
         np.testing.assert_array_equal(ct.numpy(), np.asarray(cj))
+
+
+def _grid_graph(preset, store):
+    """The preset's graph with features on a grid of quarters (plus 2^-10
+    on the features the score weighs, under a float32 store among
+    bfloat16 ones, so rounding to bfloat16 moves them) and the stores of
+    ``store``: every score and sum below is exact in float32, so both
+    packages rank the same distances, with many ties."""
+    from pcgnn_tpu_torch.data.synthetic import synthetic_fraud_graph
+    from pcgnn_tpu_torch.graph import csr
+    g = synthetic_fraud_graph(preset, seed=5)
+    x = (g.features * 4).round().clamp(-8, 8) / 4
+    if store == "mixed":
+        x[:, :3] += 2.0 ** -10
+    g = dataclasses.replace(g, features=x)
+    dtype = torch.bfloat16 if store == "bfloat16" else torch.float32
+    return csr.materialize_edge_windows(g, dtype=dtype)
+
+
+@pytest.mark.parametrize("preset,store", [
+    ("tiny", "bfloat16"), ("small", "float32"), ("skew-tiny", "bfloat16"),
+    ("tiny", "mixed")])
+def test_choose_window_sum_matches_jax(preset, store):
+    """The port's choose of a relation's window (``choose_window_sum``, the
+    plain version on the CPU) against the JAX package's score,
+    ``keep_nearest`` and ``window_sum_from_gathered`` of the same window:
+    the store's real windows (slots past a row's degree hold the next
+    node's run; self-loops at distance 0; skew-tiny's hub rows), and rows
+    edited to k = 0, k at and above the valid count, degree 0 and forced
+    hub rows.  Keep masks and counts are exact, sums within rtol 1e-6."""
+    g = _grid_graph(preset, store)
+    rng = np.random.default_rng(len(preset))
+    n, f = g.features.shape
+    batch = torch.from_numpy(rng.choice(n, min(n, 400), replace=False))
+    w0 = torch.zeros(f)
+    w0[:3] = torch.tensor([0.5, -0.5, 0.5])
+    b0 = torch.tensor(0.125)
+    rnd = store != "float32"
+    centers = g.features[batch]
+    if rnd:
+        centers = centers.to(torch.bfloat16).to(torch.float32)
+    center_s0 = tagg.selection_score(centers, w0, b0)
+    rec = tagg.batch_record_window(g, batch)
+    for r, rel in enumerate(g.relations):
+        d = max(rel.window_width, 1)
+        raw = rec[:, g.fused_off[r]: g.fused_off[r + 1]]
+        deg = rel.deg[batch].clone()
+        keff = rel.keff[batch].clone()
+        keff[10:15] = 0
+        keff[15:20] = deg[15:20].clamp(max=d)
+        keff[20:25] = d + 1
+        deg[25:30] = 0
+        deg[30:35] = d + 3                     # hub rows, kept out
+        hub_cap = rel.window_width
+        num, cnt, keep = tagg.choose_window_sum(
+            raw, d, f, center_s0, w0, b0, deg, keff, hub_cap=hub_cap,
+            round_bf16=store == "mixed")
+        xw = raw[:, : d * f].reshape(-1, d, f).numpy()
+        rows = jnp.asarray(xw)
+        if store == "mixed":
+            rows = rows.astype(jnp.bfloat16).astype(jnp.float32)
+        s = jnp.dot(rows, jnp.asarray(w0.numpy()),
+                    precision="highest") + float(b0)
+        degn = deg.numpy()
+        valid = ((np.arange(d)[None, :] < np.minimum(degn, d)[:, None])
+                 & (degn <= hub_cap)[:, None])
+        dist = jnp.where(jnp.asarray(valid),
+                         jnp.abs(jnp.asarray(center_s0.numpy())[:, None] - s),
+                         jnp.inf)
+        want = jagg.keep_nearest(dist, jnp.asarray(keff.numpy()),
+                                 jnp.asarray(valid))
+        num_j, cnt_j = jagg.window_sum_from_gathered(jnp.asarray(xw), want)
+        np.testing.assert_array_equal(keep.numpy(), np.asarray(want))
+        np.testing.assert_allclose(num.numpy(), np.asarray(num_j), rtol=1e-6)
+        np.testing.assert_array_equal(cnt.numpy(), np.asarray(cnt_j))
+        # the cases are there: ties, self-loops, partial keeps and hubs
+        assert (dist == 0).any() and keep.any()
+        assert not keep[10:15].any() and not keep[25:35].any()
+        assert (keep.sum(1) < torch.from_numpy(valid).sum(1)).any()
+        assert (np.asarray(dist)[valid] == np.roll(np.asarray(dist), 1,
+                                                   1)[valid]).any()
+
+
+def test_choose_window_sum_launches_nothing_on_the_cpu():
+    """A CPU forward through the store lane takes the plain version: the
+    kernel's counter, ``launch_counts()["choose_window"]``, stays put."""
+    from pcgnn_tpu_torch.models.pcgnn import PCGNN
+    from pcgnn_tpu_torch.train.capture import launch_counts
+    g = _grid_graph("tiny", "bfloat16")
+    model = PCGNN(g.feat_dim, 8, g.num_relations, alpha=2.0, rho=0.5,
+                  generator=torch.Generator().manual_seed(0))
+    before = launch_counts()
+    logits, _ = model(g, torch.arange(64), None, train=False)
+    assert logits.shape == (64, 2)
+    assert launch_counts() == before and "choose_window" in before
