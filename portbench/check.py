@@ -1,7 +1,8 @@
 """The comparison that decides ``correct``.
 
 The program's outputs, recorded from its timed path, against the plain
-reference (``reference/``) on the same raw arrays and initial weights.
+reference the configuration names (a module of ``reference/``, reached
+only through its interface) on the same raw arrays and initial weights.
 The training numbers come from epoch 0 as set-up runs it the second
 time, from the initial weights and a fresh Adam state, every step a
 replay of the captured step the window replays (``harness.Run.warm_up``):
@@ -35,8 +36,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-
-from portbench.reference import pcgnn as ref
 
 
 def worst_leaf_gap(prog: dict, refv: dict) -> float:
@@ -79,20 +78,19 @@ def pick_bad(g, batches, weights, ys) -> int:
     return bad
 
 
-def reference_readings(g, rec: dict, hyper: dict, low: bool = False) -> dict:
-    """The reference's own outputs for what ``rec`` recorded (``low``:
-    the control, TF32 products)."""
+def reference_readings(ref, g, rec: dict, hyper: dict,
+                       low: bool = False) -> dict:
+    """Reference module ``ref``'s own outputs on its graph ``g`` for what
+    ``rec`` recorded (``low``: the control, TF32 products)."""
     dev = g.features.device
-    steps = ref.train_steps(
+    steps = ref.steps(
         g, {k: v.to(dev) for k, v in rec["params0"].items()},
         [b.to(dev) for b in rec["batches"]],
-        [w.to(dev) for w in rec["weights"]], lr=hyper["lr"],
-        weight_decay=hyper["weight_decay"], alpha=hyper["alpha"],
-        rho=hyper["rho"], low=low)
+        [w.to(dev) for w in rec["weights"]], hyper, low)
     nodes = torch.as_tensor(g.idx_valid, device=dev)
-    probs = ref.probabilities(
+    probs = ref.fraud_probabilities(
         g, {k: v.to(dev) for k, v in rec["valid_params"].items()}, nodes,
-        hyper["rho"], low)[:, 1]
+        hyper, low)
     return {"losses": steps["losses"], "grad": steps["grad"],
             "change": {k: steps["params"][k] - rec["params0"][k].to(dev)
                        for k in steps["params"]},
@@ -130,13 +128,14 @@ def program_readings(rec: dict, device) -> dict:
     }
 
 
-def compare(g, rec: dict, hyper: dict, limits: dict) -> tuple:
-    """(correct, [(name, value, limit)]) of one run's record."""
+def compare(ref, g, rec: dict, hyper: dict, limits: dict) -> tuple:
+    """(correct, [(name, value, limit)]) of one run's record against
+    reference module ``ref`` on its graph ``g``."""
     dev = g.features.device
     numbers = {"pick_bad": pick_bad(g, rec["plan_batches"],
                                     rec["plan_weights"], rec["plan_labels"])}
     numbers.update(gaps(program_readings(rec, dev),
-                        reference_readings(g, rec, hyper)))
+                        reference_readings(ref, g, rec, hyper)))
     rows = [(k, numbers[k], limits[k]) for k in
             ("pick_bad", "loss_gap", "grad_gap", "update_gap", "prob_gap")]
     ok = all(np.isfinite(v) and v <= lim for _, v, lim in rows)

@@ -2,21 +2,26 @@
 
 Bytes, each input read once and each output written once, at the stored
 width: the batch's fused records (bfloat16, the windows of every
-relation), the batch's ids and labels (int64) and weights (float32), the
-centers' feature rows (float32), the train positives' feature rows that
-the oversample scores, every hub row's neighbors that the choose step
-scores (feature row and id), and the parameters and Adam's two moments,
-read and written (float32).  Operations: the dense layers, forward, and
-backward as far as a gradient is needed (no gradient reaches the
-features or the aggregates)."""
+relation) or, in a lane with no store, each real row's neighbors in every
+relation (float32 feature row and int32 id), the batch's ids and labels
+(int64) and weights (float32), the centers' feature rows (float32), the
+train positives' feature rows that the oversample scores, every hub row's
+neighbors that the choose step scores (feature row and id), and the
+parameters and Adam's two moments, read and written (float32).
+Operations: the dense layers, forward, and backward as far as a gradient
+is needed (no gradient reaches the features or the aggregates)."""
 
 
 def byte_terms(*, rows: int, steps: int, feat_dim: int, record_width: int,
-               train_pos: int, hub_neighbors: int, params: int) -> dict:
+               train_pos: int, hub_neighbors: int, params: int,
+               neighbors: int | None = None) -> dict:
     """Bytes by term, over ``rows`` real batch rows in ``steps`` steps;
-    ``hub_neighbors`` is the degree sum of the hub rows among them."""
+    ``hub_neighbors`` is the degree sum of the hub rows among them.  A lane
+    with no store gives ``neighbors``, the degree sum of all of them over
+    every relation: its rows and ids take the records' place (the hub
+    rows' stay with ``hub_neighbor_rows``)."""
     f = feat_dim
-    return {
+    terms = {
         "records": rows * record_width * 2,
         "ids_labels_weights": rows * (8 + 8 + 4),
         "center_rows": rows * f * 4,
@@ -24,6 +29,10 @@ def byte_terms(*, rows: int, steps: int, feat_dim: int, record_width: int,
         "hub_neighbor_rows": hub_neighbors * (f * 4 + 4),
         "params_and_moments": steps * params * 4 * 6,
     }
+    if neighbors is not None:
+        del terms["records"]
+        terms["neighbor_rows"] = (neighbors - hub_neighbors) * (f * 4 + 4)
+    return terms
 
 
 def flops(*, rows: int, feat_dim: int, emb: int, relations: int,

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import importlib
 import importlib.util
 import json
 import math
@@ -18,9 +19,8 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from portbench import check, gen, stats, trace, weights
+from portbench import check, gen, stats, trace
 from portbench.counts import peaks as peaks_mod
-from portbench.reference import graph as refgraph
 
 HERE = Path(__file__).resolve().parent
 # top-level module names that may not be loaded once the window closes:
@@ -66,13 +66,20 @@ def forbidden_modules() -> list:
     return sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
 
 
+def reference_module(cfg: dict):
+    """The plain reference the configuration names (``reference/``)."""
+    return importlib.import_module(
+        f"portbench.reference.{cfg.get('reference', 'pcgnn')}")
+
+
 def trainer_config(model: dict, seed: int) -> dict:
     keys = ("data_name", "model", "train_ratio", "test_ratio", "emb_size",
             "lr", "weight_decay", "alpha", "rho", "valid_epochs",
-            "batch_size", "edge_windows", "ewin_dtype")
+            "batch_size", "edge_windows")
     # early stopping and checkpoints stay off: the window runs its own loop
-    return {**{k: model[k] for k in keys}, "seed": seed, "epochs": 10**9,
-            "patience": 10**9, "exp_num": 0}
+    return {**{k: model[k] for k in keys},
+            **{k: model[k] for k in ("ewin_dtype",) if k in model},
+            "seed": seed, "epochs": 10**9, "patience": 10**9, "exp_num": 0}
 
 
 class Tap:
@@ -121,7 +128,13 @@ class Run:
         self.run_seed = seed % 2**63
         self.epoch = 0
         self.model_cfg = cfg["model"]
+        self.refmod = reference_module(cfg)
+        # the graph's semantics and the lane the configuration states: its
+        # relations directed or not, edge-window stores or none
+        self.directed = bool(cfg["graph"].get("directed"))
+        self.stores = bool(self.model_cfg["edge_windows"])
         self.rec: dict = {}
+        self.ref = None
 
     def lap(self, name: str) -> None:
         now = time.perf_counter()
@@ -130,42 +143,46 @@ class Run:
 
     def setup(self) -> None:
         self.laps, self._lap = {}, time.perf_counter()
-        from pcgnn_tpu_torch.graph.csr import build_multirel, csr_from_edges
+        from pcgnn_tpu_torch.data.synthetic import stub_degrees
+        from pcgnn_tpu_torch.graph.csr import (build_multirel, csr_from_edges,
+                                               degree_stub)
         from pcgnn_tpu_torch.train.trainer import Trainer
         self.lap("import")
         mc, dev = self.model_cfg, self.device
-        raw = gen.draw_graph(self.seed, **self.cfg["graph"],
-                             **self.traffic["graph"])
+        draws = {k: v for k, v in self.cfg["graph"].items() if k != "directed"}
+        raw = gen.draw_graph(self.seed, **draws, **self.traffic["graph"])
         self.raw = raw
         self.lap("draws")
-        # the reference's graph: what set-up needs of it (the edges an
-        # epoch) now, the rest after the window, off the card meanwhile
-        g = refgraph.build(raw, mc, self.seed, dev)
-        self.edges_per_epoch = refgraph.edges_per_epoch(g)
-        self.ref = g.to("cpu")
-        self.hub_cap = [(r.deg.to(dev), r.dcap) for r in g.relations]
-        del g
-        if dev.type == "cuda":
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats(dev)
-        self.lap("reference graph")
         n = raw.num_nodes
         thr = mc.get("threshold", 0.5)
         thr = thr if isinstance(thr, list) else [thr] * len(raw.srcs)
-        rels = [csr_from_edges(s, d, n, threshold=t, device=dev)
+        # what the port's loader builds: directed relations with a
+        # degree-only homo graph (data/synthetic.py's stress presets), or
+        # symmetric ones with the homo graph's CSR
+        rels = [csr_from_edges(s, d, n, threshold=t,
+                               symmetrize=not self.directed, device=dev)
                 for s, d, t in zip(raw.srcs, raw.dsts, thr)]
-        homo = csr_from_edges(np.concatenate(raw.srcs),
-                              np.concatenate(raw.dsts), n, device=dev)
+        if self.directed:
+            homo = degree_stub(stub_degrees(raw.srcs, raw.dsts, n),
+                               device=dev)
+        else:
+            homo = csr_from_edges(np.concatenate(raw.srcs),
+                                  np.concatenate(raw.dsts), n, device=dev)
         graph = build_multirel(rels, homo, raw.features, raw.labels,
                                device=dev)
         self.lap("program graph")
         self.t = Trainer(trainer_config(mc, self.seed), graph=graph,
                          device=dev)
+        stored = [r.ewin is not None for r in self.t.graph.relations]
+        if stored != [self.stores] * len(stored):
+            raise RuntimeError(
+                f"the configuration states edge_windows {self.stores}, the "
+                f"program stored relations {stored}: the reference would "
+                f"follow another lane than the program takes")
         self.lap("trainer")
         self.model = self.t.new_model()
         self.lap("model")
-        p0 = weights.initial(self.run_seed, raw.features.shape[1],
-                             mc["emb_size"], len(raw.srcs), dev)
+        p0 = self.refmod.initial_weights(self.run_seed, raw, self.cfg, dev)
         self.lap("weights")
         self.model.load_state_dict(p0)
         self.optimizer = self.t.new_optimizer(self.model)
@@ -174,6 +191,20 @@ class Run:
         self.tap = Tap(self.runner)
         self.lap("optimizer and runner")
         self.warm_up()
+
+    def reference(self) -> None:
+        """The reference's graph (``self.ref``), built from the raw draws
+        once the window has closed, so that its seconds are not set-up's:
+        the edges an epoch brings, and each relation's degrees and window
+        cap, which the traced slice's counts read (``counted``)."""
+        if self.ref is not None:
+            return
+        a = time.perf_counter()
+        g = self.refmod.build_graph(self.raw, self.cfg, self.device)
+        self.edges_per_epoch = self.refmod.edges_per_epoch(g)
+        self.hub_cap = [(r.deg, r.dcap) for r in g.relations]
+        self.ref = g
+        self.reference_s = time.perf_counter() - a
 
     def _step_hook(self, what: str) -> None:
         if what != "end":
@@ -192,14 +223,28 @@ class Run:
         """Epoch 0 twice and one validation: every capture the first
         epoch and the forward need.  The first run of epoch 0 warms up and
         captures the step (its first step runs eagerly, the rest replay);
-        the parameters and Adam's state are then put back as they were
-        (``restart``) and epoch 0 runs again, every step a replay of the
-        captured graph on the card: that run is recorded for the check
-        (its first three steps and its plan), and the window goes on from
-        epoch 1 as ``Trainer.train`` would."""
-        t, nb = self.t, self.t.num_batches
-        float(t.run_epoch(self.model, self.optimizer, 0))
+        then ``record``."""
+        float(self.t.run_epoch(self.model, self.optimizer, 0))
         self.lap("capture epoch")
+        self.record()
+
+    def reseed(self, seed: int) -> None:
+        """The run of ``seed`` on this set-up: its initial weights, then
+        ``record`` (the calibration reads many seeds in one process; the
+        dataset, and so the set-up, is the same for every seed)."""
+        self.run_seed = seed % 2**63
+        p0 = self.refmod.initial_weights(self.run_seed, self.raw, self.cfg,
+                                         self.device)
+        self.rec = {"params0": {k: v.clone() for k, v in p0.items()}}
+        self.record()
+
+    def record(self) -> None:
+        """The parameters and Adam's state put back as they were
+        (``restart``) and epoch 0 run again, every step a replay of the
+        captured graph on the card: that run is recorded for the check
+        (its first three steps and its plan), a validation follows, and
+        the window goes on from epoch 1 as ``Trainer.train`` would."""
+        t, nb = self.t, self.t.num_batches
         self.restart()
         self._steps = 0
         self.runner.step_hook = self._step_hook
@@ -279,13 +324,19 @@ class Run:
                 failed += not ok
             if time.perf_counter() - start >= seconds:
                 break
+        n = len(epoch_ms)
         self.window_stats = {
-            "epochs": len(epoch_ms), "validations": len(valid_ms),
+            "epochs": n, "validations": len(valid_ms),
             "epoch_ms_median": stats.median(epoch_ms),
-            "validate_ms_median": stats.median(valid_ms)}
+            "validate_ms_median": stats.median(valid_ms),
+            # the median of each fifth of the epochs, in order: a slow
+            # phase at the window's start shows in the first
+            "epoch_ms_by_fifth": [
+                stats.median(epoch_ms[i * n // 5: (i + 1) * n // 5])
+                for i in range(5)]}
         return {"seconds": time.perf_counter() - start, "epoch_ms": epoch_ms,
                 "validate_ms": valid_ms, "epochs": len(epoch_ms),
-                "failed": failed, "edges_per_epoch": self.edges_per_epoch}
+                "failed": failed}
 
     def traced(self, epochs: int, tries: int = 3) -> dict:
         """``epochs`` epochs with their validations under the profiler;
@@ -328,25 +379,39 @@ class Run:
             "epochs": epochs, "validations": n_valid, "failed": failed,
             "steps": epochs * nb,
             "captures": self.runner.stats()["captures"] - captures,
-            "rows": rows, "hub_neighbors": self._hub_neighbors(plans),
-            "record_width": sum(min(int(self.ref.relations[r].deg.max()), c)
-                                for r, (_, c) in enumerate(self.hub_cap))
-            * self.raw.features.shape[1],
-            "feat_dim": self.raw.features.shape[1],
+            "rows": rows, "plans": [(b.cpu(), w.cpu()) for b, w in plans],
+            "stores": self.stores, "feat_dim": self.raw.features.shape[1],
             "emb": self.model_cfg["emb_size"],
             "relations": len(self.raw.srcs),
-            "train_pos": int(self.ref.train_pos.shape[0]),
             "params": sum(p.numel() for p in self.model.parameters()),
             "breakdown": trace.breakdown(ev, lo, hi)}
 
-    def _hub_neighbors(self, plans) -> int:
-        """Degree sum of the real hub rows of the traced batches."""
-        total = 0
+    def counted(self, tr: dict) -> None:
+        """The traced slice's counts that rest on the reference's graph
+        (``reference``), added to its record ``tr``: the degree sums of
+        its batches' real rows, the fused records' width, the train
+        positives."""
+        self.reference()
+        plans = tr.pop("plans")
+        tr.update(
+            hub_neighbors=self.degree_sum(plans, True),
+            neighbors=self.degree_sum(plans),
+            record_width=sum(min(int(deg.max()), cap)
+                             for deg, cap in self.hub_cap) * tr["feat_dim"]
+            if self.stores else 0,
+            train_pos=int(self.ref.train_pos.shape[0]))
+
+    def degree_sum(self, plans, hubs_only: bool = False) -> int:
+        """Degree sum of the real rows of the traced batches ``plans``, over
+        all relations; ``hubs_only``: of the rows above their relation's
+        window cap."""
+        total, dev = 0, self.hub_cap[0][0].device
         for b, w in plans:
+            b, real = b.to(dev), w.to(dev) > 0
             for deg, cap in self.hub_cap:
-                d = deg[b.to(self.device)]
-                total += int(torch.where((d > cap) & (w.to(self.device) > 0),
-                                         d, 0).sum())
+                d = deg[b]
+                keep = real & (d > cap) if hubs_only else real
+                total += int(torch.where(keep, d, 0).sum())
         return total
 
     def close(self) -> None:
@@ -358,7 +423,8 @@ class Run:
             torch.cuda.empty_cache()
 
     def check(self) -> tuple:
-        return check.compare(self.ref.to(self.device), self.rec,
+        self.reference()
+        return check.compare(self.refmod, self.ref, self.rec,
                              self.model_cfg, self.traffic["limits"])
 
 
@@ -403,18 +469,25 @@ def run_cell(cfg: dict, traffic: dict, metrics: list, seed: int,
     if device.type == "cuda":
         dev_info["memory_peak_bytes"] = int(
             torch.cuda.max_memory_allocated(device))
-    bad = forbidden_modules()
-    if bad:
-        raise RuntimeError(f"loaded once the window closed: {bad}")
+    # the reference after the window, on the card the program has freed
+    run.close()
+    run.reference()
+    if traced:
+        run.counted(tr)
+    else:
+        w["edges_per_epoch"] = run.edges_per_epoch
     rec["peaks"] = peaks_mod.peaks(dev_info["kind"])
     values = {}
     for m in metrics:
         v = reader(m["name"])(rec)
         if v is not None:
             values[m["name"]] = {"value": float(v), "unit": m["unit"]}
-    run.close()
+    a = time.perf_counter()
     with no_tf32():
         ok, rows = run.check()
+    bad = forbidden_modules()
+    if bad:
+        raise RuntimeError(f"loaded once the window closed: {bad}")
     line = {"correct": ok, "attempted": attempted, "failed": failed,
             "metrics": values, "device": dev_info}
     if traced:
@@ -424,6 +497,8 @@ def run_cell(cfg: dict, traffic: dict, metrics: list, seed: int,
         dev_info.update(busy_s=busy / 1e6, window_s=(hi - lo) / 1e6)
         line["breakdown"] = tr["breakdown"]
     line["setup_laps"] = run.laps
+    line["reference_s"] = {"graph": run.reference_s,
+                           "check": time.perf_counter() - a}
     if not traced:
         line["window_stats"] = run.window_stats
     line["compared"] = {k: {"value": v, "limit": lim} for k, v, lim in rows}

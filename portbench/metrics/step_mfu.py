@@ -13,7 +13,8 @@ def read(rec):
     bytes_ = sum(step.byte_terms(
         rows=t["rows"], steps=t["steps"], feat_dim=t["feat_dim"],
         record_width=t["record_width"], train_pos=t["train_pos"],
-        hub_neighbors=t["hub_neighbors"], params=t["params"]).values())
+        hub_neighbors=t["hub_neighbors"], params=t["params"],
+        neighbors=None if t["stores"] else t["neighbors"]).values())
     fl = step.flops(rows=t["rows"], feat_dim=t["feat_dim"], emb=t["emb"],
                     relations=t["relations"])
     spent_us = sum(e - s for s, e in t["spans"]["portbench.epoch"])

@@ -4,13 +4,19 @@ raw edge lists, and the splits and pick weights of the PC-GNN protocol.
 Semantics stated by the configuration and followed here:
 
 * a relation is the set of its edges made symmetric, with a self-loop on
-  every node; a row lists its neighbors in ascending id;
+  every node; a row lists its neighbors in ascending id.  Where the
+  configuration states ``directed`` (under ``graph``), the edges are kept
+  as drawn, source to target, with the self-loops, each edge once;
 * ``k = ceil(threshold * deg)``; the choose step keeps ``keff = deg`` when
   ``deg <= k + 1``, else ``k``; the oversample takes ``floor(k * rho)``;
-* the homo graph is the union of the relations, by the same rule;
-* rows whose degree exceeds the relation's window cap (about the 99.5th
-  degree percentile, ``window_cap``) read their neighbors' features
-  exactly; the rest read them from the bfloat16 edge-window store;
+* the homo graph is the union of the relations, by the same rule; only
+  its degrees are read (the pick's weights);
+* where the configuration holds bfloat16 stores (``edge_windows`` true,
+  ``ewin_dtype`` bfloat16), the selection scores and the window rows'
+  sums read the features rounded to bfloat16 (``stored``), except rows
+  whose degree exceeds the relation's window cap (about the 99.5th degree
+  percentile, ``window_cap``), which read their neighbors exactly; with a
+  float32 store or none, everything reads exact float32;
 * the splits are scikit-learn's stratified ``train_test_split`` twice
   (train, then the rest into valid and test), with the configuration's
   leading unlabeled ids left out;
@@ -45,13 +51,17 @@ class Relation:
 
 
 def csr(src: np.ndarray, dst: np.ndarray, n: int, threshold: float,
-        device) -> Relation:
-    """The relation of an edge list: symmetric, self-loops, each edge
-    once, rows ascending; its keep counts and window cap."""
+        device, directed: bool = False) -> Relation:
+    """The relation of an edge list: symmetric (or, ``directed``, as
+    drawn), self-loops, each edge once, rows ascending; its keep counts
+    and window cap."""
     s = torch.as_tensor(np.asarray(src, np.int64), device=device)
     d = torch.as_tensor(np.asarray(dst, np.int64), device=device)
     loops = torch.arange(n, device=device)
-    key = torch.unique(torch.cat([s * n + d, d * n + s, loops * n + loops]))
+    pairs = [s * n + d] if directed else [s * n + d, d * n + s]
+    del s, d
+    key = torch.unique(torch.cat(pairs + [loops * n + loops]))
+    del pairs
     col = key % n
     deg = torch.bincount(key // n, minlength=n)
     indptr = torch.zeros(n + 1, dtype=torch.int64, device=device)
@@ -108,9 +118,10 @@ def _stratified(index, y, n_train, n_test, seed):
     train, test = [], []
     for i in range(len(counts)):
         perm = by_class[i].take(rng.permutation(counts[i]), mode="clip")
-        train.extend(perm[: n_i[i]])
-        test.extend(perm[n_i[i]: n_i[i] + t_i[i]])
-    return index[rng.permutation(train)], index[rng.permutation(test)]
+        train.append(perm[: n_i[i]])
+        test.append(perm[n_i[i]: n_i[i] + t_i[i]])
+    return (index[rng.permutation(np.concatenate(train))],
+            index[rng.permutation(np.concatenate(test))])
 
 
 def splits(labels: np.ndarray, train_ratio: float, test_ratio: float,
@@ -131,7 +142,8 @@ def splits(labels: np.ndarray, train_ratio: float, test_ratio: float,
 @dataclasses.dataclass
 class Graph:
     features: torch.Tensor    # [N, F] float32, as the model reads them
-    stored: torch.Tensor      # [N, F] the features rounded to bfloat16
+    stored: torch.Tensor      # [N, F] what the choose step reads: the
+                              # features rounded to bfloat16, or themselves
     labels: torch.Tensor      # [N] int64
     relations: list
     homo_deg: torch.Tensor    # [N] int64
@@ -140,9 +152,12 @@ class Graph:
     train_pos: torch.Tensor   # [P] int64, in the train split's order
 
     def to(self, device) -> "Graph":
+        feats = self.features.to(device)
+        stored = (feats if self.stored is self.features
+                  else self.stored.to(device))
         return dataclasses.replace(
-            self, features=self.features.to(device),
-            stored=self.stored.to(device), labels=self.labels.to(device),
+            self, features=feats, stored=stored,
+            labels=self.labels.to(device),
             relations=[r.to(device) for r in self.relations],
             homo_deg=self.homo_deg.to(device),
             train_pos=self.train_pos.to(device))
@@ -159,17 +174,27 @@ class Graph:
         return max(2 * int(self.train_pos.shape[0]), 1)
 
 
-def build(raw, model_cfg: dict, seed: int, device) -> Graph:
+def bf16_stores(model_cfg: dict) -> bool:
+    """Whether the configuration holds bfloat16 edge-window stores (the
+    trainer's defaults: stores on, in bfloat16)."""
+    return (bool(model_cfg.get("edge_windows", True))
+            and model_cfg.get("ewin_dtype", "bfloat16") == "bfloat16")
+
+
+def build(raw, model_cfg: dict, seed: int, device, *,
+          directed: bool = False) -> Graph:
     """The reference graph of the generator's ``raw`` arrays under the
     configuration's model section (``threshold``, ``train_ratio``,
-    ``test_ratio``, ``num_unlabeled``, ``normalize_features``)."""
+    ``test_ratio``, ``num_unlabeled``, ``normalize_features``,
+    ``edge_windows``, ``ewin_dtype``), its relations ``directed`` or
+    not."""
     n = raw.num_nodes
     thr = model_cfg.get("threshold", 0.5)
     thr = thr if isinstance(thr, list) else [thr] * len(raw.srcs)
-    rels = [csr(s, d, n, float(t), device)
+    rels = [csr(s, d, n, float(t), device, directed)
             for s, d, t in zip(raw.srcs, raw.dsts, thr)]
-    homo = csr(np.concatenate(raw.srcs), np.concatenate(raw.dsts), n, 0.5,
-               device)
+    homo_deg = csr(np.concatenate(raw.srcs), np.concatenate(raw.dsts), n,
+                   0.5, device, directed).deg
     feats = raw.features
     if model_cfg.get("normalize_features"):
         feats = normalize_rows(feats)
@@ -178,9 +203,11 @@ def build(raw, model_cfg: dict, seed: int, device) -> Graph:
     tr, va, _ = splits(labels, model_cfg["train_ratio"],
                        model_cfg["test_ratio"], seed,
                        int(model_cfg.get("num_unlabeled", 0)))
-    return Graph(features=x, stored=x.to(torch.bfloat16).to(torch.float32),
+    stored = (x.to(torch.bfloat16).to(torch.float32)
+              if bf16_stores(model_cfg) else x)
+    return Graph(features=x, stored=stored,
                  labels=torch.as_tensor(labels, device=device),
-                 relations=rels, homo_deg=homo.deg, idx_train=tr,
+                 relations=rels, homo_deg=homo_deg, idx_train=tr,
                  idx_valid=va,
                  train_pos=torch.as_tensor(tr[labels[tr] == 1],
                                            device=device))

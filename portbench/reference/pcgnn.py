@@ -10,8 +10,10 @@ gradient through it):
   train positives nearest by the same distance, ties to the earlier in
   the train split's order;
 * agg_r(v): the mean over the union of the two sets; a kept neighbor reads
-  its stored (bfloat16) features unless v's degree exceeds the window cap,
-  a minor that is not kept reads its exact features;
+  its stored features (``reference.graph``: bfloat16 where the
+  configuration holds bfloat16 stores, else exact) unless v's degree
+  exceeds the window cap, a minor that is not kept reads its exact
+  features;
 * h_r = relu([x_v ; agg_r] W_r), z = relu([x_v ; h_1 ; ... ; h_R] W_inter),
   logits = z W_head, scores = x_v W_clf + b_clf;
 * loss = sum w CE(logits) / max(sum w, 1) + alpha sum w CE(scores) /
@@ -20,12 +22,21 @@ gradient through it):
 
 Matrix products go through ``mm``: float32, or, for the control, each
 operand, the backward's too, rounded to TF32 first (10 mantissa bits, to
-nearest), which is what a TF32 product on the card computes.
+nearest), which is what a TF32 product on the card computes; the
+aggregates' sums of gathered rows round those rows to TF32 for it too.
+The aggregates gather the rows they sum, so their memory follows the
+batch, its widest row and the train positives, not the node count.
+
+The harness reaches a reference only through its module's interface, the
+functions under "Interface" at the end of this file (``reference/__init__``).
 """
 
 from __future__ import annotations
 
 import torch
+
+from portbench.reference import graph as refgraph
+from portbench.reference import weights as init_weights
 
 # the precision of Adam's bias corrections: float32, as the card's
 # capturable Adam computes them (on the CPU, torch's Adam takes them in
@@ -60,16 +71,43 @@ def mm(a: torch.Tensor, b: torch.Tensor, low: bool) -> torch.Tensor:
     return _TF32Product.apply(a, b) if low else a @ b
 
 
-def scores(g, w0: torch.Tensor, b0: torch.Tensor) -> torch.Tensor:
-    """[N] selection scores of the stored features."""
-    return (g.stored.double() @ w0.double() + b0.double()).float()
+def scores(g, w0: torch.Tensor, b0: torch.Tensor,
+           block: int = 1 << 20) -> torch.Tensor:
+    """[N] selection scores of the stored features, in blocks of nodes."""
+    w, b = w0.double(), b0.double()
+    return torch.cat([(g.stored[i: i + block].double() @ w + b).float()
+                      for i in range(0, g.stored.shape[0], block)])
 
 
-def _nearest_rank(dist: torch.Tensor) -> torch.Tensor:
-    """Each entry's rank in its row by distance, ties to the lower
-    column."""
-    order = torch.argsort(dist, dim=1, stable=True)
-    return torch.argsort(order, dim=1, stable=True)
+def _nearest(dist: torch.Tensor, k: torch.Tensor) -> tuple:
+    """(cols [B, K], take [B, K]): each row's columns by distance, ties to
+    the lower column, the first K = min(max k, width) of them, and which
+    of those are among the row's ``k`` nearest."""
+    width = min(int(k.max()), dist.shape[1]) if k.numel() else 0
+    cols = torch.argsort(dist, dim=1, stable=True)[:, :width]
+    take = torch.arange(width, device=dist.device)[None, :] < k[:, None]
+    return cols, take
+
+
+def _row_sum(g, ids: torch.Tensor, take: torch.Tensor, exact, low: bool,
+             budget: int = 1 << 24) -> torch.Tensor:
+    """[B, F] sum over each row's taken ``ids`` of their feature rows:
+    exact where ``exact`` [B] (everywhere when None), else the stored
+    ones; in blocks of rows of about ``budget`` gathered elements."""
+    b, k = ids.shape
+    f = g.features.shape[1]
+    step = max(1, budget // max(k * f, 1))
+    out = [g.features.new_zeros((0, f))]
+    for i in range(0, b, step):
+        sl = slice(i, i + step)
+        rows = g.features[ids[sl]]
+        if exact is not None and g.stored is not g.features:
+            rows = torch.where(exact[sl, None, None], rows,
+                               g.stored[ids[sl]])
+        if low:
+            rows = tf32(rows)
+        out.append(torch.where(take[sl, :, None], rows, 0.0).sum(1))
+    return torch.cat(out)
 
 
 def aggregate(g, rel, nodes: torch.Tensor, s: torch.Tensor,
@@ -77,7 +115,6 @@ def aggregate(g, rel, nodes: torch.Tensor, s: torch.Tensor,
     """[B, F] agg_r of ``nodes``; ``labels_b`` None for inference (no
     minors)."""
     n = g.features.shape[0]
-    b = nodes.shape[0]
     deg = rel.deg[nodes]
     width = int(deg.max())
     slot = torch.arange(width, device=nodes.device)
@@ -86,25 +123,26 @@ def aggregate(g, rel, nodes: torch.Tensor, s: torch.Tensor,
     nbr = torch.where(valid, rel.col[nbr], 0)
     dist = (s[nodes][:, None] - s[nbr]).abs()
     dist = torch.where(valid, dist, float("inf"))
-    kept = valid & (_nearest_rank(dist) < rel.keff[nodes][:, None])
-    rows = torch.arange(b, device=nodes.device)[:, None].expand_as(nbr)
-    kept_mask = torch.zeros((b, n), dtype=torch.bool, device=nodes.device)
-    kept_mask[rows[kept], nbr[kept]] = True
-    minor_mask = torch.zeros_like(kept_mask)
-    if labels_b is not None:
+    cols, kept = _nearest(dist, rel.keff[nodes])
+    kept &= valid.gather(1, cols)
+    kept_ids = nbr.gather(1, cols)
+    num = _row_sum(g, kept_ids, kept, deg > rel.dcap, low)
+    cnt = kept.sum(1)
+    if labels_b is not None and g.train_pos.numel():
         tp = g.train_pos
-        dm = (s[nodes][:, None] - s[tp][None, :]).abs()
         m = torch.floor(rel.ksample[nodes].float() * rho).long()
-        take = (_nearest_rank(dm) < m[:, None]) & (labels_b == 1)[:, None]
-        trows = torch.arange(b, device=nodes.device)[:, None].expand_as(take)
-        minor_mask[trows[take], tp[None, :].expand_as(take)[take]] = True
-    minor_mask &= ~kept_mask
-    hub = (deg > rel.dcap)[:, None]
-    kept_f = kept_mask.float()
-    num = (torch.where(hub, mm(kept_f, g.features, low),
-                       mm(kept_f, g.stored, low))
-           + mm(minor_mask.float(), g.features, low))
-    cnt = kept_mask.sum(1) + minor_mask.sum(1)
+        m = torch.where(labels_b == 1, m, 0)
+        dm = (s[nodes][:, None] - s[tp][None, :]).abs()
+        mcols, minor = _nearest(dm, m)
+        minor_ids = tp[mcols]
+        # minors only where not kept: looked up in the row's kept ids,
+        # sorted, the untaken slots past every node id
+        ks = torch.sort(torch.where(kept, kept_ids, n), dim=1).values
+        if ks.shape[1]:
+            at = torch.searchsorted(ks, minor_ids).clamp(max=ks.shape[1] - 1)
+            minor &= ks.gather(1, at) != minor_ids
+        num = num + _row_sum(g, minor_ids, minor, None, low)
+        cnt = cnt + minor.sum(1)
     return num / cnt.clamp(min=1)[:, None].float()
 
 
@@ -177,7 +215,7 @@ def train_steps(g, params0: dict, batches, weights, *, lr: float,
 
 
 def probabilities(g, params: dict, nodes: torch.Tensor, rho: float,
-                  low: bool = False, block: int = 1024) -> torch.Tensor:
+                  low: bool = False, block: int = 4096) -> torch.Tensor:
     """[M, 2] sigmoid of the logits of ``nodes``, in blocks of rows."""
     s = scores(g, params["label_clf.w"][:, 0], params["label_clf.b"][0])
     out = []
@@ -187,3 +225,34 @@ def probabilities(g, params: dict, nodes: torch.Tensor, rho: float,
                                 low, s=s)
             out.append(torch.sigmoid(logits))
     return torch.cat(out)
+
+
+# Interface: what the harness and the check call (``reference/__init__``)
+
+
+def build_graph(raw, cfg: dict, device):
+    """The reference graph of configuration ``cfg`` from the generator's
+    ``raw`` arrays."""
+    return refgraph.build(raw, cfg["model"], int(cfg["seed"]), device,
+                          directed=bool(cfg["graph"].get("directed")))
+
+
+def edges_per_epoch(g) -> float:
+    return refgraph.edges_per_epoch(g)
+
+
+def initial_weights(seed: int, raw, cfg: dict, device) -> dict:
+    return init_weights.initial(seed, raw.features.shape[1],
+                           cfg["model"]["emb_size"], len(raw.srcs), device)
+
+
+def steps(g, params0: dict, batches, batch_weights, hyper: dict,
+          low: bool = False) -> dict:
+    return train_steps(g, params0, batches, batch_weights, lr=hyper["lr"],
+                       weight_decay=hyper["weight_decay"],
+                       alpha=hyper["alpha"], rho=hyper["rho"], low=low)
+
+
+def fraud_probabilities(g, params: dict, nodes: torch.Tensor, hyper: dict,
+                        low: bool = False) -> torch.Tensor:
+    return probabilities(g, params, nodes, hyper["rho"], low)[:, 1]

@@ -9,33 +9,23 @@ leaves a zero-length marker, ``pcgnn.runner.sections:<nodes>:<name>=
 its ``cudaGraphLaunch``.
 
 ``find_replays`` finds the device operations of each replay in the
-benchmark's epoch spans.  The record carries no correlation between a
-launch and its operations, and the card's clock drifts from the host's
-by up to a few hundred microseconds over a slice, more than the host
-spends between two epochs, so the operations are not cut by time.  They
-are found by count over the whole slice instead: the card runs one
-stream in launch order, each launch call of the host starts one
-operation and a graph launch its map's nodes.  A count can slip (the
-profiler may miss the first operations after it starts), so a replay is
-the run of operations within ``SLIP`` places of where its count puts it
-that bears the kernel names every replay of its map bears there.  Where
-one replay is not found, or the names are not one run's, nothing is
-read: no section's time rests on part of the replays."""
+benchmark's epoch spans by the graph launch's correlation id, which every
+operation of the replay carries (``trace.events``), and orders them by
+their start on the card, the order of the map's nodes on the one stream.
+The card's clock drifts from the host's by up to a few hundred
+microseconds over a slice, so the operations are not cut by time.  Where
+one replay is not found whole (a graph launch with no map beside it, or
+an operation the profiler lost), nothing is read: no section's time
+rests on part of the replays."""
 
 from __future__ import annotations
+
+import collections
 
 from portbench.stats import clip, covered, median
 
 EPOCH = "pcgnn.epoch"
 MARKER = "pcgnn.runner.sections:"
-GRAPH_LAUNCH = "cudaGraphLaunch"
-# places a replay's operations may lie from where the count puts them
-SLIP = 8
-# host calls that start one operation on the card
-LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
-            "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemcpy",
-            "cudaMemsetAsync", "cudaMemset", "cudaMemcpy2DAsync",
-            "cudaLaunchCooperativeKernel")
 
 
 def named(t: dict, name: str) -> list:
@@ -96,84 +86,47 @@ def parse_marker(name: str) -> list:
     return out
 
 
-def _base(name: str) -> str:
-    """A runtime call's name without CUPTI's version suffix."""
-    head, _, tail = name.rpartition("_v")
-    return head if head and tail.isdigit() else name
-
-
-def _graph_launches(t: dict) -> list | None:
-    """[(host start, marker, place)] of every graph launch in the slice:
-    the map beside it, and where its operations start in the card's
-    operations by count.  None where a graph launch has no marker (a
-    program that leaves none, or a graph of several pieces)."""
-    calls = sorted((s, n) for n, s, _ in t["cpu_ops"]
-                   if n.startswith(MARKER)
-                   or _base(n) in LAUNCHES + (GRAPH_LAUNCH,))
-    out, at, marker = [], 0, None
-    for s, name in calls:
-        if name.startswith(MARKER):
-            marker = name
-        elif _base(name) != GRAPH_LAUNCH:
-            at += 1
-        elif marker is None:
-            return None
+def _graph_launches(t: dict) -> list:
+    """[(host start, marker, correlation id)] of every graph launch, with
+    the map just before it (None where there is none: a program that
+    leaves no marker)."""
+    calls = sorted([(s, 0, n) for n, s, _ in t["cpu_ops"]
+                    if n.startswith(MARKER)]
+                   + [(s, 1, c) for s, c in t.get("graph_launches", ())])
+    out, marker = [], None
+    for s, is_launch, what in calls:
+        if not is_launch:
+            marker = what
         else:
-            out.append((s, marker, at))
-            at += len(parse_marker(marker))
+            out.append((s, marker, what))
             marker = None
-    return out
-
-
-def _near(names: list, at: int, n: int) -> dict:
-    """{the n names from place p: p} for the places within ``SLIP`` of
-    ``at``, the nearest place kept."""
-    out: dict = {}
-    for p in sorted(range(max(at - SLIP, 0), at + SLIP + 1),
-                    key=lambda p: abs(p - at)):
-        if p + n <= len(names):
-            out.setdefault(tuple(names[p: p + n]), p)
     return out
 
 
 def find_replays(t: dict) -> list | None:
     """[(marker, device ops)] of every replay in the benchmark's epoch
-    spans, or None unless each is found (module docstring)."""
-    launches = _graph_launches(t)
+    spans, or None unless each is found whole (module docstring)."""
     epochs = t["spans"]["portbench.epoch"]
-    if not launches:
-        return None
-    ops = sorted(t["device_ops"], key=lambda o: o[1])
-    names = [o[0] for o in ops]
-    mine = [(m, at) for s, m, at in launches
-            if any(lo <= s <= hi for lo, hi in epochs)]
-    if not mine:
-        return None
-    # each map's names: the one run that every replay of it bears near
-    # its place (several: the replays' neighbours hide where they start)
-    refs = {}
-    for m in {m for m, _ in mine}:
-        n = len(parse_marker(m))
-        near = [_near(names, at, n) for mm, at in mine if mm == m]
-        every = set(near[0]).intersection(*near[1:])
-        if len(every) != 1:
+    by_id = collections.defaultdict(list)
+    for op in t["device_ops"]:
+        if len(op) > 4:
+            by_id[op[4]].append(op)
+    out = []
+    for s, marker, cid in _graph_launches(t):
+        if not any(lo <= s <= hi for lo, hi in epochs):
+            continue
+        if marker is None:
             return None
-        (refs[m],) = every
-    out, shift = [], 0
-    for m, at in mine:
-        n = len(parse_marker(m))
-        # the count resumes where the last replay was found
-        p = _near(names, at + shift, n).get(refs[m])
-        if p is None:
+        ops = sorted(by_id.get(cid, ()), key=lambda o: o[1])
+        if len(ops) != len(parse_marker(marker)):
             return None
-        shift = p - at
-        out.append((m, ops[p: p + n]))
-    return out
+        out.append((marker, ops))
+    return out or None
 
 
 def replay_sections(t: dict) -> dict | None:
     """{section: device ms a replay} over the replays of the benchmark's
-    epoch spans; None unless every one is found."""
+    epoch spans; None unless every one is found whole."""
     replays = find_replays(t)
     if replays is None:
         return None

@@ -26,7 +26,36 @@ PRESETS = {
     "skew-tiny": ({"num_nodes": 2048, "feat_dim": 16, "fraud_rate": 0.15,
                    "edges_per_relation": [8192, 6144, 4096]},
                   {"0": [6, 512]}),
+    # stress-10m cut as the port's lane tests cut it (SMALL_10M)
+    "stress-small": ({"num_nodes": 6000, "feat_dim": 16, "fraud_rate": 0.05,
+                      "edges_per_relation": [30000, 15000, 5000]}, {}),
 }
+
+STRESS = "pcgnn-stress10m.train"
+# (workload, preset, batch) of each cell's CPU cut
+CELLS = [("pcgnn-yelpchi.train", "tiny", 16),
+         ("pcgnn-amazon.train", "tiny", 16),
+         ("pcgnn-yelpchi.hubs", "skew-tiny", 64),
+         (STRESS, "stress-small", 96)]
+
+
+def stress_lane(monkeypatch) -> None:
+    """The port's budgets patched as its lane tests patch them, so that the
+    cut stress cell lands in the real one's lane: every dense neighbor
+    table over ``NBR2D_BUDGET_BYTES`` (kernel 2 reads the CSR), no padded
+    feature table, and N at ``SCORE_FROM_WINDOW_MIN_NODES`` (scores from
+    the gathered rows, ids clamped)."""
+    from pcgnn_tpu_torch.graph import csr
+    from pcgnn_tpu_torch.models import pcgnn
+    monkeypatch.setattr(csr, "NBR2D_BUDGET_BYTES", 8)
+    monkeypatch.setattr(csr, "FPAD_BUDGET_BYTES", 0)
+    monkeypatch.setattr(pcgnn, "SCORE_FROM_WINDOW_MIN_NODES", 6000)
+
+
+def lane(monkeypatch, workload: str) -> None:
+    """The patches the CPU cut of ``workload`` needs to take its lane."""
+    if workload == STRESS:
+        stress_lane(monkeypatch)
 
 
 def bench() -> dict:
@@ -40,7 +69,8 @@ def small_cell(workload: str, preset: str, batch_size: int) -> tuple:
     _, cfg, traffic = harness.cell_files(b, workload, ROOT)
     cfg, traffic = copy.deepcopy(cfg), copy.deepcopy(traffic)
     graph, hubs = PRESETS[preset]
-    cfg["graph"] = dict(graph)
+    # the statistics cut, the semantics (``directed``) kept
+    cfg["graph"] = {**cfg["graph"], **graph}
     cfg["model"]["batch_size"] = batch_size
     # a validation every other epoch, so a short window holds several
     cfg["model"]["valid_epochs"] = 2

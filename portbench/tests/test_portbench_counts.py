@@ -1,10 +1,13 @@
 """The roofline counts of ``portbench/counts``."""
 
+import numpy as np
 import pytest
 import torch
 
+from pcgnn_tpu_torch.graph.csr import csr_from_edges
 from portbench import harness
 from portbench.counts import peaks, ragged_gather, step, window_gather
+from portbench.reference import graph as refgraph
 from portbench.tests.helpers import small_cell
 
 BW = 3.35e12
@@ -29,6 +32,7 @@ def test_kernel2_counts_only_real_hub_rows():
     cfg, traffic = small_cell("pcgnn-yelpchi.hubs", "skew-tiny", 64)
     run = harness.Run(cfg, traffic, 5, torch.device("cpu"))
     run.setup()
+    run.reference()
     deg, cap = run.hub_cap[0]
     hubs = torch.nonzero(deg > cap)[:, 0]
     plain = torch.nonzero(deg <= cap)[:, 0]
@@ -36,7 +40,7 @@ def test_kernel2_counts_only_real_hub_rows():
     w = torch.ones(b.shape, dtype=torch.float32)
     w[0, -1] = 0.0                      # a padding slot: not counted
     want = int(deg[hubs[:3]].sum())
-    assert run._hub_neighbors([(b, w)]) == want
+    assert run.degree_sum([(b, w)], hubs_only=True) == want
     assert ragged_gather.id_bytes(want) == 8 * want
 
 
@@ -62,8 +66,73 @@ def test_params_count_matches_the_model():
     run = harness.Run(cfg, traffic, 5, torch.device("cpu"))
     run.setup()
     tr = run.traced(2)
+    run.counted(tr)
     f, e = 16, 64
     assert tr["params"] == f * 2 + 2 + 3 * 2 * f * e + (f + 3 * e) * e \
         + e * 2
     assert tr["record_width"] == sum(
         min(int(r.deg.max()), r.dcap) for r in run.ref.relations) * f
+
+
+# the store cells' shapes (PERF.md section 4) over a 20-epoch slice, and
+# the terms the parent's count gave for them
+STORE_CELLS = [
+    (dict(rows=122880, steps=120, feat_dim=32, record_width=8512,
+          train_pos=2670, hub_neighbors=0, params=22978),
+     {"records": 2091909120, "ids_labels_weights": 2457600,
+      "center_rows": 15728640, "train_pos_rows": 41011200,
+      "hub_neighbor_rows": 0, "params_and_moments": 66176640}),
+    (dict(rows=15360, steps=60, feat_dim=25, record_width=23925,
+          train_pos=330, hub_neighbors=0, params=17474),
+     {"records": 734976000, "ids_labels_weights": 307200,
+      "center_rows": 1536000, "train_pos_rows": 1980000,
+      "hub_neighbor_rows": 0, "params_and_moments": 25162560}),
+    (dict(rows=122880, steps=120, feat_dim=32, record_width=8896,
+          train_pos=2670, hub_neighbors=1234567, params=22978),
+     {"records": 2186280960, "ids_labels_weights": 2457600,
+      "center_rows": 15728640, "train_pos_rows": 41011200,
+      "hub_neighbor_rows": 162962844, "params_and_moments": 66176640}),
+]
+
+
+@pytest.mark.parametrize("kw,terms", STORE_CELLS)
+def test_store_cells_byte_terms_unchanged(kw, terms):
+    assert step.byte_terms(**kw) == terms
+
+
+def hand_graph():
+    """Two directed relations on five nodes, degrees worked out by hand
+    (self-loops added, each edge once): r0 0->1, 0->2, 1->2, 3->0, 0->1
+    again: [3, 2, 1, 2, 1]; r1 4->0, 4->1, 4->2, 2->4: [1, 1, 2, 1, 4]."""
+    return ([np.array([0, 0, 1, 3, 0]), np.array([4, 4, 4, 2])],
+            [np.array([1, 2, 2, 0, 1]), np.array([0, 1, 2, 4])])
+
+
+def test_no_store_counts_by_hand():
+    srcs, dsts = hand_graph()
+    rels = [refgraph.csr(s, d, 5, 0.5, "cpu", directed=True)
+            for s, d in zip(srcs, dsts)]
+    assert [r.deg.tolist() for r in rels] == [[3, 2, 1, 2, 1],
+                                              [1, 1, 2, 1, 4]]
+    for r, s, d in zip(rels, srcs, dsts):
+        mine = csr_from_edges(s, d, 5, symmetrize=False)
+        assert mine.deg.tolist() == r.deg.tolist()
+    run = harness.Run.__new__(harness.Run)
+    run.device = torch.device("cpu")
+    run.hub_cap = [(r.deg, 3) for r in rels]
+    # a plan of two steps: rows 0, 3, 4 and 4, 2 real; the last slot of
+    # each a padding slot (weight 0)
+    b = torch.tensor([[0, 3, 4, 1], [4, 2, 0, 0]])
+    w = torch.tensor([[1.0, 1.0, 1.0, 0.0], [1.0, 1.0, 0.0, 0.0]])
+    # r0: 3 + 2 + 1 + 1 + 1 = 8; r1: 1 + 1 + 4 + 4 + 2 = 12
+    assert run.degree_sum([(b, w)]) == 20
+    # the hub rows (degree over the cap 3): node 4 of r1, twice
+    assert run.degree_sum([(b, w)], hubs_only=True) == 8
+    assert ragged_gather.id_bytes(20) == 160
+    f = 64
+    terms = step.byte_terms(rows=5, steps=2, feat_dim=f, record_width=0,
+                            train_pos=3, hub_neighbors=8, params=100,
+                            neighbors=20)
+    assert "records" not in terms
+    assert terms["neighbor_rows"] == (20 - 8) * (4 * f + 4)
+    assert terms["hub_neighbor_rows"] == 8 * (4 * f + 4)

@@ -2,6 +2,7 @@
 ``BENCHMARK.json`` resolves to its file; the readers give known values on
 canned records; the command refuses a machine with no card."""
 
+import json
 import os
 import re
 import shutil
@@ -11,6 +12,7 @@ import sys
 import pytest
 
 from portbench import harness, stats
+from portbench.counts import step
 from portbench.tests.helpers import HERE, ROOT, bench, load
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -40,7 +42,8 @@ def test_every_entry_resolves_to_its_file():
     names = [m["name"] for m in b["end_to_end"] + b["per_layer"]]
     assert len(names) == len(set(names))
     assert [w["name"] for w in b["workloads"]] == [
-        "pcgnn-yelpchi.train", "pcgnn-amazon.train", "pcgnn-yelpchi.hubs"]
+        "pcgnn-yelpchi.train", "pcgnn-amazon.train", "pcgnn-yelpchi.hubs",
+        "pcgnn-stress10m.train"]
 
 
 def test_metric_lists_follow_their_workloads():
@@ -48,8 +51,16 @@ def test_metric_lists_follow_their_workloads():
     layer = {m["name"] for m in harness.cell_metrics(
         b, "pcgnn-yelpchi.train", True)}
     assert "ragged_gather_roofline" not in layer
-    assert "ragged_gather_roofline" in {m["name"] for m in harness.cell_metrics(
-        b, "pcgnn-yelpchi.hubs", True)}
+    # kernel 2's share where it runs in the step: the hub cell and the
+    # stress cell; the CSR lane's section in the stress cell alone;
+    # kernel 1's nowhere else than the store cells
+    for w in b["workloads"]:
+        got = {m["name"] for m in harness.cell_metrics(b, w["name"], True)}
+        stress = w["name"] == "pcgnn-stress10m.train"
+        assert ("ragged_gather_roofline" in got) == (
+            stress or w["name"] == "pcgnn-yelpchi.hubs")
+        assert ("step_gather_ms" in got) == stress
+        assert ("window_gather_roofline" in got) != stress
 
 
 def window_rec():
@@ -80,6 +91,7 @@ def trace_rec():
                   "portbench.validate": [(100.0, 200.0)]},
         "epoch_host_ms": [3.0, 1.0, 2.0, 10.0], "captures": 2, "steps": 2,
         "rows": 100, "record_width": 670, "hub_neighbors": 4188,
+        "stores": True, "neighbors": 9000,
         "feat_dim": 16, "emb": 64, "relations": 3, "train_pos": 10,
         "params": 1000}}
 
@@ -101,11 +113,33 @@ def test_layer_readers_on_a_canned_trace():
     assert 0 < r("step_mfu")(rec) < 100
 
 
+def test_csr_lane_readers_on_a_canned_trace():
+    rec = trace_rec()
+    t = rec["trace"]
+    t.update(stores=False, record_width=0, hub_neighbors=0)
+    r = harness.reader
+    # every real row's ids, 9,000, read and written as int32 in 10 us,
+    # not the hub rows' alone
+    assert r("ragged_gather_roofline")(rec) == pytest.approx(
+        100 * 8 * 9000 / 3.35e12 * 1e6 / 10.0)
+    # the neighbors' float32 rows and int32 ids in place of the records
+    terms = step.byte_terms(rows=100, steps=2, feat_dim=16, record_width=0,
+                            train_pos=10, hub_neighbors=0, params=1000,
+                            neighbors=9000)
+    assert terms["neighbor_rows"] == 9000 * 68 and "records" not in terms
+    fl = step.flops(rows=100, feat_dim=16, emb=64, relations=3)
+    assert r("step_mfu")(rec) == pytest.approx(
+        100 * step.least_seconds(sum(terms.values()), fl, (3.35e12, 67e12))
+        * 1e6 / 100.0)
+
+
 def test_readers_find_nothing_without_their_kernels():
     rec = trace_rec()
     rec["trace"]["device_ops"] = [o for o in rec["trace"]["device_ops"]
                                   if "gather" not in o[0]]
     assert harness.reader("window_gather_roofline")(rec) is None
+    assert harness.reader("ragged_gather_roofline")(rec) is None
+    rec["trace"]["stores"] = False
     assert harness.reader("ragged_gather_roofline")(rec) is None
     rec["trace"]["device_ops"] = []
     assert harness.reader("device_idle_share")(rec) is None
@@ -144,3 +178,65 @@ def test_the_command_fails_with_only_the_benchmarks_files(tmp_path):
     out = command(tmp_path)
     assert out.returncode != 0
     assert out.stdout.strip() == ""
+
+
+COPY_REFERENCE = '''"""PC-GNN's reference under another name: a configuration names it."""
+from portbench.reference import pcgnn
+from portbench.reference.pcgnn import (build_graph, edges_per_epoch,
+                                       fraud_probabilities, initial_weights)
+
+CALLS = []
+
+
+def steps(*args, **kw):
+    CALLS.append("steps")
+    return pcgnn.steps(*args, **kw)
+'''
+
+DRIVE = '''import json, sys, torch
+import portbench
+from portbench.reference import pcgnn, pcgnn_named
+from portbench.tests.helpers import run_small
+assert portbench.__file__.startswith(sys.argv[1]), portbench.__file__
+pcgnn.BIAS_CORRECTION_DTYPE = torch.float64
+line, rows = run_small("pcgnn-yelpchi-directed.train", "tiny", 16, seed=6)
+print(json.dumps({"correct": line["correct"], "calls": pcgnn_named.CALLS}))
+'''
+
+
+def test_a_configuration_that_differs_needs_new_files_alone(tmp_path):
+    # a configuration whose graph is directed, with no store and a
+    # reference of its own name, added to a copy of the benchmark as new
+    # files and registry entries; no file the benchmark had is edited
+    shutil.copy(ROOT / "BENCHMARK.json", tmp_path)
+    shutil.copytree(HERE, tmp_path / "portbench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    had = {p: p.read_bytes() for p in (tmp_path / "portbench").rglob("*")
+           if p.is_file()}
+    cfg = load(HERE / "configs" / "pcgnn-yelpchi.json")
+    cfg.update(name="pcgnn-yelpchi-directed", reference="pcgnn_named")
+    cfg["graph"]["directed"] = True
+    cfg["model"]["edge_windows"] = False
+    new = {"configs/pcgnn-yelpchi-directed.json": json.dumps(cfg),
+           "workloads/pcgnn-yelpchi-directed.train.json": (
+               HERE / "workloads" / "pcgnn-yelpchi.train.json").read_text(),
+           "reference/pcgnn_named.py": COPY_REFERENCE}
+    for name, text in new.items():
+        (tmp_path / "portbench" / name).write_text(text)
+    b = bench()
+    b["configs"].append({"name": cfg["name"], "source": cfg["source"],
+                         "file": "portbench/configs/pcgnn-yelpchi-directed"
+                                 ".json", "reduced": [], "why": "a test"})
+    b["workloads"].append({"name": "pcgnn-yelpchi-directed.train",
+                           "config": cfg["name"], "traffic": "train",
+                           "chips": 1, "why": "a test"})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(b))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    out = subprocess.run([sys.executable, "-c", DRIVE, str(tmp_path)],
+                         cwd=tmp_path, env=env, capture_output=True,
+                         text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {"correct": True, "calls": ["steps"]}
+    assert all(p.read_bytes() == v for p, v in had.items())

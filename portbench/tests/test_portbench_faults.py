@@ -8,11 +8,7 @@ import torch
 from pcgnn_tpu_torch.models.pcgnn import PCGNN
 from pcgnn_tpu_torch.train.trainer import Trainer
 from portbench import calibrate
-from portbench.tests.helpers import run_small, small_cell
-
-CELLS = [("pcgnn-yelpchi.train", "tiny", 16),
-         ("pcgnn-amazon.train", "tiny", 16),
-         ("pcgnn-yelpchi.hubs", "skew-tiny", 64)]
+from portbench.tests.helpers import CELLS, lane, run_small, small_cell
 
 
 def state_unchanged(monkeypatch):
@@ -71,15 +67,17 @@ def answer_altered(monkeypatch):
 @pytest.mark.parametrize("workload,preset,batch", CELLS)
 def test_a_broken_step_is_not_correct(monkeypatch, fault, workload, preset,
                                       batch):
+    lane(monkeypatch, workload)
     fault(monkeypatch)
     line, rows = run_small(workload, preset, batch, seed=21)
     assert line["correct"] is False, rows
 
 
 @pytest.mark.parametrize("workload,preset,batch", CELLS)
-def test_the_control_fails_the_limits(workload, preset, batch):
+def test_the_control_fails_the_limits(monkeypatch, workload, preset, batch):
     # the control: the reference in TF32 in the program's place, read as
     # the calibration reads it on the card, here at a small size
+    lane(monkeypatch, workload)
     cfg, traffic = small_cell(workload, preset, batch)
     limits = traffic["limits"]
     lines = list(calibrate.readings(cfg, traffic, [31, 32, 33], 0.3, 3,

@@ -7,24 +7,25 @@ import numpy as np
 import pytest
 import torch
 
-from portbench import check, harness
+from portbench import check, gen, harness
+from portbench.reference import graph as refgraph
 from portbench.reference import pcgnn as ref
-from portbench.tests.helpers import run_small, small_cell
+from portbench.tests.helpers import (CELLS, STRESS, lane, run_small,
+                                     small_cell, stress_lane)
 
 
-@pytest.mark.parametrize("workload,preset,batch", [
-    ("pcgnn-yelpchi.train", "tiny", 16),
-    ("pcgnn-amazon.train", "tiny", 16),
-    ("pcgnn-yelpchi.hubs", "skew-tiny", 64),
-])
-def test_reference_follows_the_programs_steps(workload, preset, batch):
+@pytest.mark.parametrize("workload,preset,batch", CELLS)
+def test_reference_follows_the_programs_steps(monkeypatch, workload, preset,
+                                              batch):
+    lane(monkeypatch, workload)
     cfg, traffic = small_cell(workload, preset, batch)
     run = harness.Run(cfg, traffic, 5, torch.device("cpu"))
     run.setup()
     run.close()
+    run.reference()
     g = run.ref
     prog = check.program_readings(run.rec, "cpu")
-    sound = check.reference_readings(g, run.rec, cfg["model"])
+    sound = check.reference_readings(run.refmod, g, run.rec, cfg["model"])
     gaps = check.gaps(prog, sound)
     assert gaps["loss_gap"] < 1e-6
     assert gaps["grad_gap"] < 1e-6
@@ -39,18 +40,17 @@ def test_hub_rows_take_the_hub_lane():
     cfg, traffic = small_cell("pcgnn-yelpchi.hubs", "skew-tiny", 64)
     run = harness.Run(cfg, traffic, 5, torch.device("cpu"))
     run.setup()
+    run.reference()
     b = run.rec["plan_batches"]
     deg, cap = run.hub_cap[0]
     assert int((deg[b] > cap).sum()) > 0
 
 
-@pytest.mark.parametrize("workload,preset,batch", [
-    ("pcgnn-yelpchi.train", "tiny", 16),
-    ("pcgnn-amazon.train", "tiny", 16),
-    ("pcgnn-yelpchi.hubs", "skew-tiny", 64),
-])
+@pytest.mark.parametrize("workload,preset,batch", CELLS)
 @pytest.mark.parametrize("traced", [False, True])
-def test_a_sound_run_is_correct(workload, preset, batch, traced):
+def test_a_sound_run_is_correct(monkeypatch, workload, preset, batch,
+                                traced):
+    lane(monkeypatch, workload)
     line, rows = run_small(workload, preset, batch, seed=11, traced=traced)
     assert line["correct"], rows
     assert line["attempted"] > 0 and line["failed"] == 0
@@ -62,6 +62,25 @@ def test_a_sound_run_is_correct(workload, preset, batch, traced):
                    for m in line["metrics"].values())
     else:
         assert "breakdown" in line
+
+
+def test_the_reference_is_built_after_the_window():
+    # set-up builds the program alone; the reference's graph comes once
+    # the window has closed, outside setup_s, and is the check's
+    line, _ = run_small("pcgnn-yelpchi.train", "tiny", 16, seed=3)
+    assert line["correct"]
+    assert "reference graph" not in line["setup_laps"]
+    assert line["reference_s"]["graph"] > 0
+    cfg, traffic = small_cell("pcgnn-yelpchi.train", "tiny", 16)
+    run = harness.Run(cfg, traffic, 3, torch.device("cpu"))
+    run.setup()
+    assert run.ref is None
+    run.window(0.05)
+    run.close()
+    run.reference()
+    g = run.ref
+    run.reference()
+    assert run.ref is g and run.edges_per_epoch > 0
 
 
 def test_tf32_rounding_keeps_ten_bits():
@@ -84,8 +103,9 @@ def test_every_seed_trains_the_same_epochs():
     cfg, traffic = small_cell("pcgnn-yelpchi.train", "tiny", 16)
     a, b = (harness.Run(cfg, traffic, s, torch.device("cpu"))
             for s in (1, 2**31 + 2))
-    a.setup()
-    b.setup()
+    for run in (a, b):
+        run.setup()
+        run.reference()
     assert torch.equal(a.ref.features, b.ref.features)
     assert np.array_equal(a.ref.idx_train, b.ref.idx_train)
     assert a.t.num_batches == b.t.num_batches
@@ -112,3 +132,113 @@ def test_the_recorded_epoch_starts_again_from_the_initial_state():
     run.t.run_epoch(run.model, run.optimizer, 0)
     _, _, _, losses = run.tap.last(run.t.num_batches)
     assert losses[:3].tolist() == run.rec["losses"]
+
+
+def test_the_cut_stress_cell_takes_the_csr_lane(monkeypatch):
+    # the lane stress-10m's scale forces: no dense table, no store, no
+    # padded table, a degree-only homo graph; its directed relations and
+    # homo degrees are the reference's, worked out apart
+    stress_lane(monkeypatch)
+    cfg, traffic = small_cell(STRESS, "stress-small", 96)
+    assert cfg["graph"]["directed"] and not cfg["model"]["edge_windows"]
+    run = harness.Run(cfg, traffic, 5, torch.device("cpu"))
+    run.setup()
+    run.reference()
+    g = run.t.graph
+    assert [r.nbr2d is None for r in g.relations] == [True] * 3
+    assert [r.ewin is None for r in g.relations] == [True] * 3
+    assert g.fused is None and g.features_pad is None
+    assert g.homo.is_stub and not any(r.has_hubs for r in g.relations)
+    for mine, theirs in zip(g.relations, run.ref.relations):
+        e = mine.num_edges
+        assert torch.equal(mine.indptr.long(), theirs.indptr)
+        assert torch.equal(mine.col[:e].long(), theirs.col)
+        assert torch.equal(mine.keff.long(), theirs.keff)
+    assert torch.equal(g.homo.deg.long(), run.ref.homo_deg)
+    # directed: fewer than twice the drawn edges with the self-loops
+    assert run.ref.relations[0].col.shape[0] < 30000 + 6000
+    assert run.t.num_batches == 3
+
+
+def dense_aggregate(g, rel, nodes, s, labels_b, rho, low):
+    """The reference's aggregate as it was, over [B, N] masks: the oracle
+    of the gathered one."""
+    n = g.features.shape[0]
+    b = nodes.shape[0]
+    deg = rel.deg[nodes]
+    width = int(deg.max())
+    slot = torch.arange(width)
+    valid = slot[None, :] < deg[:, None]
+    nbr = torch.where(valid, rel.indptr[nodes][:, None] + slot[None, :], 0)
+    nbr = torch.where(valid, rel.col[nbr], 0)
+    dist = (s[nodes][:, None] - s[nbr]).abs()
+    dist = torch.where(valid, dist, float("inf"))
+    rank = lambda d: torch.argsort(torch.argsort(d, dim=1, stable=True),
+                                   dim=1, stable=True)
+    kept = valid & (rank(dist) < rel.keff[nodes][:, None])
+    rows = torch.arange(b)[:, None].expand_as(nbr)
+    kept_mask = torch.zeros((b, n), dtype=torch.bool)
+    kept_mask[rows[kept], nbr[kept]] = True
+    minor_mask = torch.zeros_like(kept_mask)
+    if labels_b is not None:
+        tp = g.train_pos
+        dm = (s[nodes][:, None] - s[tp][None, :]).abs()
+        m = torch.floor(rel.ksample[nodes].float() * rho).long()
+        take = (rank(dm) < m[:, None]) & (labels_b == 1)[:, None]
+        trows = torch.arange(b)[:, None].expand_as(take)
+        minor_mask[trows[take], tp[None, :].expand_as(take)[take]] = True
+    minor_mask &= ~kept_mask
+    hub = (deg > rel.dcap)[:, None]
+    kept_f = kept_mask.float()
+    num = (torch.where(hub, ref.mm(kept_f, g.features, low),
+                       ref.mm(kept_f, g.stored, low))
+           + ref.mm(minor_mask.float(), g.features, low))
+    cnt = kept_mask.sum(1) + minor_mask.sum(1)
+    return num / cnt.clamp(min=1)[:, None].float()
+
+
+@pytest.mark.parametrize("workload,preset,batch", CELLS)
+@pytest.mark.parametrize("low", [False, True])
+def test_gathered_aggregate_equals_the_dense_one(workload, preset, batch,
+                                                 low):
+    cfg, traffic = small_cell(workload, preset, batch)
+    draws = {k: v for k, v in cfg["graph"].items() if k != "directed"}
+    raw = gen.draw_graph(cfg["seed"], **draws, **traffic["graph"])
+    g = ref.build_graph(raw, cfg, "cpu")
+    p0 = ref.initial_weights(3, raw, cfg, "cpu")
+    s = ref.scores(g, p0["label_clf.w"][:, 0], p0["label_clf.b"][0])
+    gen_ = np.random.default_rng(4)
+    # the heaviest rows in every batch, frauds among them, and a repeat
+    deg = sum(r.deg for r in g.relations)
+    nodes = torch.cat([torch.topk(deg, 4).indices,
+                       torch.as_tensor(gen_.choice(g.idx_train, batch)),
+                       g.train_pos[:3], g.train_pos[:1]])
+    labels = g.labels[nodes]
+    assert int(labels.sum()) >= 4
+    for rel in g.relations:
+        for labels_b in (labels, None):
+            got = ref.aggregate(g, rel, nodes, s, labels_b, 0.5, low)
+            want = dense_aggregate(g, rel, nodes, s, labels_b, 0.5, low)
+            torch.testing.assert_close(got, want, rtol=2e-6, atol=1e-6)
+
+
+def test_a_configuration_without_the_key_takes_pcgnns_reference():
+    b = harness.load_json(harness.HERE.parent / "BENCHMARK.json")
+    for c in b["configs"]:
+        cfg = harness.load_json(harness.HERE.parent / c["file"])
+        assert cfg.get("reference", "pcgnn") == "pcgnn"
+        assert harness.reference_module(cfg) is ref
+    assert harness.reference_module({}) is ref
+
+
+def test_reference_graph_semantics_by_hand():
+    # 0->1, 0->2, 1->2, 3->0 and a repeat of 0->1 on four nodes
+    src, dst = np.array([0, 0, 1, 3, 0]), np.array([1, 2, 2, 0, 1])
+    d = refgraph.csr(src, dst, 4, 0.5, "cpu", directed=True)
+    assert d.deg.tolist() == [3, 2, 1, 2]
+    assert d.col.tolist() == [0, 1, 2, 1, 2, 2, 0, 3]
+    u = refgraph.csr(src, dst, 4, 0.5, "cpu")
+    assert u.deg.tolist() == [4, 3, 3, 2]
+    # k = ceil(deg / 2); keff = deg where deg <= k + 1
+    assert d.ksample.tolist() == [2, 1, 1, 1]
+    assert d.keff.tolist() == [3, 2, 1, 2]

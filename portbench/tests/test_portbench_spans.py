@@ -9,7 +9,7 @@ import pytest
 from torch.profiler import ProfilerActivity, profile
 
 from portbench import harness, trace
-from portbench.spans import SLIP, find_replays, parse_marker, replay_sections
+from portbench.spans import find_replays, parse_marker, replay_sections
 from portbench.tests.helpers import bench
 
 NEW = ("epoch_pick_ms", "epoch_plan_ms", "epoch_launch_ms", "epoch_idle_ms",
@@ -19,15 +19,15 @@ NEW = ("epoch_pick_ms", "epoch_plan_ms", "epoch_launch_ms", "epoch_idle_ms",
 MAP = "pcgnn.runner.sections:20:choose=0-5,hub=5-10,backward=15-20"
 
 
-def _replay(lo: float, us: tuple) -> list:
+def _replay(lo: float, us: tuple, cid: int) -> list:
     """A replay's 20 device operations from ``lo`` us, each section's five
-    ``us`` long together, back to back."""
+    ``us`` long together, back to back, launched by the call ``cid``."""
     ops = []
     for sec, d in zip(("score", "ragged_gather_kernel", "add", "mm_backward"),
                       us):
         for j in range(5):
             ops.append((f"{sec}_{j}", lo + d * j / 5, lo + d * (j + 1) / 5,
-                        "kernel"))
+                        "kernel", cid))
         lo += d
     return ops
 
@@ -54,20 +54,22 @@ def program_rec():
             ("pcgnn.evaluate", 101.0, 190.0),
             ("pcgnn.evaluate.readback", 140.0, 148.0),
             ("pcgnn.evaluate.metrics", 150.0, 160.0)]
-    dev = ([("Memcpy DtoH", 14.0, 15.0, "memcpy"),
-            ("Memcpy HtoD", 23.0, 24.0, "memcpy"),
-            ("fill", 25.0, 26.0, "kernel")]
-           + _replay(30.0, (2.0, 3.0, 1.0, 4.0))
-           + _replay(40.0, (3.0, 1.0, 1.0, 2.0))
-           + [("mean", 82.0, 83.0, "kernel"),
-              ("Memcpy DtoH", 85.0, 86.0, "memcpy"),
-              ("gemm", 110.0, 130.0, "kernel")])
+    dev = ([("Memcpy DtoH", 14.0, 15.0, "memcpy", 1),
+            ("Memcpy HtoD", 23.0, 24.0, "memcpy", 2),
+            ("fill", 25.0, 26.0, "kernel", 3)]
+           + _replay(30.0, (2.0, 3.0, 1.0, 4.0), 4)
+           + _replay(40.0, (3.0, 1.0, 1.0, 2.0), 5)
+           + [("mean", 82.0, 83.0, "kernel", 6),
+              ("Memcpy DtoH", 85.0, 86.0, "memcpy", 7),
+              ("gemm", 110.0, 130.0, "kernel", 8)])
     return {"peaks": (3.35e12, 67e12), "trace": {
         "device_ops": dev, "cpu_ops": cpu, "wall": (0.0, 200.0),
+        "graph_launches": [(28.0, 4), (33.0, 5)],
         "spans": {"portbench.epoch": [(0.0, 100.0)],
                   "portbench.validate": [(100.0, 200.0)]},
         "epoch_host_ms": [0.08], "captures": 0, "steps": 2, "rows": 100,
-        "record_width": 670, "hub_neighbors": 4188, "feat_dim": 16,
+        "record_width": 670, "hub_neighbors": 4188, "stores": True,
+        "neighbors": 9000, "feat_dim": 16,
         "emb": 64, "relations": 3, "train_pos": 10, "params": 1000}}
 
 
@@ -107,17 +109,24 @@ def test_new_reader_on_a_fixed_record(name, want):
 def _with_epoch(t, at, stray=None, scale=1.0, drift=0.0):
     """``t`` with a copy of its epoch at ``at`` us, its operations
     ``scale`` times as long and ``drift`` us earlier on the card's clock,
-    and a stray operation at ``stray`` us into it."""
+    its calls' correlation ids ``at`` further, and a stray operation at
+    ``stray`` us into it."""
     t["cpu_ops"] += [(n, s + at, e + at) for n, s, e in t["cpu_ops"]
                      if s < 100.0]
+    t["graph_launches"] += [(s + at, c + int(at))
+                            for s, c in t["graph_launches"] if s < 100.0]
     t["device_ops"] += [(n, s + at - drift, s + at - drift + scale * (e - s),
-                         k) for n, s, e, k in t["device_ops"] if s < 100.0]
+                         k, c + int(at))
+                        for n, s, e, k, c in t["device_ops"] if s < 100.0]
     if stray is not None:
-        t["device_ops"].append(("stray", at + stray, at + stray + 0.1, "k"))
+        t["device_ops"].append(("stray", at + stray, at + stray + 0.1, "k",
+                                -1))
     t["spans"]["portbench.epoch"].append((at, at + 100.0))
 
 
 def test_replays_are_found_by_count():
+    # a replay is the operations its graph launch's correlation id marks,
+    # as many as its map counts
     t = program_rec()["trace"]
     got = replay_sections(t)
     assert got == pytest.approx({"choose": 0.0025, "hub": 0.002,
@@ -125,15 +134,13 @@ def test_replays_are_found_by_count():
     assert parse_marker(MAP) == (["choose"] * 5 + ["hub"] * 5
                                  + ["other"] * 5 + ["backward"] * 5)
     assert [len(ops) for _, ops in find_replays(t)] == [20, 20]
-    # an operation no launch accounts for, after the replays: the count
-    # of the replays holds
-    t["device_ops"].append(("stray", 50.0, 51.0, "kernel"))
+    # an operation no graph launch accounts for, among the replays'
+    t["device_ops"].append(("stray", 41.0, 41.5, "kernel", 9))
     assert replay_sections(t) == pytest.approx(got)
     # an epoch with a stray operation before its replays, its operations
     # twice as long, and one whose operations the card's clock puts 30 us
-    # early, before its host span: the count slips a place and the
-    # replays are found where they bear the names every replay bears
-    # (eight replays, 1 + 1 + 2 + 1 times)
+    # early, before its host span: every replay is found (eight replays,
+    # 1 + 1 + 2 + 1 times)
     t = program_rec()["trace"]
     _with_epoch(t, 300.0)
     _with_epoch(t, 600.0, stray=26.5, scale=2.0)
@@ -141,23 +148,17 @@ def test_replays_are_found_by_count():
     assert len(find_replays(t)) == 8
     assert replay_sections(t) == pytest.approx(
         {k: 5 / 4 * v for k, v in got.items()})
-    # a launch call the card ran no operation for: the count slips back
+    # a launch call the card ran no operation for, and operations the
+    # profiler lost before the replays: nothing to count, nothing slips
     t = program_rec()["trace"]
     t["cpu_ops"].append(("cudaLaunchKernel", 24.6, 24.7))
+    t["device_ops"] = t["device_ops"][3:]
     assert replay_sections(t) == pytest.approx(got)
-    # a program whose every replay has the same neighbours: where a
-    # replay starts is not known, so nothing is read
-    t = program_rec()["trace"]
-    t["cpu_ops"] += [("cudaLaunchKernel", lo + 1.0, lo + 1.2)
-                     for lo in (26.0, 31.0)]
-    t["device_ops"] += [("fill", 29.0, 29.5, "kernel"),
-                        ("fill", 39.9, 40.0, "kernel")]
-    assert find_replays(t) is None
 
 
 def test_a_replay_not_found_reads_nothing():
-    """Where one replay's operations are not found, no section is read:
-    an average over the replays found could rest on a slip."""
+    """Where one replay's operations are not all found, no section is
+    read: an average over the replays found would rest on part of them."""
     # a replay with no map beside it (a program that leaves no marker)
     t = program_rec()["trace"]
     t["cpu_ops"] = [o for o in t["cpu_ops"] if o[0] != MAP]
@@ -167,10 +168,17 @@ def test_a_replay_not_found_reads_nothing():
     t["device_ops"] = [o for o in t["device_ops"] if o[0] != "add_2"
                        or o[1] < 40.0]
     assert find_replays(t) is None and replay_sections(t) is None
-    # the count slipped further than ``SLIP`` places
+    # the same, in one epoch of four: the other three do not stand in
     t = program_rec()["trace"]
-    t["cpu_ops"] += [("cudaLaunchKernel", 24.6 + i / 100, 24.6 + i / 100)
-                     for i in range(SLIP + 1)]
+    for at in (300.0, 600.0, 900.0):
+        _with_epoch(t, at)
+    assert len(find_replays(t)) == 8
+    t["device_ops"] = [o for o in t["device_ops"] if o[0] != "score_0"
+                       or o[1] < 600.0 or o[1] > 700.0]
+    assert find_replays(t) is None and replay_sections(t) is None
+    # a trace whose operations carry no correlation id
+    t = program_rec()["trace"]
+    t["device_ops"] = [o[:4] for o in t["device_ops"]]
     assert replay_sections(t) is None
     # no epoch span holds a replay
     t = program_rec()["trace"]
@@ -184,8 +192,9 @@ def test_accepted_readers_and_breakdown_beside_the_programs_spans():
     and gaps; a gap that began in no operator now names the program's
     innermost span."""
     rec, bare = program_rec(), without_program(program_rec())
+    # the CSR lane's section reader reads the program's maps too
     accepted = [m["name"] for m in bench()["per_layer"]
-                if m["name"] not in NEW]
+                if m["name"] not in NEW + ("step_gather_ms",)]
     for name in accepted:
         assert harness.reader(name)(rec) == harness.reader(name)(bare), name
     lo, hi = rec["trace"]["wall"]

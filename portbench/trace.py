@@ -10,6 +10,9 @@ import collections
 from portbench.stats import clip, union
 
 SPANS = ("portbench.epoch", "portbench.validate")
+# the runtime call that replays a captured graph (CUPTI may add a version
+# suffix, ``cudaGraphLaunch_v10000``)
+GRAPH_LAUNCH = "cudaGraphLaunch"
 
 
 def _kind(name: str) -> str:
@@ -21,10 +24,13 @@ def _kind(name: str) -> str:
 
 
 def events(prof) -> dict:
-    """{"device_ops": [(name, start, end, kind)], "cpu_ops": [(name,
-    start, end)], "spans": {span: [(start, end)]}} of a finished
-    ``torch.profiler.profile``."""
-    dev, cpu = [], []
+    """{"device_ops": [(name, start, end, kind, correlation id)],
+    "cpu_ops": [(name, start, end)], "graph_launches": [(start,
+    correlation id)], "spans": {span: [(start, end)]}} of a finished
+    ``torch.profiler.profile``.  A device operation's correlation id is
+    the one of the host call that launched it: a graph launch's for every
+    operation of its replay."""
+    dev, cpu, launches = [], [], []
     spans = {s: [] for s in SPANS}
     for e in prof.profiler.kineto_results.events():
         start = e.start_ns() / 1e3
@@ -35,9 +41,12 @@ def events(prof) -> dict:
                 spans[name].append((start, end))
             elif not e.is_user_annotation():
                 cpu.append((name, start, end))
+                if name.startswith(GRAPH_LAUNCH):
+                    launches.append((start, e.correlation_id()))
         elif not e.is_user_annotation() and name not in spans:
-            dev.append((name, start, end, _kind(name)))
-    return {"device_ops": dev, "cpu_ops": cpu, "spans": spans}
+            dev.append((name, start, end, _kind(name), e.correlation_id()))
+    return {"device_ops": dev, "cpu_ops": cpu, "graph_launches": launches,
+            "spans": spans}
 
 
 def wall(spans: dict) -> tuple:
@@ -61,7 +70,7 @@ def breakdown(ev: dict, lo: float, hi: float, top: int = 10) -> dict:
     idle gaps of the card, by what the host was doing when each began
     (seconds)."""
     by_name = collections.Counter()
-    for name, s, e, _ in ev["device_ops"]:
+    for name, s, e, *_ in ev["device_ops"]:
         by_name[name[:160]] += (e - s) / 1e6
     busy = union(clip([(o[1], o[2]) for o in ev["device_ops"]], lo, hi))
     edges = [lo] + [x for iv in busy for x in iv] + [hi]
