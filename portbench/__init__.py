@@ -1,4 +1,5 @@
-"""The benchmark of ``pcgnn_tpu_torch``: PC-GNN training on one card.
+"""The benchmark of ``pcgnn_tpu_torch``: PC-GNN and its GCN baseline
+training on one card.
 
 ``python -m portbench.run --workload <cell> --seed <n> --seconds <s>
 --trace <0|1>`` runs one cell of ``BENCHMARK.json``.  Everything a cell

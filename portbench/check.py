@@ -7,10 +7,13 @@ The training numbers come from epoch 0 as set-up runs it the second
 time, from the initial weights and a fresh Adam state, every step a
 replay of the captured step the window replays (``harness.Run.warm_up``):
 
-* ``pick_bad``: picked slots of the first epoch whose id is not a training
+* ``pick_bad``: slots of the first epoch's plan whose id is not a training
   node of the reference's split, whose weight is not 1 (0 on the padding
-  past the epoch's ``2 |train positives|`` picks), or whose label is not
-  the node's; an exact comparison, limit 0;
+  past the plan's ``sample_size`` real slots: PC-GNN's ``2 |train
+  positives|`` picks), or whose label is not the node's; and where the
+  reference's plan is a permutation (``permutation``: GCN's, every
+  training node once), each training node missing from the real slots
+  and each repeat of one; an exact comparison, limit 0;
 * ``loss_gap``: the relative gap of the first step's loss;
 * ``grad_gap``: the first step's gradient, as Adam's first moment holds it
   after that step, by the worst leaf: the gap between the two norms over
@@ -20,6 +23,9 @@ replay of the captured step the window replays (``harness.Run.warm_up``):
 * ``prob_gap``: the largest absolute gap of a validation node's fraud
   probability, at the window's last validation, from the parameters the
   program held then.
+
+A model of the homo graph (GCN) is compared by the same numbers: its
+reference's one relation is the homo graph, and its plan a permutation.
 
 The second and third steps' losses, and the worst leaf's change, are
 followed and not compared: after one Adam step the two sides' weights
@@ -65,7 +71,8 @@ def moving_leaves(grad: dict) -> set:
 
 
 def pick_bad(g, batches, weights, ys) -> int:
-    """Slots of one epoch's plan that break the pick's guarantees."""
+    """Slots of one epoch's plan that break the plan's guarantees (module
+    docstring)."""
     ids = batches.reshape(-1).cpu().numpy()
     w = weights.reshape(-1).cpu().numpy()
     y = ys.reshape(-1).cpu().numpy()
@@ -75,6 +82,9 @@ def pick_bad(g, batches, weights, ys) -> int:
     labels = g.labels.cpu().numpy()
     bad = int((~train[ids[:s]]).sum()) + int((w[:s] != 1.0).sum())
     bad += int((w[s:] != 0.0).sum()) + int((y != labels[ids]).sum())
+    if g.permutation:
+        seen = np.bincount(ids[:s], minlength=train.shape[0])[g.idx_train]
+        bad += int((seen == 0).sum()) + int(np.maximum(seen - 1, 0).sum())
     return bad
 
 

@@ -73,12 +73,16 @@ def reference_module(cfg: dict):
 
 
 def trainer_config(model: dict, seed: int) -> dict:
+    """The trainer's configuration from the model section: PC-GNN's own
+    keys (``alpha``, ``rho``) and the store's precision only where the
+    section has them."""
     keys = ("data_name", "model", "train_ratio", "test_ratio", "emb_size",
-            "lr", "weight_decay", "alpha", "rho", "valid_epochs",
-            "batch_size", "edge_windows")
+            "lr", "weight_decay", "valid_epochs", "batch_size",
+            "edge_windows")
     # early stopping and checkpoints stay off: the window runs its own loop
     return {**{k: model[k] for k in keys},
-            **{k: model[k] for k in ("ewin_dtype",) if k in model},
+            **{k: model[k] for k in ("alpha", "rho", "ewin_dtype")
+               if k in model},
             "seed": seed, "epochs": 10**9, "patience": 10**9, "exp_num": 0}
 
 
@@ -173,12 +177,16 @@ class Run:
         self.lap("program graph")
         self.t = Trainer(trainer_config(mc, self.seed), graph=graph,
                          device=dev)
-        stored = [r.ewin is not None for r in self.t.graph.relations]
+        # the stores of the graphs the model reads: PC-GNN's relations,
+        # the homo graph of GCN and GraphSAGE
+        reads = type(self.t.model).hub_relations(self.t.graph)
+        stored = [r.ewin is not None for r in reads]
         if stored != [self.stores] * len(stored):
             raise RuntimeError(
                 f"the configuration states edge_windows {self.stores}, the "
-                f"program stored relations {stored}: the reference would "
-                f"follow another lane than the program takes")
+                f"program stored the graphs its model reads {stored}: the "
+                f"reference would follow another lane than the program "
+                f"takes")
         self.lap("trainer")
         self.model = self.t.new_model()
         self.lap("model")
@@ -380,6 +388,7 @@ class Run:
             "steps": epochs * nb,
             "captures": self.runner.stats()["captures"] - captures,
             "rows": rows, "plans": [(b.cpu(), w.cpu()) for b, w in plans],
+            "reference": self.cfg.get("reference", "pcgnn"),
             "stores": self.stores, "feat_dim": self.raw.features.shape[1],
             "emb": self.model_cfg["emb_size"],
             "relations": len(self.raw.srcs),

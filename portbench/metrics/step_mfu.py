@@ -1,7 +1,8 @@
 """The training step's share of the card's peak: its least time (the
 larger of its counted bytes over the memory rate and its counted
-operations over the float32 rate, ``counts.step``; TF32 is off) over
-the time the epoch spans took, step for step."""
+operations over the float32 rate, by the count of the configuration's
+reference, ``counts.step``; TF32 is off) over the time the epoch spans
+took, step for step."""
 
 from portbench.counts import step
 
@@ -10,12 +11,7 @@ def read(rec):
     t = rec["trace"]
     if rec["peaks"] is None or not t["steps"]:
         return None
-    bytes_ = sum(step.byte_terms(
-        rows=t["rows"], steps=t["steps"], feat_dim=t["feat_dim"],
-        record_width=t["record_width"], train_pos=t["train_pos"],
-        hub_neighbors=t["hub_neighbors"], params=t["params"],
-        neighbors=None if t["stores"] else t["neighbors"]).values())
-    fl = step.flops(rows=t["rows"], feat_dim=t["feat_dim"], emb=t["emb"],
-                    relations=t["relations"])
+    terms, fl = step.count(t)
     spent_us = sum(e - s for s, e in t["spans"]["portbench.epoch"])
-    return 100.0 * step.least_seconds(bytes_, fl, rec["peaks"]) * 1e6 / spent_us
+    return (100.0 * step.least_seconds(sum(terms.values()), fl, rec["peaks"])
+            * 1e6 / spent_us)

@@ -1,8 +1,8 @@
 """The plain references that decide ``correct``, in plain PyTorch and
 NumPy, float32 with TF32 off.  They import nothing of the program and work
 out again, from the generator's raw arrays, everything the program
-derives: the CSR of each relation, the keep counts, the window cap, the
-splits, the pick weights and the selections.
+derives: the CSR of each graph the model reads, the keep counts, the
+window cap, the splits, the pick weights and the selections.
 
 A configuration names its reference by the module's name under
 ``reference`` in its file (``pcgnn`` when the key is absent); the harness
@@ -10,9 +10,16 @@ and the check reach it only through these functions of the module:
 
 * ``build_graph(raw, cfg, device)``: the reference graph of the
   configuration ``cfg`` from the generator's arrays ``raw``, with
-  ``features``, ``labels``, ``relations`` (each with ``deg`` and
-  ``dcap``), ``idx_train``, ``idx_valid``, ``train_pos``, ``sample_size``
-  and ``to(device)``;
+  ``features``, ``labels``, ``relations``, ``idx_train``, ``idx_valid``,
+  ``train_pos``, ``sample_size``, ``permutation`` and ``to(device)``.
+  ``relations`` are the graphs the model reads, each with ``deg`` and
+  ``dcap`` (the harness sums their degrees and takes their window widths
+  for the counts): PC-GNN's relations, or for a model of the homo graph
+  (GCN, GraphSAGE) the homo graph as the one relation.
+  ``sample_size`` is the plan's real slots an epoch; ``permutation``
+  True says the plan takes every training node once (``sample_size`` is
+  then the training split's size), False that it draws them (PC-GNN's
+  pick); ``check.pick_bad`` holds the plan to the rule it states;
 * ``edges_per_epoch(g)``: the candidate edges an epoch brings;
 * ``initial_weights(seed, raw, cfg, device)``: the model's initial
   weights, in the program's parameter names, drawn on ``device``;
@@ -22,6 +29,12 @@ and the check reach it only through these functions of the module:
 * ``fraud_probabilities(g, params, nodes, hyper, low)``: the fraud
   probability of each of ``nodes``.
 
+A reference's step count, which ``step_mfu`` reads, is the module of the
+same name under ``counts/``.
+
 ``pcgnn`` is PC-GNN's one Pick-Choose-Aggregate layer, its joint loss, its
 gradients and Adam; ``graph`` its graph, ``weights`` its initial weights.
+``gcn`` is the GCN baseline over the homo graph.  ``plain`` holds what
+they share: the control's TF32, the gathered rows' sums, cross-entropy
+and Adam.
 """

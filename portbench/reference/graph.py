@@ -9,8 +9,9 @@ Semantics stated by the configuration and followed here:
   as drawn, source to target, with the self-loops, each edge once;
 * ``k = ceil(threshold * deg)``; the choose step keeps ``keff = deg`` when
   ``deg <= k + 1``, else ``k``; the oversample takes ``floor(k * rho)``;
-* the homo graph is the union of the relations, by the same rule; only
-  its degrees are read (the pick's weights);
+* the homo graph is the union of the relations, by the same rule
+  (``homo``); PC-GNN reads only its degrees (the pick's weights), the GCN
+  reference reads it whole (``reference/gcn.py``);
 * where the configuration holds bfloat16 stores (``edge_windows`` true,
   ``ewin_dtype`` bfloat16), the selection scores and the window rows'
   sums read the features rounded to bfloat16 (``stored``), except rows
@@ -150,6 +151,9 @@ class Graph:
     idx_train: np.ndarray
     idx_valid: np.ndarray
     train_pos: torch.Tensor   # [P] int64, in the train split's order
+    # the plan is a permutation of the training nodes (every one once an
+    # epoch), not the pick's draws
+    permutation = False
 
     def to(self, device) -> "Graph":
         feats = self.features.to(device)
@@ -181,20 +185,12 @@ def bf16_stores(model_cfg: dict) -> bool:
             and model_cfg.get("ewin_dtype", "bfloat16") == "bfloat16")
 
 
-def build(raw, model_cfg: dict, seed: int, device, *,
-          directed: bool = False) -> Graph:
-    """The reference graph of the generator's ``raw`` arrays under the
-    configuration's model section (``threshold``, ``train_ratio``,
-    ``test_ratio``, ``num_unlabeled``, ``normalize_features``,
-    ``edge_windows``, ``ewin_dtype``), its relations ``directed`` or
-    not."""
-    n = raw.num_nodes
-    thr = model_cfg.get("threshold", 0.5)
-    thr = thr if isinstance(thr, list) else [thr] * len(raw.srcs)
-    rels = [csr(s, d, n, float(t), device, directed)
-            for s, d, t in zip(raw.srcs, raw.dsts, thr)]
-    homo_deg = csr(np.concatenate(raw.srcs), np.concatenate(raw.dsts), n,
-                   0.5, device, directed).deg
+def nodes(raw, model_cfg: dict, seed: int, device) -> dict:
+    """The node data of the generator's ``raw`` arrays under the
+    configuration's model section (``train_ratio``, ``test_ratio``,
+    ``num_unlabeled``, ``normalize_features``, ``edge_windows``,
+    ``ewin_dtype``): ``Graph``'s fields other than the relations and the
+    homo degrees."""
     feats = raw.features
     if model_cfg.get("normalize_features"):
         feats = normalize_rows(feats)
@@ -205,12 +201,32 @@ def build(raw, model_cfg: dict, seed: int, device, *,
                        int(model_cfg.get("num_unlabeled", 0)))
     stored = (x.to(torch.bfloat16).to(torch.float32)
               if bf16_stores(model_cfg) else x)
-    return Graph(features=x, stored=stored,
-                 labels=torch.as_tensor(labels, device=device),
-                 relations=rels, homo_deg=homo_deg, idx_train=tr,
-                 idx_valid=va,
-                 train_pos=torch.as_tensor(tr[labels[tr] == 1],
-                                           device=device))
+    return dict(features=x, stored=stored,
+                labels=torch.as_tensor(labels, device=device),
+                idx_train=tr, idx_valid=va,
+                train_pos=torch.as_tensor(tr[labels[tr] == 1],
+                                          device=device))
+
+
+def homo(raw, device, directed: bool = False) -> Relation:
+    """The homo graph: the union of the relations, by the same rule."""
+    return csr(np.concatenate(raw.srcs), np.concatenate(raw.dsts),
+               raw.num_nodes, 0.5, device, directed)
+
+
+def build(raw, model_cfg: dict, seed: int, device, *,
+          directed: bool = False) -> Graph:
+    """The reference graph of the generator's ``raw`` arrays under the
+    configuration's model section (``threshold`` and what ``nodes``
+    reads), its relations ``directed`` or not."""
+    n = raw.num_nodes
+    thr = model_cfg.get("threshold", 0.5)
+    thr = thr if isinstance(thr, list) else [thr] * len(raw.srcs)
+    rels = [csr(s, d, n, float(t), device, directed)
+            for s, d, t in zip(raw.srcs, raw.dsts, thr)]
+    homo_deg = homo(raw, device, directed).deg
+    return Graph(relations=rels, homo_deg=homo_deg,
+                 **nodes(raw, model_cfg, seed, device))
 
 
 def edges_per_epoch(g: Graph) -> float:

@@ -32,11 +32,13 @@ PRESETS = {
 }
 
 STRESS = "pcgnn-stress10m.train"
+GCN = "gcn-amazon.train"
 # (workload, preset, batch) of each cell's CPU cut
-CELLS = [("pcgnn-yelpchi.train", "tiny", 16),
-         ("pcgnn-amazon.train", "tiny", 16),
-         ("pcgnn-yelpchi.hubs", "skew-tiny", 64),
-         (STRESS, "stress-small", 96)]
+PCGNN_CELLS = [("pcgnn-yelpchi.train", "tiny", 16),
+               ("pcgnn-amazon.train", "tiny", 16),
+               ("pcgnn-yelpchi.hubs", "skew-tiny", 64),
+               (STRESS, "stress-small", 96)]
+CELLS = PCGNN_CELLS + [(GCN, "tiny", 16)]
 
 
 def stress_lane(monkeypatch) -> None:

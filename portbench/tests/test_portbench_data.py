@@ -12,7 +12,7 @@ import sys
 import pytest
 
 from portbench import harness, stats
-from portbench.counts import step
+from portbench.counts import pcgnn, step
 from portbench.tests.helpers import HERE, ROOT, bench, load
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -43,7 +43,7 @@ def test_every_entry_resolves_to_its_file():
     assert len(names) == len(set(names))
     assert [w["name"] for w in b["workloads"]] == [
         "pcgnn-yelpchi.train", "pcgnn-amazon.train", "pcgnn-yelpchi.hubs",
-        "pcgnn-stress10m.train"]
+        "pcgnn-stress10m.train", "gcn-amazon.train"]
 
 
 def test_metric_lists_follow_their_workloads():
@@ -53,7 +53,8 @@ def test_metric_lists_follow_their_workloads():
     assert "ragged_gather_roofline" not in layer
     # kernel 2's share where it runs in the step: the hub cell and the
     # stress cell; the CSR lane's section in the stress cell alone;
-    # kernel 1's nowhere else than the store cells
+    # kernel 1's nowhere else than the store cells; PC-GNN's choose and
+    # oversample sections in PC-GNN's cells alone
     for w in b["workloads"]:
         got = {m["name"] for m in harness.cell_metrics(b, w["name"], True)}
         stress = w["name"] == "pcgnn-stress10m.train"
@@ -61,6 +62,10 @@ def test_metric_lists_follow_their_workloads():
             stress or w["name"] == "pcgnn-yelpchi.hubs")
         assert ("step_gather_ms" in got) == stress
         assert ("window_gather_roofline" in got) != stress
+        pcgnn_cell = w["config"].startswith("pcgnn-")
+        assert ("step_choose_ms" in got) == pcgnn_cell
+        assert ("step_oversample_ms" in got) == pcgnn_cell
+        assert "step_mfu" in got
 
 
 def window_rec():
@@ -91,7 +96,7 @@ def trace_rec():
                   "portbench.validate": [(100.0, 200.0)]},
         "epoch_host_ms": [3.0, 1.0, 2.0, 10.0], "captures": 2, "steps": 2,
         "rows": 100, "record_width": 670, "hub_neighbors": 4188,
-        "stores": True, "neighbors": 9000,
+        "reference": "pcgnn", "stores": True, "neighbors": 9000,
         "feat_dim": 16, "emb": 64, "relations": 3, "train_pos": 10,
         "params": 1000}}
 
@@ -123,11 +128,11 @@ def test_csr_lane_readers_on_a_canned_trace():
     assert r("ragged_gather_roofline")(rec) == pytest.approx(
         100 * 8 * 9000 / 3.35e12 * 1e6 / 10.0)
     # the neighbors' float32 rows and int32 ids in place of the records
-    terms = step.byte_terms(rows=100, steps=2, feat_dim=16, record_width=0,
-                            train_pos=10, hub_neighbors=0, params=1000,
-                            neighbors=9000)
+    terms = pcgnn.byte_terms(rows=100, steps=2, feat_dim=16, record_width=0,
+                             train_pos=10, hub_neighbors=0, params=1000,
+                             neighbors=9000)
     assert terms["neighbor_rows"] == 9000 * 68 and "records" not in terms
-    fl = step.flops(rows=100, feat_dim=16, emb=64, relations=3)
+    fl = pcgnn.flops(rows=100, feat_dim=16, emb=64, relations=3)
     assert r("step_mfu")(rec) == pytest.approx(
         100 * step.least_seconds(sum(terms.values()), fl, (3.35e12, 67e12))
         * 1e6 / 100.0)
@@ -195,10 +200,10 @@ def steps(*args, **kw):
 
 DRIVE = '''import json, sys, torch
 import portbench
-from portbench.reference import pcgnn, pcgnn_named
+from portbench.reference import pcgnn_named, plain
 from portbench.tests.helpers import run_small
 assert portbench.__file__.startswith(sys.argv[1]), portbench.__file__
-pcgnn.BIAS_CORRECTION_DTYPE = torch.float64
+plain.BIAS_CORRECTION_DTYPE = torch.float64
 line, rows = run_small("pcgnn-yelpchi-directed.train", "tiny", 16, seed=6)
 print(json.dumps({"correct": line["correct"], "calls": pcgnn_named.CALLS}))
 '''

@@ -5,36 +5,39 @@ reference in TF32 in the program's place) fails the cells' limits."""
 import pytest
 import torch
 
+from pcgnn_tpu_torch.models.gcn import GCN
 from pcgnn_tpu_torch.models.pcgnn import PCGNN
 from pcgnn_tpu_torch.train.trainer import Trainer
 from portbench import calibrate
 from portbench.tests.helpers import CELLS, lane, run_small, small_cell
 
+MODELS = {"PCGNN": PCGNN, "GCN": GCN}
 
-def state_unchanged(monkeypatch):
+
+def state_unchanged(monkeypatch, model):
     # the step computes its loss and gradients and leaves the parameters
     # and Adam's state as they were
     monkeypatch.setattr(torch.optim.Adam, "step",
                         lambda self, closure=None: None)
 
 
-def half_batch(monkeypatch):
+def half_batch(monkeypatch, model):
     # the second half of every batch left out, the mean over the rest
-    loss = PCGNN.loss
+    loss = model.loss
 
     def halved(self, graph, batch, y, w=None, **kw):
         w = torch.ones_like(y, dtype=torch.float32) if w is None else w
         w = w.clone()
         w[w.shape[0] // 2:] = 0.0
         return loss(self, graph, batch, y, w, **kw)
-    monkeypatch.setattr(PCGNN, "loss", halved)
+    monkeypatch.setattr(model, "loss", halved)
 
 
-def stale_row(monkeypatch):
+def stale_row(monkeypatch, model):
     # after the first epoch (on the card, the one that captures), every
     # step reads the batch of the step before it: a replay that takes a
     # stale row of the static buffers
-    run_epoch, loss = Trainer.run_epoch, PCGNN.loss
+    run_epoch, loss = Trainer.run_epoch, model.loss
     seen = {"epochs": 0, "last": None}
 
     def counted(self, *args, **kw):
@@ -47,19 +50,19 @@ def stale_row(monkeypatch):
             batch, y, w = last
         return loss(self, graph, batch, y, w, **kw)
     monkeypatch.setattr(Trainer, "run_epoch", counted)
-    monkeypatch.setattr(PCGNN, "loss", stale)
+    monkeypatch.setattr(model, "loss", stale)
 
 
-def answer_altered(monkeypatch):
+def answer_altered(monkeypatch, model):
     # one validation answer altered where it is produced
-    to_prob = PCGNN.to_prob
+    to_prob = model.to_prob
 
     def altered(self, graph, batch, **kw):
         probs, scores = to_prob(self, graph, batch, **kw)
         probs = probs.clone()
         probs[0, 1] = (probs[0, 1] + 0.5) % 1.0
         return probs, scores
-    monkeypatch.setattr(PCGNN, "to_prob", altered)
+    monkeypatch.setattr(model, "to_prob", altered)
 
 
 @pytest.mark.parametrize("fault", [state_unchanged, half_batch,
@@ -68,7 +71,9 @@ def answer_altered(monkeypatch):
 def test_a_broken_step_is_not_correct(monkeypatch, fault, workload, preset,
                                       batch):
     lane(monkeypatch, workload)
-    fault(monkeypatch)
+    cfg, _ = small_cell(workload, preset, batch)
+    # the fault in the step of the cell's own model
+    fault(monkeypatch, MODELS[cfg["model"]["model"]])
     line, rows = run_small(workload, preset, batch, seed=21)
     assert line["correct"] is False, rows
 

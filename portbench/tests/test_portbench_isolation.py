@@ -42,9 +42,9 @@ def test_the_reference_imports_nothing_of_the_program():
 def test_a_run_loads_no_jax_module():
     code = (
         "import json, sys, time, torch\n"
-        "from portbench.reference import pcgnn\n"
+        "from portbench.reference import plain\n"
         "from portbench.tests.helpers import run_small\n"
-        "pcgnn.BIAS_CORRECTION_DTYPE = torch.float64\n"
+        "plain.BIAS_CORRECTION_DTYPE = torch.float64\n"
         "line, _ = run_small('pcgnn-yelpchi.hubs', 'skew-tiny', 64, seed=4,"
         " traced=True)\n"
         "assert line['correct']\n"

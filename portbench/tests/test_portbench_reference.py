@@ -1,6 +1,7 @@
 """The plain reference against the program's CPU path at a small size:
 the steps the harness records, and whole runs through the harness."""
 
+import dataclasses
 import math
 
 import numpy as np
@@ -8,10 +9,12 @@ import pytest
 import torch
 
 from portbench import check, gen, harness
+from portbench.reference import gcn as gcnref
 from portbench.reference import graph as refgraph
 from portbench.reference import pcgnn as ref
-from portbench.tests.helpers import (CELLS, STRESS, lane, run_small,
-                                     small_cell, stress_lane)
+from portbench.reference import plain
+from portbench.tests.helpers import (CELLS, GCN, PCGNN_CELLS, STRESS, lane,
+                                     run_small, small_cell, stress_lane)
 
 
 @pytest.mark.parametrize("workload,preset,batch", CELLS)
@@ -86,10 +89,10 @@ def test_the_reference_is_built_after_the_window():
 def test_tf32_rounding_keeps_ten_bits():
     a = torch.tensor([1.0 + 2**-10, 1.0 + 2**-11 + 2**-12, 3.0],
                      dtype=torch.float32)
-    got = ref.tf32(a)
+    got = plain.tf32(a)
     assert got.tolist() == [1.0 + 2**-10, 1.0 + 2**-10, 3.0]
     x = torch.randn(64, 64, dtype=torch.float32)
-    r = ref.tf32(x)
+    r = plain.tf32(x)
     assert float(((r - x).abs() / x.abs()).max()) <= 2**-11
     mant = r.view(torch.int32) & 0x1FFF
     assert int(mant.abs().max()) == 0
@@ -197,7 +200,7 @@ def dense_aggregate(g, rel, nodes, s, labels_b, rho, low):
     return num / cnt.clamp(min=1)[:, None].float()
 
 
-@pytest.mark.parametrize("workload,preset,batch", CELLS)
+@pytest.mark.parametrize("workload,preset,batch", PCGNN_CELLS)
 @pytest.mark.parametrize("low", [False, True])
 def test_gathered_aggregate_equals_the_dense_one(workload, preset, batch,
                                                  low):
@@ -226,8 +229,9 @@ def test_a_configuration_without_the_key_takes_pcgnns_reference():
     b = harness.load_json(harness.HERE.parent / "BENCHMARK.json")
     for c in b["configs"]:
         cfg = harness.load_json(harness.HERE.parent / c["file"])
-        assert cfg.get("reference", "pcgnn") == "pcgnn"
-        assert harness.reference_module(cfg) is ref
+        gcn = c["name"] == "gcn-amazon"
+        assert cfg.get("reference", "pcgnn") == ("gcn" if gcn else "pcgnn")
+        assert harness.reference_module(cfg) is (gcnref if gcn else ref)
     assert harness.reference_module({}) is ref
 
 
@@ -242,3 +246,125 @@ def test_reference_graph_semantics_by_hand():
     # k = ceil(deg / 2); keff = deg where deg <= k + 1
     assert d.ksample.tolist() == [2, 1, 1, 1]
     assert d.keff.tolist() == [3, 2, 1, 2]
+
+
+def gcn_cell(stores: bool) -> tuple:
+    cfg, traffic = small_cell(GCN, "tiny", 16)
+    cfg["model"]["edge_windows"] = stores
+    return cfg, traffic
+
+
+@pytest.mark.parametrize("stores", [True, False])
+def test_gcn_reference_follows_the_programs_gcn(stores):
+    # the port's GCN through the harness, with a bf16 homo store and with
+    # none, against the plain GCN: first loss, first gradient, the update
+    # after three steps, the validation probabilities
+    cfg, traffic = gcn_cell(stores)
+    run = harness.Run(cfg, traffic, 2**31 + 9, torch.device("cpu"))
+    run.setup()
+    g = run.t.graph
+    assert (g.homo.ewin is not None) == stores
+    assert all(r.ewin is None for r in g.relations) and g.fused is None
+    assert set(run.rec["params0"]) == {"enc.w", "head.w"}
+    run.window(0.2)
+    run.close()
+    run.reference()
+    assert run.ref.permutation and run.ref.sample_size == len(
+        run.ref.idx_train)
+    # bf16-rounded window rows only under the bf16 store
+    assert (run.ref.stored is run.ref.features) != stores
+    prog = check.program_readings(run.rec, "cpu")
+    sound = check.reference_readings(run.refmod, run.ref, run.rec,
+                                     cfg["model"])
+    gaps = check.gaps(prog, sound)
+    assert all(v < 1e-6 for v in gaps.values()), gaps
+    # the reference rounds to the store's precision: read exact, it
+    # departs where the program reads bf16
+    exact = dataclasses.replace(run.ref, stored=run.ref.features)
+    off = check.gaps(prog, check.reference_readings(
+        run.refmod, exact, run.rec, cfg["model"]))
+    assert (off["prob_gap"] > 1e-5) == stores, off
+
+
+def test_gcn_aggregate_by_hand():
+    # three nodes, edges 0-1 and 1-2, self-loops: node 1 sums all three
+    # rows over sqrt(3); node 0 rows 0 and 1 over sqrt(2)
+    raw = gen.RawGraph(features=np.arange(6, dtype=np.float32).reshape(3, 2),
+                       labels=np.array([0, 1, 0]),
+                       srcs=(np.array([0]), np.array([1])),
+                       dsts=(np.array([1]), np.array([2])))
+    cfg = {"seed": 2, "graph": {}, "model": {
+        "train_ratio": 0.34, "test_ratio": 0.5, "edge_windows": False}}
+    g = gcnref.build_graph(raw, cfg, "cpu")
+    assert g.relations[0].deg.tolist() == [2, 3, 2]
+    agg = gcnref.aggregate(g, torch.tensor([0, 1]), False)
+    x = torch.as_tensor(raw.features)
+    torch.testing.assert_close(agg[0], (x[0] + x[1]) / 2 ** 0.5)
+    torch.testing.assert_close(agg[1], x.sum(0) / 3 ** 0.5)
+    assert gcnref.edges_per_epoch(g) == float(
+        g.relations[0].deg[torch.as_tensor(g.idx_train)].sum())
+
+
+def permuted_plan(g, batch: int) -> tuple:
+    """A plan that takes every training node of ``g`` once, padded with
+    id 0 at weight 0, as the trainer lays out a baseline's epoch."""
+    tr = torch.as_tensor(g.idx_train)[torch.randperm(len(g.idx_train))]
+    nb = -(-len(tr) // batch)
+    ids = torch.zeros(nb * batch, dtype=torch.int64)
+    ids[: len(tr)] = tr
+    w = torch.zeros(nb * batch)
+    w[: len(tr)] = 1.0
+    return ids.view(nb, batch), w.view(nb, batch), g.labels[ids].view(
+        nb, batch)
+
+
+def test_pick_bad_holds_a_gcn_plan_to_every_training_node_once():
+    cfg, traffic = small_cell(GCN, "tiny", 16)
+    draws = {k: v for k, v in cfg["graph"].items() if k != "directed"}
+    raw = gen.draw_graph(cfg["seed"], **draws, **traffic["graph"])
+    g = gcnref.build_graph(raw, cfg, "cpu")
+    b, w, y = permuted_plan(g, 16)
+    assert check.pick_bad(g, b, w, y) == 0
+
+    def bad(ids, graph=g):
+        return check.pick_bad(graph, ids.view(b.shape), w,
+                              g.labels[ids].view(b.shape))
+    # slot 1 takes slot 0's node: that node repeated, slot 1's missing
+    rep = b.clone().view(-1)
+    rep[1] = rep[0]
+    assert bad(rep) == 2
+    # slots 5 and 7 take slot 6's node: two repeats, two missing
+    rep2 = b.clone().view(-1)
+    rep2[5] = rep2[7] = rep2[6]
+    assert bad(rep2) == 4
+    # the same plans under the pick's rule, which draws with replacement
+    pick = dataclasses.replace(g)
+    pick.permutation = False
+    assert bad(rep, pick) == bad(rep2, pick) == 0
+
+
+def test_pick_bad_reads_nothing_on_a_pcgnn_plan():
+    cfg, traffic = small_cell("pcgnn-yelpchi.train", "tiny", 16)
+    run = harness.Run(cfg, traffic, 5, torch.device("cpu"))
+    run.setup()
+    run.reference()
+    assert not run.ref.permutation
+    b = run.rec["plan_batches"]
+    # the pick draws with replacement: repeats are its own
+    real = b.reshape(-1)[: run.ref.sample_size]
+    assert len(set(real.tolist())) < real.numel()
+    assert check.pick_bad(run.ref, b, run.rec["plan_weights"],
+                          run.rec["plan_labels"]) == 0
+
+
+@pytest.mark.parametrize("workload", [GCN, "pcgnn-yelpchi.train"])
+def test_the_stores_check_reads_the_graphs_the_model_reads(monkeypatch,
+                                                          workload):
+    from pcgnn_tpu_torch.train import trainer
+    cfg, traffic = small_cell(workload, "tiny", 16)
+    harness.Run(cfg, traffic, 5, torch.device("cpu")).setup()
+    # the program builds no store where the configuration states one
+    monkeypatch.setattr(trainer, "materialize_edge_windows",
+                        lambda graph, **kw: graph)
+    with pytest.raises(RuntimeError, match="edge_windows True"):
+        harness.Run(cfg, traffic, 5, torch.device("cpu")).setup()

@@ -68,7 +68,8 @@ def program_rec():
         "spans": {"portbench.epoch": [(0.0, 100.0)],
                   "portbench.validate": [(100.0, 200.0)]},
         "epoch_host_ms": [0.08], "captures": 0, "steps": 2, "rows": 100,
-        "record_width": 670, "hub_neighbors": 4188, "stores": True,
+        "record_width": 670, "hub_neighbors": 4188, "reference": "pcgnn",
+        "stores": True,
         "neighbors": 9000, "feat_dim": 16,
         "emb": 64, "relations": 3, "train_pos": 10, "params": 1000}}
 
