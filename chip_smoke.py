@@ -141,7 +141,9 @@ Phase 11 also times the learned steps in the same turns.  Then:
      checked and timed here at that lane's shape, and (c) a 1-rank NCCL
      group initializes, all-reduces, and its captured steps at (1, 1) --
      one piece a step, no collective -- equal the single-rank captured
-     steps exactly.  Two ranks on one card give no scaling number.
+     steps exactly (the single rank sums its oversampled minors with the
+     sharded step's chain of ops there).  Two ranks on one card give no
+     scaling number.
      Each case also runs with the collectives async (``RankMesh.overlap``,
      the default) and blocking: loss and gradients from the same weights
      must be the same bits; 8 steps timed in turns (on, off, off, on, ...),
@@ -246,6 +248,10 @@ Phase 11 also times the learned steps in the same turns.  Then:
      turn's seconds, host syncs, kernel launches, replays, captures and
      capture seconds, and the forward's graph pool; the replays must
      launch kernels 1, 2 and 3 between them.
+ 30. the choose kernel (kernel 4) at the benchmark cells' record sections,
+     against its plain version and timed queued (below);
+ 31. the oversample kernel (kernel 5) at the benchmark cells' shapes of a
+     step's minors, against its plain version and timed queued (below).
 
 Training runs through captured steps wherever the trainer's epochs or
 ``single_step`` run (phases 3, 8, 13, 16-18, 20-22, 24-26), and
@@ -858,6 +864,110 @@ def choose_phase(rate: float) -> dict:
             "cells": cells}
 
 
+# the oversample kernel's shapes in the kernels line: the benchmark cells'
+# steps, (rows, F, relation widths, train positives P, m_max): YelpChi's
+# window of 2C = 256 sorted entries, Amazon's dense form over all P
+OVERSAMPLE_SHAPES = {"pcgnn-yelpchi": (1024, 32, (17, 49, 200), 2665, 50),
+                     "pcgnn-amazon": (256, 25, (52, 700, 205), 330, 175)}
+
+
+def oversample_phase(rate: float) -> dict:
+    """The oversample kernel (``csrc/oversample_minors.cu``) at
+    ``OVERSAMPLE_SHAPES``: a step's minors of every relation as the training
+    step calls it (ids read through the [N, D] neighbor tables at the
+    batch, half the rows fraud, each row's sample count up to twice its
+    relation's window, keep masks of about half the slots), equal to the
+    plain version (counts exactly, sums within rtol 1e-6), then timed by
+    ``queued_ms`` over argument sets whose neighbor tables exceed the L2
+    together, beside the plain version (``time_ms``: its kernels' own
+    time).  The bound counts what the fraud rows need, read once: their
+    window's scores and slots, the ids and rows of the candidates they take
+    at most, each relation's keep flags and ids, sample count and degree,
+    and the sums read and written; the other rows' labels.  Returns the
+    kernels-line entry."""
+    from pcgnn_tpu_torch.graph.csr import RelGraph
+    from pcgnn_tpu_torch.ops import aggregate as agg
+    dev = torch.device("cuda")
+    cells = {}
+    for cell, (rows, f, widths, p, m_max) in OVERSAMPLE_SHAPES.items():
+        gen = torch.Generator(device=dev).manual_seed(rows + f)
+        n = 50_000
+        z = torch.zeros(1, dtype=torch.int32, device=dev)
+        tp = torch.randperm(n, generator=gen, device=dev)[:p]
+        tpv = torch.ones(p, dtype=torch.bool, device=dev)
+        tp_s0 = torch.randn(p, generator=gen, device=dev)
+        tp_rows = torch.rand((p, f), generator=gen, device=dev) + 0.5
+        center = torch.randn(rows, generator=gen, device=dev)
+        labels = torch.arange(rows, device=dev) % 2
+        sets = max(2, math.ceil(100e6 / (n * sum(widths) * 4)))
+        arg_sets = []
+        for _ in range(sets):
+            batch = torch.randperm(n, generator=gen, device=dev)[:rows]
+            rels, sums = [], []
+            for d in widths:
+                rel = RelGraph(
+                    indptr=z, col=z,
+                    deg=torch.full((n,), d, dtype=torch.int32, device=dev),
+                    keff=z, ksample=torch.randint(
+                        0, 2 * d, (n,), generator=gen, device=dev,
+                        dtype=torch.int32), num_nodes=n, num_edges=0,
+                    dmax=d, dcap=d, nbr2d=torch.randint(
+                        0, n, (n, d), generator=gen, device=dev,
+                        dtype=torch.int32))
+                keep = torch.rand((rows, d), generator=gen, device=dev) < 0.5
+                rels.append((rel, None, keep))
+                sums.append((torch.zeros((rows, f), device=dev),
+                             torch.zeros(rows, device=dev)))
+            arg_sets.append((batch, rels, sums))
+
+        def each(fn):
+            def call(batch, rels, sums):
+                fn(center, tp_s0, tp, tpv, tp_rows, m_max, batch, labels, 0.5,
+                   rels, sums)
+                return sums
+            return call
+
+        # the kernel alone: the train positives' sort, which the step
+        # shares with the hub lane, is taken once here
+        ranked = agg.rank_train_positives(tp_s0, tpv)
+        kernel = each(lambda *a: agg.oversample_minor_sums(*a, ranked=ranked))
+        plain = each(agg.oversample_minor_sums_plain)
+        batch, rels, sums = arg_sets[0]
+        got = kernel(batch, rels, [(a.clone(), c.clone()) for a, c in sums])
+        want = plain(batch, rels, [(a.clone(), c.clone()) for a, c in sums])
+        for (gn, gc), (wn, wc) in zip(got, want):
+            if not (torch.equal(gc, wc)
+                    and torch.allclose(gn, wn, rtol=1e-6, atol=0)):
+                raise AssertionError(f"oversample_minors at {cell} differs "
+                                     f"from its plain version")
+        fraud = int((labels == 1).sum())
+        window = p if 2 * m_max >= p else min(
+            p, 2 * max(128, -(-2 * m_max // 128) * 128))
+        nbytes = (rows * 8 + fraud * (
+            16 + window * 12 + m_max * (8 + 4 * f)
+            + sum(d * 5 + 8 + 8 * f + 8 for d in widths)))
+        bound_ms = nbytes / rate * 1e3
+        q = queued_ms(kernel, arg_sets, bound_ms, f"oversample_minors {cell}")
+        # the plain version launches some sixty kernels a step, more than
+        # the card's queue holds for a queued run: back to back
+        plain_ms, plain_run_ms = time_ms(plain, arg_sets * 4)
+        cells[cell] = {"rows": rows, "f": f, "widths": list(widths), "p": p,
+                       "m_max": m_max, "window": window, "bytes": nbytes,
+                       "bound_ms": bound_ms, "ms": q["ms"],
+                       "readings_ms": q["readings_ms"], "plain_ms": plain_ms,
+                       "plain_run_ms": plain_run_ms}
+    first = cells["pcgnn-yelpchi"]
+    return {"name": "oversample_minors", "route": "cuda",
+            "source": "pcgnn_tpu_torch/csrc/oversample_minors.cu",
+            "replaces": "none: XLA ops (pcgnn_tpu/ops/aggregate.py:347, "
+                        ":466, :551 and :739)",
+            "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": "bytes",
+            "library_ms": None,
+            "range_ms": [first["readings_ms"][0], first["readings_ms"][-1]],
+            "cells": cells}
+
+
 def ragged_phase(t, rate: float) -> tuple[dict, dict]:
     """Phase 7: the ragged-gather kernel against its plain version at the
     hub lane's real calls on yelp-skew and at edge cases, and its timings.
@@ -1146,10 +1256,12 @@ def csr_branch_phase(t) -> dict:
 
 def kernel_counters() -> dict:
     """Every kernel wrapper module of the package, by kernel name."""
-    from pcgnn_tpu_torch.ops import (choose_window, mask_build, ragged_gather,
+    from pcgnn_tpu_torch.ops import (choose_window, mask_build,
+                                     oversample_minors, ragged_gather,
                                      window_gather)
     return {"window_gather": window_gather, "ragged_gather": ragged_gather,
-            "mask_build": mask_build, "choose_window": choose_window}
+            "mask_build": mask_build, "choose_window": choose_window,
+            "oversample_minors": oversample_minors}
 
 
 class StepEvents:
@@ -2370,7 +2482,8 @@ def predict_lane(t, card: str, batches: int | None = None) -> dict:
 def predict_phase(lanes: list, stress10m: dict, card: str) -> dict:
     """Phase 29: ``predict_lane`` on each trainer of ``lanes``, beside
     stress-10m's (run in phase 24).  Between them, the replays must
-    launch kernels 1, 2 and 3."""
+    launch every kernel of the package but the oversample kernel, which
+    runs in training alone."""
     t1 = time.time()
     out = {"lanes": {}}
     for t in lanes:
@@ -2381,7 +2494,8 @@ def predict_phase(lanes: list, stress10m: dict, card: str) -> dict:
                               out["lanes"].values() for x in rec["turns"]
                               if x["way"] == "captured")
                        for k in kernel_counters()}
-    if not all(out["launches"].values()):
+    if not all(n for k, n in out["launches"].items()
+               if k != "oversample_minors"):
         raise AssertionError(f"the captured forwards launched "
                              f"{out['launches']}")
     out["seconds"] = time.time() - t1
@@ -3482,9 +3596,13 @@ def nccl_phase(t, card: str) -> dict:
     where every collective is elided, so its captured step is one piece
     with no collective, and ``SHARD_CAPTURE_STEPS`` captured steps equal
     the single-rank trainer's captured steps exactly (losses and
-    parameters)."""
+    parameters).  The single rank's steps are captured summing their
+    oversampled minors with the chain of ops, as the sharded step does
+    (``spmd_overhead.minors_in_chain``); the oversample kernel is held
+    against the chain in phase 31."""
     import torch.distributed as dist
 
+    from pcgnn_tpu_torch.benchmarks.spmd_overhead import minors_in_chain
     from pcgnn_tpu_torch.parallel.distributed import init_distributed
     from pcgnn_tpu_torch.train.trainer import Trainer
     from pcgnn_tpu_torch.utils.multiproc import free_port
@@ -3502,12 +3620,14 @@ def nccl_phase(t, card: str) -> dict:
         if rank.mesh.backend != "nccl" or rank.mesh.size != 1:
             raise AssertionError(f"the NCCL rank's mesh is {rank.mesh}")
         got = []
-        for tr in (t, rank):
-            model = tr.new_model()
-            opt = tr.new_optimizer(model)
-            r = tr.runner(model, opt)
-            loss = r.run(*capture_stack(tr, SHARD_CAPTURE_STEPS))
-            got.append((loss, [p.detach() for p in model.parameters()], r))
+        with minors_in_chain():
+            for tr in (t, rank):
+                model = tr.new_model()
+                opt = tr.new_optimizer(model)
+                r = tr.runner(model, opt)
+                loss = r.run(*capture_stack(tr, SHARD_CAPTURE_STEPS))
+                got.append((loss, [p.detach() for p in model.parameters()],
+                            r))
         exact = bool(torch.equal(got[0][0], got[1][0]) and all(
             torch.equal(a, b) for a, b in zip(got[0][1], got[1][1])))
         r = got[1][2]
@@ -4485,12 +4605,15 @@ def main() -> int:
     # 30: the choose kernel at the benchmark cells' record sections
     choose = choose_phase(rate)
     print(f"phase 30 done at {time.time() - t0:.1f} s", file=sys.stderr)
+    # 31: the oversample kernel at the benchmark cells' steps
+    oversample = oversample_phase(rate)
+    print(f"phase 31 done at {time.time() - t0:.1f} s", file=sys.stderr)
 
     # each kernel's launches: the sum over the main paths' runs, each read
     # with every count set to 0 just before it
     entries = {"window_gather": like["entry"],
                "ragged_gather": skew["entry"], "mask_build": learned["entry"],
-               "choose_window": choose}
+               "choose_window": choose, "oversample_minors": oversample}
     for kname, entry in entries.items():
         entry["launches_by_path"] = {
             data: run["main_path"]["launches"][kname]

@@ -100,10 +100,12 @@ def _launches() -> dict:
 
 
 def _zero_launches() -> None:
-    from pcgnn_tpu_torch.ops import (choose_window, mask_build, ragged_gather,
+    from pcgnn_tpu_torch.ops import (choose_window, mask_build,
+                                     oversample_minors, ragged_gather,
                                      window_gather)
     window_gather.launches = window_gather.masked_launches = 0
     ragged_gather.launches = mask_build.launches = choose_window.launches = 0
+    oversample_minors.launches = 0
 
 
 def _step(model, sg, labels, batch: np.ndarray, tp, tpv, what: str,

@@ -6,7 +6,10 @@ Counterpart of ``pcgnn_tpu/models/pcgnn.py``, with its lanes:
     (``graph.csr.attach_edge_windows``), read as fused records (one fetch
     per batch row for all relations) or per relation (one fetch each);
     each relation's selection scores, choose and kept-row sum come from
-    the fetched rows in one kernel (``ops.aggregate.choose_window_sum``);
+    the fetched rows in one kernel (``ops.aggregate.choose_window_sum``),
+    and a training step's oversampled minors of every relation from one
+    more (``ops.aggregate.oversample_minor_sums``, also in the CSR lane
+    below);
   * score-table lane: a graph without a store on every relation, under
     ``SCORE_FROM_WINDOW_MIN_NODES`` nodes, builds one [N] selection-score
     table per step and gathers ``[x ; s0 (; train-positive indicator)]``
@@ -55,9 +58,10 @@ from pcgnn_tpu_torch.ops.aggregate import (
     keep_nearest,
     masked_mean_aggregate,
     minor_sum,
-    minor_sum_compact_multi,
     oversample_candidates_values,
     oversample_keep,
+    oversample_minor_sums,
+    rank_train_positives,
     scatter_batch_mask_counts,
     selection_score,
     window_sum_from_gathered,
@@ -211,7 +215,7 @@ class PCGNN(nn.Module):
         if use_fused:
             rec = batch_record_window(graph, batch)        # [B, W] float32
 
-        minor_ctx = None
+        minor_ctx = ranked = None
         if train:
             m_max = self.minor_window(int(train_pos.shape[0]), rels)
             tp_rows_f = (train_pos_feats if train_pos_feats is not None
@@ -220,18 +224,23 @@ class PCGNN(nn.Module):
             tp_s0 = (selection_score(sel_round(tp_rows_f), w0, b0)
                      if score_from_window else s0[train_pos])
             section("oversample")
-            cand_ids, cand_valid, _, cand_slots = oversample_candidates_values(
-                center_s0, tp_s0, train_pos, train_pos_valid, m_max)
+            if score_from_window or any_hub:
+                # one sort of the train positives' scores a step: the
+                # minors' windows and the hub lane's band read it
+                ranked = rank_train_positives(tp_s0, train_pos_valid)
+            if not score_from_window:
+                cand_ids, cand_valid, _, _ = oversample_candidates_values(
+                    center_s0, tp_s0, train_pos, train_pos_valid, m_max)
             if any_hub:
                 # hub rows' minor requests can reach the whole candidate
                 # pool, so the hub lane selects them over the score-sorted
                 # candidate table instead of the compact window
-                spv = torch.where(train_pos_valid, tp_s0, _INF)
-                sp_sorted, slot_sorted = torch.sort(spv, stable=True)
-                minor_ctx = (sp_sorted, slot_sorted.to(torch.int32),
-                             tp_rows_f.detach()[slot_sorted])
+                sp_sorted, order = ranked
+                minor_ctx = (sp_sorted, order.to(torch.int32),
+                             tp_rows_f.detach()[order])
 
-        rel_sums = []       # per relation: (num, cnt, keep_minor)
+        rel_sums = []       # per relation: (num, cnt)
+        minor_rels = []     # per relation: (rel, neighbor ids, choose keep)
         for r, rel in enumerate(rels):
             section("gather")
             store_lane = rel.ewin is not None and score_from_window
@@ -239,9 +248,8 @@ class PCGNN(nn.Module):
                 raw = (rec[:, graph.fused_off[r]: graph.fused_off[r + 1]]
                        if use_fused else batch_raw_window(rel, batch))
                 deg_b = rel.deg[batch]
-                # ids only for the minor dedup
-                section("oversample")
-                nbr = rel.nbr2d[batch] if train else None
+                # the minors' dedup reads nbr2d through the batch
+                nbr = None
             else:
                 nbr, valid = batch_neighbor_window(rel, batch,
                                                    allow_capped=True)
@@ -280,8 +288,10 @@ class PCGNN(nn.Module):
                 section("hub")
                 num = torch.where(is_hub[:, None], h_num, num)
                 cnt = torch.where(is_hub, h_cnt, cnt)
-            keep_minor = None
-            if train:
+            if train and score_from_window:
+                # the unclamped ids: a clamped sentinel must not match
+                minor_rels.append((rel, nbr, keep))
+            elif train:
                 section("oversample")
                 keep_minor = oversample_keep(rel, batch, batch_labels,
                                              cand_valid, self.rho)
@@ -292,22 +302,24 @@ class PCGNN(nn.Module):
                 # the unclamped ids: a clamped sentinel must not match
                 keep_minor = dedup_minor_keep(nbr, keep, n, cand_ids,
                                               keep_minor)
-                if not score_from_window:
-                    m_num, m_cnt = minor_sum(xs, cand_ids, keep_minor, f)
-                    num, cnt, keep_minor = num + m_num, cnt + m_cnt, None
-            rel_sums.append((num, cnt, keep_minor))
+                m_num, m_cnt = minor_sum(xs, cand_ids, keep_minor, f)
+                num, cnt = num + m_num, cnt + m_cnt
+            rel_sums.append((num, cnt))
 
-        if train and score_from_window and rels:
+        if minor_rels:
             section("oversample")
-            # minors come from the compact [P, F] exact float32 table
-            minors = minor_sum_compact_multi(
-                tp_rows_f, cand_slots, [km for _, _, km in rel_sums])
-            rel_sums = [(num + mn, cnt + mc, None)
-                        for (num, cnt, _), (mn, mc) in zip(rel_sums, minors)]
+            # one kernel for every relation: each fraud center's candidate
+            # window, its keep, the dedup against the kept neighbors and
+            # the sum of the minors' exact float32 rows, added into the
+            # relations' sums (the hub lane took the hub rows' minors)
+            oversample_minor_sums(
+                center_s0, tp_s0, train_pos, train_pos_valid, tp_rows_f,
+                m_max, batch, batch_labels, self.rho, minor_rels, rel_sums,
+                ranked=ranked)
 
         section("dense")
         rel_embs = []
-        for layer, (num, cnt, _) in zip(self.intra, rel_sums):
+        for layer, (num, cnt) in zip(self.intra, rel_sums):
             agg = num / cnt.clamp(min=1.0)[:, None]
             cat = torch.cat([self_feats, agg], dim=1)      # [B, 2F]
             rel_embs.append(torch.relu(cat @ layer.w))

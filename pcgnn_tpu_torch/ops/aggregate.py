@@ -13,8 +13,10 @@ Counterpart of ``pcgnn_tpu/ops/aggregate.py``, with its full-graph mean
 
 The window lane's choose of a relation (scores, ``keep_nearest`` and the
 kept rows' sum) is one hand-written kernel on the card,
-``choose_window_sum`` (``ops.choose_window``); its plain version is that
-chain of ops.
+``choose_window_sum`` (``ops.choose_window``), and so are a training
+step's oversampled minors of every relation (candidates, keep, dedup and
+sums), ``oversample_minor_sums`` (``ops.oversample_minors``); the plain
+version of each is the chain of ops it replaces.
 
 Selection is non-differentiable: everything that feeds it is detached.
 """
@@ -23,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from pcgnn_tpu_torch.ops import choose_window
+from pcgnn_tpu_torch.ops import choose_window, oversample_minors
 from pcgnn_tpu_torch.ops.mask_build import build_batch_mask_counts
 from pcgnn_tpu_torch.ops.ragged_gather import ragged_gather
 from pcgnn_tpu_torch.ops.window_gather import window_gather
@@ -511,6 +513,161 @@ def minor_sum_compact(tp_feats: torch.Tensor, cand_slots: torch.Tensor,
                       keep_minor: torch.Tensor):
     """:func:`minor_sum_compact_multi` for one keep mask."""
     return minor_sum_compact_multi(tp_feats, cand_slots, [keep_minor])[0]
+
+
+def rank_train_positives(tp_s0: torch.Tensor, train_pos_valid: torch.Tensor):
+    """(sp_sorted [P] float32, order [P] int64): the train positives'
+    selection scores, +inf at invalid slots, in one stable ascending sort
+    (equal scores in slot order).  The oversample kernel's windows and the
+    hub lane's minor band read the same sort."""
+    sp = torch.where(train_pos_valid, tp_s0, _INF)
+    sp_sorted, order = torch.sort(sp, stable=True)
+    return sp_sorted, order
+
+
+def oversample_minor_keeps(center_s0: torch.Tensor, tp_s0: torch.Tensor,
+                           train_pos: torch.Tensor,
+                           train_pos_valid: torch.Tensor, m_max: int,
+                           batch: torch.Tensor, batch_labels: torch.Tensor,
+                           rho: float, rels: list):
+    """(cand_slots [B, m_max] int32, keeps: [B, m_max] bool a relation):
+    the selection of :func:`oversample_minor_sums` as the chain of ops
+    computes it, ``oversample_candidates_values``, then per relation
+    ``oversample_keep``, the hub rows' mask and ``dedup_minor_keep``."""
+    cand_ids, cand_valid, _, cand_slots = oversample_candidates_values(
+        center_s0, tp_s0, train_pos, train_pos_valid, m_max)
+    keeps = []
+    for rel, nbr, keep in rels:
+        keep_minor = oversample_keep(rel, batch, batch_labels, cand_valid, rho)
+        if rel.has_hubs:
+            # the hub lane takes the hub rows' minors
+            keep_minor = keep_minor & ~(rel.deg[batch]
+                                        > rel.window_width)[:, None]
+        if nbr is None:
+            nbr = rel.nbr2d[batch]
+        keeps.append(dedup_minor_keep(nbr, keep, rel.num_nodes, cand_ids,
+                                      keep_minor))
+    return cand_slots, keeps
+
+
+def oversample_minor_sums_plain(center_s0: torch.Tensor, tp_s0: torch.Tensor,
+                                train_pos: torch.Tensor,
+                                train_pos_valid: torch.Tensor,
+                                tp_rows: torch.Tensor, m_max: int,
+                                batch: torch.Tensor,
+                                batch_labels: torch.Tensor, rho: float,
+                                rels: list, sums: list) -> None:
+    """The plain version of :func:`oversample_minor_sums`, the chain of ops
+    it replaces: :func:`oversample_minor_keeps`, then
+    ``minor_sum_compact_multi``; each relation's sums are added into its
+    pair of ``sums``."""
+    cand_slots, keeps = oversample_minor_keeps(
+        center_s0, tp_s0, train_pos, train_pos_valid, m_max, batch,
+        batch_labels, rho, rels)
+    minors = minor_sum_compact_multi(tp_rows, cand_slots, keeps)
+    for (num, cnt), (m_num, m_cnt) in zip(sums, minors):
+        num.add_(m_num)
+        cnt.add_(m_cnt)
+
+
+def oversample_minor_sums(center_s0: torch.Tensor, tp_s0: torch.Tensor,
+                          train_pos: torch.Tensor,
+                          train_pos_valid: torch.Tensor, tp_rows: torch.Tensor,
+                          m_max: int, batch: torch.Tensor,
+                          batch_labels: torch.Tensor, rho: float, rels: list,
+                          sums: list, *, ranked: tuple,
+                          view: tuple | None = None) -> None:
+    """Add the oversampled minors of every relation into its choose sums,
+    in place: each relation's (num [B, F] float32, cnt [B] float32) of
+    ``sums``, which nothing differentiates.
+
+    ``center_s0`` [B] holds the centers' selection scores; ``tp_s0``,
+    ``train_pos`` and ``train_pos_valid`` [P] the train positives' scores,
+    node ids and valid flags, ``tp_rows`` [P, F] their exact feature rows;
+    ``m_max`` bounds the minors a row takes (``PCGNN.minor_window``).
+    ``rels`` holds one (rel, nbr, keep) a relation: the relation's
+    ``RelGraph`` (``ksample``, ``deg``, the hub cap and, where ``nbr`` is
+    None, ``nbr2d``), the rows' neighbor ids [B, d] (None: ``nbr2d`` at
+    ``batch``) and their choose keep mask [B, d].  A fraud-labeled row
+    (``batch_labels`` 1) takes, in each relation, its first
+    ``int(ksample * rho)`` candidates of the ``m_max`` nearest train
+    positives by |score difference|, lowest slot first among ties
+    (``oversample_candidates_values``), none on a hub row (the hub lane
+    takes those), and drops those that are kept neighbors; ``num`` adds
+    their rows, ``cnt`` their count.  ``ranked`` is the step's one sort of
+    the train positives, :func:`rank_train_positives` (the hub lane reads
+    it too; the plain version sorts in its own chain); ``view`` is a
+    test's view of the kernel's selection (``oversample_minors.launch``).
+
+    On a CUDA tensor the wrapper launches the hand-written kernel
+    (``ops.oversample_minors``, ``csrc/oversample_minors.cu``) or raises;
+    on a CPU tensor it takes :func:`oversample_minor_sums_plain`.  It
+    reads nothing back from the card.  The kernel selects the same minors
+    and counts them to the bit; its sums add the same rows in another
+    order.
+    """
+    b = int(center_s0.shape[0])
+    p = int(train_pos.shape[0])
+    if len(rels) != len(sums) or tp_rows.dim() != 2 or m_max < 1:
+        raise ValueError(f"oversample_minor_sums: {len(rels)} relations, "
+                         f"{len(sums)} sums, rows {tuple(tp_rows.shape)}, "
+                         f"m_max {m_max}")
+    f = int(tp_rows.shape[1])
+    shapes = [tp_s0.shape, train_pos_valid.shape, tp_rows.shape[:1]]
+    if (any(s != (p,) for s in shapes) or batch.shape != (b,)
+            or batch_labels.shape != (b,)):
+        raise ValueError("oversample_minor_sums: the train positives' or "
+                         "the batch's arguments differ in length")
+    for (_, nbr, keep), (num, cnt) in zip(rels, sums):
+        if (keep.dim() != 2 or keep.shape[0] != b or num.shape != (b, f)
+                or cnt.shape != (b,)
+                or (nbr is not None and nbr.shape != keep.shape)):
+            raise ValueError(
+                f"oversample_minor_sums: keep {tuple(keep.shape)}, nbr "
+                f"{None if nbr is None else tuple(nbr.shape)}, num "
+                f"{tuple(num.shape)} and cnt {tuple(cnt.shape)} for B={b}, "
+                f"F={f}")
+    if center_s0.device.type == "cpu":
+        oversample_minor_sums_plain(center_s0, tp_s0, train_pos,
+                                    train_pos_valid, tp_rows, m_max, batch,
+                                    batch_labels, rho, rels, sums)
+        return
+    if center_s0.device.type != "cuda":
+        raise ValueError(f"oversample_minor_sums: unsupported device "
+                         f"{center_s0.device}")
+    sp_sorted, order = ranked
+    if (tp_rows.dtype != torch.float32 or tp_rows.stride(1) != 1
+            or center_s0.dtype != torch.float32
+            or sp_sorted.dtype != torch.float32 or p >= 2 ** 31):
+        raise ValueError("oversample_minor_sums: scores and rows need "
+                         "float32, rows unit column stride, P < 2^31")
+    args = []
+    for (rel, nbr, keep), (num, cnt) in zip(rels, sums):
+        ids = rel.nbr2d if nbr is None else nbr
+        if (ids is None or ids.dtype != torch.int32 or ids.stride(1) != 1
+                or ids.shape[1] < keep.shape[1]
+                or keep.dtype != torch.bool or keep.stride(1) != 1
+                or rel.ksample.dtype != torch.int32
+                or rel.deg.dtype != torch.int32
+                or not (num.is_contiguous() and cnt.is_contiguous())
+                or num.dtype != torch.float32 or cnt.dtype != torch.float32
+                or num.requires_grad or cnt.requires_grad):
+            raise ValueError(
+                "oversample_minor_sums: a relation needs int32 ids and "
+                "bool keep with unit column stride, int32 ksample and deg, "
+                "and contiguous float32 sums that no gradient reads")
+        args.append((ids, nbr is None, keep, rel.ksample.contiguous(),
+                     rel.deg.contiguous(),
+                     rel.window_width if rel.has_hubs else -1, num, cnt))
+    if b and args:
+        chunk = 0 if 2 * m_max >= p else max(128, _round_up(2 * m_max, 128))
+        oversample_minors.launch(
+            center_s0.detach().contiguous(), sp_sorted.contiguous(),
+            order.to(torch.int64).contiguous(),
+            train_pos.to(torch.int64).contiguous(), tp_rows.detach(), chunk,
+            m_max, batch.to(torch.int64).contiguous(),
+            batch_labels.to(torch.int64).contiguous(), float(rho), args,
+            view)
 
 
 def dedup_threshold(m: torch.Tensor, fraud: torch.Tensor, n_valid,

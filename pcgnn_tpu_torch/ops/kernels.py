@@ -22,8 +22,8 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 # every kernel source of the package, by name (csrc/<name>.cu)
-KERNELS = ("choose_window", "gather_probe", "mask_build", "ragged_gather",
-           "window_gather")
+KERNELS = ("choose_window", "gather_probe", "mask_build",
+           "oversample_minors", "ragged_gather", "window_gather")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -75,13 +75,15 @@ def launch_counts() -> dict:
     """Every kernel wrapper's launch count, by kernel name; the window
     gathers with ``active`` (kernel 1c, the sharded store lane) also
     apart, as ``window_gather_masked``."""
-    from pcgnn_tpu_torch.ops import (choose_window, mask_build, ragged_gather,
+    from pcgnn_tpu_torch.ops import (choose_window, mask_build,
+                                     oversample_minors, ragged_gather,
                                      window_gather)
     return {"window_gather": window_gather.launches,
             "window_gather_masked": window_gather.masked_launches,
             "ragged_gather": ragged_gather.launches,
             "mask_build": mask_build.launches,
-            "choose_window": choose_window.launches}
+            "choose_window": choose_window.launches,
+            "oversample_minors": oversample_minors.launches}
 
 
 # libcuda, for the node count of a capture in progress

@@ -350,6 +350,142 @@ def test_choose_kernel_equals_plain(card, case):
         assert torch.isnan(scores[~scored]).all()
 
 
+_OVERSAMPLE_CASES = {
+    # case: (rows, F, relation widths, train positives P, m_max, the hub
+    # cap of the relation that width, the ids: "table" (nbr2d read at the
+    # batch, the store lanes) or "rows" ([B, D], the CSR lane))
+    "yelpchi": (1024, 32, (17, 49, 200), 2600, 50, None, "table"),
+    "amazon": (256, 25, (52, 700, 205), 330, 175, None, "table"),
+    "hubs": (1024, 32, (17, 49, 192), 2600, 48, 192, "table"),
+    "stress": (1024, 64, (36, 23, 14), 200_000, 9, None, "rows"),
+    # a window of 12,032 entries, past a block's shared memory; F past a
+    # block's threads; five relations, two launches
+    "spill": (16, 300, (40, 9, 3, 77, 20), 20_000, 3000, None, "rows"),
+}
+
+
+def _oversample_inputs(card, case, seed):
+    """One step's arguments of ``oversample_minor_sums`` for ``case``:
+    train positives (a twentieth invalid) whose scores take few values
+    (ties on both sides of a center), centers at valid train positives'
+    scores (some 1e-3 off), random labels (rows 0-7 fraud), and per
+    relation a neighbor table whose first column holds each batch row's
+    center's train positive and two more columns train positives (kept
+    neighbors among the candidates), random degrees (a relation with a
+    hub cap has rows past it), sample counts and keep masks, and its
+    sums.  Values are bfloat16 values in [0.5, 2), so every sum of them
+    here is exact in float32."""
+    from pcgnn_tpu_torch.graph.csr import RelGraph
+    rows_b, f, widths, p, m_max, hub_cap, ids_form = _OVERSAMPLE_CASES[case]
+    gen = torch.Generator(device=card).manual_seed(seed)
+
+    def ints(hi, shape, dtype=torch.int64):
+        return torch.randint(0, hi, shape, generator=gen, device=card,
+                             dtype=dtype)
+
+    def halves(shape):
+        return (torch.rand(shape, generator=gen, device=card) + 0.5).to(
+            torch.bfloat16).float()
+
+    n = max(4 * p, 50_000)
+    tp = torch.randperm(n, generator=gen, device=card)[:p]
+    tpv = torch.rand(p, generator=gen, device=card) < 0.95
+    tp_s0 = ints(max(p // 8, 4), (p,)).float() / 97
+    tp_rows = halves((p, f))
+    batch = torch.randperm(n, generator=gen, device=card)[:rows_b]
+    labels = ints(2, (rows_b,))
+    labels[:8] = 1
+    valid = torch.nonzero(tpv)[:, 0]
+    near = valid[ints(len(valid), (rows_b,))]
+    center = tp_s0[near].clone()
+    center[::3] += 1e-3
+    z = torch.zeros(1, dtype=torch.int32, device=card)
+    rels, sums = [], []
+    for d in widths:
+        nbr2d = ints(n + 1, (n, d), torch.int32)
+        nbr2d[:, 1: 3] = tp[ints(p, (n, min(2, d - 1)))].int()
+        nbr2d[batch, 0] = tp[near].int()
+        cap = hub_cap if d == hub_cap else None
+        rel = RelGraph(indptr=z, col=z, deg=ints(d + 9, (n,), torch.int32),
+                       keff=z, ksample=ints(2 * m_max + 4, (n,), torch.int32),
+                       num_nodes=n, num_edges=0, dmax=d + 8 if cap else d,
+                       dcap=d, nbr2d=nbr2d)
+        keep = torch.rand((rows_b, d), generator=gen, device=card) < 0.6
+        rels.append((rel, nbr2d[batch] if ids_form == "rows" else None,
+                     keep))
+        sums.append((halves((rows_b, f)), ints(9, (rows_b,)).float()))
+    return (center, tp_s0, tp, tpv, tp_rows, m_max, batch, labels, rels,
+            sums)
+
+
+@pytest.mark.parametrize("case", sorted(_OVERSAMPLE_CASES))
+def test_oversample_kernel_equals_plain(card, case):
+    """The oversample kernel against its plain version (the chain of ops
+    it replaced), on the card: each fraud row's candidates in (distance,
+    slot) order and each relation's minors taken equal the chain's
+    selection exactly, counts are equal and sums (exact here) within rtol
+    1e-6; a second launch repeats every bit, launches are counted (one a
+    four relations) and make no host sync, and rows that are not fraud
+    centers, hub rows and duplicates of kept neighbors take nothing."""
+    from pcgnn_tpu_torch.ops import aggregate as agg
+    from pcgnn_tpu_torch.ops import kernels
+    from pcgnn_tpu_torch.ops import oversample_minors as om
+    (center, tp_s0, tp, tpv, tp_rows, m_max, batch, labels, rels,
+     sums) = _oversample_inputs(card, case, seed=11)
+    args = (center, tp_s0, tp, tpv, tp_rows, m_max, batch, labels, 0.5,
+            rels)
+    want = [(num.clone(), cnt.clone()) for num, cnt in sums]
+    agg.oversample_minor_sums_plain(*args, want)
+    cand_slots, keeps = agg.oversample_minor_keeps(*args[:4], m_max, batch,
+                                                   labels, 0.5, rels)
+    r = len(rels)
+    views = [(torch.full((len(batch), m_max), -1, dtype=torch.int32,
+                         device=card),
+              torch.zeros((r, len(batch), m_max), dtype=torch.bool,
+                          device=card)) for _ in range(2)]
+    got = [[(num.clone(), cnt.clone()) for num, cnt in sums]
+           for _ in range(2)]
+    ranked = agg.rank_train_positives(tp_s0, tpv)
+    before = om.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for out, view in zip(got, views):
+            agg.oversample_minor_sums(*args, out, ranked=ranked, view=view)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert om.launches == before + 2 * -(-r // 4)
+    for (num, cnt), (wn, wc) in zip(got[0], want):
+        assert torch.equal(cnt, wc), case
+        torch.testing.assert_close(num, wn, rtol=1e-6, atol=0)
+    assert all(torch.equal(a, b) for x, y in zip(*got)
+               for a, b in zip(x, y))
+    # the selection itself: the minors each relation took, and the slots
+    # of the candidates any relation took, in the chain's order
+    slots, taken = views[0]
+    assert torch.equal(taken, torch.stack(keeps)), case
+    some = taken.any(0)
+    assert torch.equal(slots[some], cand_slots[some]), case
+    assert torch.equal(views[1][0], slots) and torch.equal(views[1][1], taken)
+    # the cases are there
+    lib = kernels.load("oversample_minors")
+    om._bind(lib)
+    c = 0 if 2 * m_max >= len(tp) else max(128, -(-2 * m_max // 128) * 128)
+    assert (lib.oversample_minors_scratch(len(tp), c, m_max) > 0) == (
+        case == "spill")
+    assert (c == 0) == (case == "amazon")
+    fraud = labels == 1
+    assert some[fraud].any() and not taken[:, ~fraud].any()
+    for (rel, _, _), k in zip(rels, keeps):
+        if rel.has_hubs:
+            hub = rel.deg[batch] > rel.window_width
+            assert hub[fraud].any() and not k[hub].any()
+    no_dedup = agg.oversample_minor_keeps(
+        *args[:4], m_max, batch, labels, 0.5,
+        [(rel, nbr, torch.zeros_like(keep)) for rel, nbr, keep in rels])[1]
+    assert any((a & ~b).any() for a, b in zip(no_dedup, keeps)), case
+
+
 @pytest.mark.parametrize("d", [1, 100, 128, 512, 1000, 20480])
 @pytest.mark.parametrize("rows", [1, 7, 32, 1024])
 def test_ragged_kernel_equals_plain(card, d, rows):
@@ -1680,6 +1816,10 @@ def test_captured_epochs_equal_eager_bit_for_bit(card, tmp_path, monkeypatch,
     # the store lanes choose in one kernel a relation; no other lane does
     assert per["choose_window"] == (
         3 if lane in ("fused", "relation", "hub") else 0), lane
+    # the lanes that score the gathered windows take a step's minors in
+    # one kernel; the score-table, learned and baseline lanes take none
+    assert per["oversample_minors"] == (
+        1 if lane in ("fused", "relation", "hub", "plain", "csr") else 0), lane
     if lane in ("hub", "hub_no_stores", "gcn_hub", "csr"):
         assert per["ragged_gather"] >= 1
     assert r["pool_bytes"] > 0
@@ -1713,7 +1853,9 @@ def test_replays_run_their_section_map(card, tmp_path, monkeypatch):
     k-th operation of a replay is the map's k-th node; every section of
     the step is there, the hub lane's in the hub lane, the choose kernel
     (one a relation) in ``choose``, and the nodes outside every section
-    take at most 5% of a replay's device time."""
+    take at most 5% of a replay's device time.  Section ``oversample``
+    runs the oversample kernel once and none of the chain it replaced (no
+    reduction, scatter-gather or matrix product)."""
     import collections
 
     from torch.profiler import ProfilerActivity, profile
@@ -1753,12 +1895,22 @@ def test_replays_run_their_section_map(card, tmp_path, monkeypatch):
             [len(names)] * t.num_batches, lane
         ms = collections.Counter()
         choose = collections.Counter()
+        minors = collections.Counter()
+        chain = []
         for ops in second:
             for name, (_, dur, kernel) in zip(names, sorted(ops)):
                 ms[name] += dur
                 if "choose_window_kernel" in kernel:
                     choose[name] += 1
+                if "oversample_minors_kernel" in kernel:
+                    minors[name] += 1
+                if name == "oversample" and any(
+                        k in kernel for k in ("reduce_kernel", "scatter_gather",
+                                              "gemm", "gemv")):
+                    chain.append(kernel)
         assert choose == {"choose": 3 * t.num_batches}, (lane, choose)
+        assert minors == {"oversample": t.num_batches}, (lane, minors)
+        assert not chain, (lane, chain)
         want = {"io", "gather", "choose", "oversample", "dense", "backward",
                 "adam"} | ({"hub"} if lane == "hub" else set())
         assert set(ms) - {"other"} == want, lane

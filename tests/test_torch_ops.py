@@ -254,3 +254,135 @@ def test_choose_window_sum_launches_nothing_on_the_cpu():
     logits, _ = model(g, torch.arange(64), None, train=False)
     assert logits.shape == (64, 2)
     assert launch_counts() == before and "choose_window" in before
+
+
+def _minor_case(form, seed):
+    """Inputs of one step's oversampled minors: train positives (a tenth
+    invalid) whose scores take few values (``bf16``: scores of
+    bfloat16-rounded rows, many of them equal), centers at those values
+    (ties in distance on both sides of a center), random labels, and three
+    relations whose neighbors include train positives, each row's first
+    the one at its center's score (candidates that are kept neighbors):
+    relation 0 has hub rows past its cap,
+    relation 1 reads its ids through ``nbr2d`` at the batch, relation 2
+    hands them as [B, D] rows."""
+    p, m_max, levels = {"windowed": (1000, 53, 97), "ties": (300, 7, 40),
+                        "dense": (40, 20, 7), "padded": (10, 6, 5),
+                        "bf16": (700, 60, 0)}[form]
+    rng = np.random.default_rng(seed)
+    n, b, f = 3000, 48, 6
+    tp = rng.choice(n, p, replace=False).astype(np.int64)
+    tpv = rng.random(p) < 0.9
+    rows = rng.uniform(0.5, 1.5, (p, f)).astype(np.float32)
+    if form == "bf16":
+        rows = (rows[rng.integers(0, 40, p)]
+                + rng.choice(np.float32([0, 2.0 ** -12]), (p, f)))
+        w0 = rng.normal(size=f).astype(np.float32)
+        s0 = tagg.selection_score(
+            torch.from_numpy(rows).to(torch.bfloat16).to(torch.float32),
+            torch.from_numpy(w0), torch.tensor(0.25)).numpy()
+    else:
+        s0 = (rng.integers(0, levels, p) / levels).astype(np.float32)
+    # each center at a valid train positive's score, which is a neighbor
+    near = rng.choice(np.flatnonzero(tpv), b)
+    center = s0[near] + rng.choice(np.float32([0, 0, 1e-3]), b)
+    batch = rng.choice(n, b, replace=False).astype(np.int64)
+    labels = rng.integers(0, 2, b).astype(np.int64)
+    labels[:4] = 1
+    rels = []
+    for r in range(3):
+        d = int(rng.integers(5, 40))
+        nbr2d = rng.integers(0, n + 1, (n, d)).astype(np.int32)
+        nbr2d[:, 1:3] = rng.choice(tp, (n, 2))
+        nbr2d[batch, 0] = tp[near]
+        deg = rng.integers(0, d + 6, n).astype(np.int32)
+        ksample = rng.integers(0, 2 * m_max + 4, n).astype(np.int32)
+        keep = rng.random((b, d)) < 0.6
+        rels.append((nbr2d, deg, ksample, keep, d if r == 0 else None))
+    return (center.astype(np.float32), s0, tp, tpv, rows, m_max, batch,
+            labels, rels)
+
+
+@pytest.mark.parametrize("form", ["windowed", "ties", "dense", "padded",
+                                  "bf16"])
+def test_oversample_minor_sums_match_jax(form):
+    """``oversample_minor_sums`` (its plain version on the CPU) against the
+    JAX package's chain on the same inputs: ``oversample_candidates_values``
+    -> ``oversample_keep`` (hub rows masked) -> ``dedup_minor_keep`` ->
+    ``minor_sum_compact_multi``, added to each relation's sums.  Counts are
+    exact, sums within rtol 1e-6 (positive values).  The windowed form
+    (2 m_max < P) and the dense one, non-fraud rows, hub rows, ties and
+    kept neighbors among the candidates are all there."""
+    from pcgnn_tpu_torch.graph.csr import RelGraph
+    (center, s0, tp, tpv, rows, m_max, batch, labels,
+     rels) = _minor_case(form, seed=len(form))
+    rho = 0.5
+    b, f = len(batch), rows.shape[1]
+    cand_ids, cand_valid, _, cand_slots = jagg.oversample_candidates_values(
+        jnp.asarray(center), jnp.asarray(s0), jnp.asarray(tp, jnp.int32),
+        jnp.asarray(tpv), m_max)
+    rng = np.random.default_rng(1)
+    keeps, trels, sums, base = [], [], [], []
+    for r, (nbr2d, deg, ksample, keep, cap) in enumerate(rels):
+        km = jagg.oversample_keep(None, None, jnp.asarray(labels), cand_valid,
+                                  rho, ksample_b=jnp.asarray(ksample[batch]))
+        if cap is not None:
+            km = km & ~jnp.asarray(deg[batch] > cap)[:, None]
+        dedup = jagg.dedup_minor_keep(
+            jnp.asarray(nbr2d[batch]), jnp.asarray(keep), len(deg),
+            cand_ids, km)
+        if r == 0:
+            # candidates that are kept neighbors are there, and dropped
+            assert (np.asarray(dedup) != np.asarray(km)).any()
+        keeps.append(dedup)
+        z = torch.zeros(1, dtype=torch.int32)
+        rel = RelGraph(
+            indptr=z, col=z, deg=torch.from_numpy(deg), keff=z,
+            ksample=torch.from_numpy(ksample), num_nodes=len(deg),
+            num_edges=0, dmax=nbr2d.shape[1] + 6,
+            dcap=cap if cap is not None else nbr2d.shape[1] + 6,
+            nbr2d=torch.from_numpy(nbr2d))
+        assert rel.has_hubs == (cap is not None)
+        ids = None if r == 1 else torch.from_numpy(nbr2d[batch])
+        trels.append((rel, ids, torch.from_numpy(keep)))
+        num0 = rng.uniform(0.5, 1.5, (b, f)).astype(np.float32)
+        cnt0 = rng.integers(0, 9, b).astype(np.float32)
+        base.append((num0, cnt0))
+        sums.append((torch.from_numpy(num0.copy()),
+                     torch.from_numpy(cnt0.copy())))
+    want = jagg.minor_sum_compact_multi(jnp.asarray(rows), cand_slots, keeps)
+    s0_t, tpv_t = torch.from_numpy(s0), torch.from_numpy(tpv)
+    tagg.oversample_minor_sums(
+        torch.from_numpy(center), s0_t, torch.from_numpy(tp), tpv_t,
+        torch.from_numpy(rows), m_max, torch.from_numpy(batch),
+        torch.from_numpy(labels), rho, trels, sums,
+        ranked=tagg.rank_train_positives(s0_t, tpv_t))
+    for (num, cnt), (num0, cnt0), (mn, mc) in zip(sums, base, want):
+        np.testing.assert_array_equal(cnt.numpy(), cnt0 + np.asarray(mc))
+        np.testing.assert_allclose(num.numpy(), num0 + np.asarray(mn),
+                                   rtol=1e-6)
+        # non-fraud rows take no minor
+        assert (cnt.numpy()[labels != 1] == cnt0[labels != 1]).all()
+    # hub rows of relation 0 take none; fraud rows elsewhere take some
+    hub = rels[0][1][batch] > rels[0][4]
+    assert hub.any() and (np.asarray(want[0][1])[hub] == 0).all()
+    assert (np.asarray(want[1][1]) > 0).any()
+    if form == "bf16":
+        assert len(np.unique(s0)) < len(s0) // 4      # many equal scores
+    assert (2 * m_max < len(tp)) == (form in ("windowed", "ties", "bf16"))
+
+
+def test_oversample_minor_sums_launch_nothing_on_the_cpu():
+    """A CPU training forward through the store lane takes the plain
+    version: ``launch_counts()["oversample_minors"]`` stays put."""
+    from pcgnn_tpu_torch.models.pcgnn import PCGNN
+    from pcgnn_tpu_torch.train.capture import launch_counts
+    g = _grid_graph("tiny", "bfloat16")
+    model = PCGNN(g.feat_dim, 8, g.num_relations, alpha=2.0, rho=0.5,
+                  generator=torch.Generator().manual_seed(0))
+    tp = torch.nonzero(g.labels == 1)[:, 0]
+    before = launch_counts()
+    loss = model.loss(g, torch.arange(64), g.labels[:64], train_pos=tp,
+                      train_pos_valid=torch.ones_like(tp, dtype=torch.bool))
+    assert torch.isfinite(loss)
+    assert launch_counts() == before and "oversample_minors" in before
