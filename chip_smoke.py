@@ -3596,13 +3596,10 @@ def nccl_phase(t, card: str) -> dict:
     where every collective is elided, so its captured step is one piece
     with no collective, and ``SHARD_CAPTURE_STEPS`` captured steps equal
     the single-rank trainer's captured steps exactly (losses and
-    parameters).  The single rank's steps are captured summing their
-    oversampled minors with the chain of ops, as the sharded step does
-    (``spmd_overhead.minors_in_chain``); the oversample kernel is held
-    against the chain in phase 31."""
+    parameters): both add their oversampled minors with the oversample
+    kernel."""
     import torch.distributed as dist
 
-    from pcgnn_tpu_torch.benchmarks.spmd_overhead import minors_in_chain
     from pcgnn_tpu_torch.parallel.distributed import init_distributed
     from pcgnn_tpu_torch.train.trainer import Trainer
     from pcgnn_tpu_torch.utils.multiproc import free_port
@@ -3620,14 +3617,12 @@ def nccl_phase(t, card: str) -> dict:
         if rank.mesh.backend != "nccl" or rank.mesh.size != 1:
             raise AssertionError(f"the NCCL rank's mesh is {rank.mesh}")
         got = []
-        with minors_in_chain():
-            for tr in (t, rank):
-                model = tr.new_model()
-                opt = tr.new_optimizer(model)
-                r = tr.runner(model, opt)
-                loss = r.run(*capture_stack(tr, SHARD_CAPTURE_STEPS))
-                got.append((loss, [p.detach() for p in model.parameters()],
-                            r))
+        for tr in (t, rank):
+            model = tr.new_model()
+            opt = tr.new_optimizer(model)
+            r = tr.runner(model, opt)
+            loss = r.run(*capture_stack(tr, SHARD_CAPTURE_STEPS))
+            got.append((loss, [p.detach() for p in model.parameters()], r))
         exact = bool(torch.equal(got[0][0], got[1][0]) and all(
             torch.equal(a, b) for a, b in zip(got[0][1], got[1][1])))
         r = got[1][2]

@@ -13,13 +13,11 @@ the same graph, batch and yelp-like configuration, both through
 steps a call.  The sharded trainer is
 configured as a ``distributed: true`` rank is: bf16 sharded edge-window
 stores and the sharded fused record table.  The first call of each, from
-the same initial weights, must return the same loss (the 1-rank group
-elides every collective).  The single step is captured summing its
-oversampled minors with the chain of ops (``minors_in_chain``), in the
-order the sharded step adds them, so the two are held bit for bit and
-differ only in structure.  Each is then timed twice, in turns, and the
-difference of their mean step times is the cost of the sharded program's
-structure.
+the same initial weights, must return the same loss bit for bit (the
+1-rank group elides every collective, and both add their oversampled minors
+with the oversample kernel), so the two differ only in structure.  Each is
+then timed twice, in turns, and the difference of their mean step times is
+the cost of the sharded program's structure.
 
 The process joins a process group and leaves it before it exits: run it
 as a process of its own.  Prints one JSON line with the JAX script's keys,
@@ -29,7 +27,6 @@ the two losses and the card's name and power limit.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import sys
 
@@ -38,28 +35,6 @@ import torch
 
 from pcgnn_tpu_torch.benchmarks import card_line
 from pcgnn_tpu_torch.utils import roofline
-
-
-@contextlib.contextmanager
-def minors_in_chain():
-    """Within it, ``PCGNN.forward`` adds a training step's oversampled
-    minors with the chain of ops
-    (``ops.aggregate.oversample_minor_sums_plain``) in place of the
-    oversample kernel: the same minors, summed in the order of the sharded
-    step (``parallel.spmd``), which keeps the chain.  A step captured
-    within it replays the chain after it."""
-    from pcgnn_tpu_torch.models import pcgnn
-    from pcgnn_tpu_torch.ops import aggregate as agg
-
-    def chain(*args, ranked, view=None):
-        agg.oversample_minor_sums_plain(*args)
-
-    kernel = pcgnn.oversample_minor_sums
-    pcgnn.oversample_minor_sums = chain
-    try:
-        yield
-    finally:
-        pcgnn.oversample_minor_sums = kernel
 
 
 def run(preset: str = "yelp-like", batch_size: int = 1024, nscan: int = 16,
@@ -88,8 +63,7 @@ def run(preset: str = "yelp-like", batch_size: int = 1024, nscan: int = 16,
     model = t.new_model()
     fn, fargs = t.single_step(model, t.new_optimizer(model), batch, y, w,
                               nscan=nscan)
-    with minors_in_chain():
-        loss_single = fn(*fargs)
+    loss_single = fn(*fargs)
 
     backend = "nccl" if dev.type == "cuda" else "gloo"
     sharded = dict(cfg, distributed=True, dist_backend=backend,

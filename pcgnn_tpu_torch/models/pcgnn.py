@@ -6,18 +6,18 @@ Counterpart of ``pcgnn_tpu/models/pcgnn.py``, with its lanes:
     (``graph.csr.attach_edge_windows``), read as fused records (one fetch
     per batch row for all relations) or per relation (one fetch each);
     each relation's selection scores, choose and kept-row sum come from
-    the fetched rows in one kernel (``ops.aggregate.choose_window_sum``),
-    and a training step's oversampled minors of every relation from one
-    more (``ops.aggregate.oversample_minor_sums``, also in the CSR lane
-    below);
+    the fetched rows in one kernel (``ops.aggregate.choose_window_sum``);
   * score-table lane: a graph without a store on every relation, under
     ``SCORE_FROM_WINDOW_MIN_NODES`` nodes, builds one [N] selection-score
     table per step and gathers ``[x ; s0 (; train-positive indicator)]``
-    rows by neighbor id, minors by candidate id (``minor_sum``);
+    rows by neighbor id;
   * score-from-window without full coverage (stress scale): a relation
     with a store reads it, one without gathers rows by neighbor id from the
     dense table or, without one, from the CSR through the ragged gather,
     and scores them.
+
+In each of these lanes a training step's oversampled minors of every
+relation come from one more kernel (``ops.aggregate.oversample_minor_sums``).
 
 Rows above a relation's window cap (hubs, on heavy-tailed graphs) go through
 the hub lane (``ops.hub``), which reads their full CSR edge tails.  With
@@ -54,10 +54,8 @@ from pcgnn_tpu_torch.ops.aggregate import (
     batch_raw_window,
     batch_record_window,
     choose_window_sum,
-    dedup_minor_keep,
     keep_nearest,
     masked_mean_aggregate,
-    minor_sum,
     oversample_candidates_values,
     oversample_keep,
     oversample_minor_sums,
@@ -224,13 +222,9 @@ class PCGNN(nn.Module):
             tp_s0 = (selection_score(sel_round(tp_rows_f), w0, b0)
                      if score_from_window else s0[train_pos])
             section("oversample")
-            if score_from_window or any_hub:
-                # one sort of the train positives' scores a step: the
-                # minors' windows and the hub lane's band read it
-                ranked = rank_train_positives(tp_s0, train_pos_valid)
-            if not score_from_window:
-                cand_ids, cand_valid, _, _ = oversample_candidates_values(
-                    center_s0, tp_s0, train_pos, train_pos_valid, m_max)
+            # one sort of the train positives' scores a step: the minors'
+            # windows and the hub lane's band read it
+            ranked = rank_train_positives(tp_s0, train_pos_valid)
             if any_hub:
                 # hub rows' minor requests can reach the whole candidate
                 # pool, so the hub lane selects them over the score-sorted
@@ -288,22 +282,9 @@ class PCGNN(nn.Module):
                 section("hub")
                 num = torch.where(is_hub[:, None], h_num, num)
                 cnt = torch.where(is_hub, h_cnt, cnt)
-            if train and score_from_window:
+            if train:
                 # the unclamped ids: a clamped sentinel must not match
                 minor_rels.append((rel, nbr, keep))
-            elif train:
-                section("oversample")
-                keep_minor = oversample_keep(rel, batch, batch_labels,
-                                             cand_valid, self.rho)
-                if rel.has_hubs:
-                    # the hub lane selected, summed and de-duplicated the
-                    # hub rows' minors; their window keep is empty
-                    keep_minor = keep_minor & ~is_hub[:, None]
-                # the unclamped ids: a clamped sentinel must not match
-                keep_minor = dedup_minor_keep(nbr, keep, n, cand_ids,
-                                              keep_minor)
-                m_num, m_cnt = minor_sum(xs, cand_ids, keep_minor, f)
-                num, cnt = num + m_num, cnt + m_cnt
             rel_sums.append((num, cnt))
 
         if minor_rels:

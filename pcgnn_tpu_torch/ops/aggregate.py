@@ -469,25 +469,6 @@ def window_mean_aggregate(nbr: torch.Tensor, keep: torch.Tensor,
     return _normalized(num, cnt, norm)
 
 
-def minor_sum(xs_padded: torch.Tensor, cand_ids: torch.Tensor,
-              keep_minor: torch.Tensor, f: int):
-    """(num [B, f], cnt [B]) of the selected oversampled minors, gathered
-    by id from the [N+1, FC] table ``xs_padded`` (the score-table lane's;
-    only its first ``f`` columns sum), in ``MINOR_CHUNK`` column blocks
-    above that width, so the gathered block stays [B, chunk, f]."""
-    b, m = cand_ids.shape
-    xs = xs_padded.detach()
-    ids = cand_ids.detach().to(torch.int64)
-    num = xs.new_zeros((b, f))
-    cnt = xs.new_zeros((b,))
-    for c0 in range(0, m, MINOR_CHUNK):
-        km = keep_minor[:, c0: c0 + MINOR_CHUNK].detach().to(xs.dtype)
-        num = num + torch.einsum("bm,bmf->bf", km,
-                                 xs[ids[:, c0: c0 + MINOR_CHUNK], :f])
-        cnt = cnt + km.sum(dim=1)
-    return num, cnt
-
-
 def minor_sum_compact_multi(tp_feats: torch.Tensor, cand_slots: torch.Tensor,
                             keeps: list):
     """(num [B, F], cnt [B]) of selected minors for several keep masks
@@ -587,8 +568,10 @@ def oversample_minor_sums(center_s0: torch.Tensor, tp_s0: torch.Tensor,
     ``m_max`` bounds the minors a row takes (``PCGNN.minor_window``).
     ``rels`` holds one (rel, nbr, keep) a relation: the relation's
     ``RelGraph`` (``ksample``, ``deg``, the hub cap and, where ``nbr`` is
-    None, ``nbr2d``), the rows' neighbor ids [B, d] (None: ``nbr2d`` at
-    ``batch``) and their choose keep mask [B, d].  A fraud-labeled row
+    None, ``nbr2d``, all read at ``batch``; the sharded step passes its
+    ``ShardedRel`` and the rows' local indices), the rows' neighbor ids
+    [B, d] (None: ``nbr2d`` at ``batch``) and their choose keep mask
+    [B, d].  A fraud-labeled row
     (``batch_labels`` 1) takes, in each relation, its first
     ``int(ksample * rho)`` candidates of the ``m_max`` nearest train
     positives by |score difference|, lowest slot first among ties

@@ -30,12 +30,17 @@ Per relation one of three lanes, as in the JAX package:
     caller's ``hub_plans`` (one plan a stack of batches,
     :func:`spmd_epoch_hub_plans`), or from the batch's own, read back.
 
-Collectives are batched as in the JAX package: one packed [Bd, 4R]
-metadata sum, one packed keep-minor sum over the fast lanes, one packed
-[Bd, R(F+1)] output sum, plus the self-feature owner pick and, where a
-plain or hub lane needs it, the [N_pad] score all-gather.  Those whose
-inputs exist at the start of the step are issued there and waited at
-first use, with the halo-independent work between (``RankMesh.overlap``,
+In training a row's owner adds the row's oversampled minors of every
+relation, as the single device does (``ops.aggregate.
+oversample_minor_sums``, one kernel on the card), from the replicated
+train-positive rows.
+
+Collectives are batched as in the JAX package: one packed [Bd, 3R]
+metadata sum, one packed [Bd, R(F+1)] output sum, plus the self-feature
+and train-positive owner picks and, where a plain or hub lane needs it,
+the [N_pad] score all-gather.  Those whose inputs exist at the start of
+the step are issued there and waited at first use, with the
+halo-independent work between (``RankMesh.overlap``,
 ``parallel.distributed``: the JAX package's collective overlap).
 
 Gradients: no collective carries one.  Selection is detached and the
@@ -63,12 +68,11 @@ import torch
 from pcgnn_tpu_torch.graph.csr import _build_store, _ref_words_per_slot
 from pcgnn_tpu_torch.ops.aggregate import (
     _INF,
-    MINOR_CHUNK,
     choose_window_sum,
-    dedup_minor_keep,
     keep_nearest,
-    oversample_candidates_values,
-    oversample_keep,
+    oversample_minor_keeps,
+    oversample_minor_sums,
+    rank_train_positives,
     selection_score,
     unpack_window,
     window_sum_from_gathered,
@@ -407,30 +411,6 @@ def block_partials(ids: torch.Tensor, keep: torch.Tensor, col_lo: int,
     return torch.einsum("bd,bdf->bf", w, xg), w.sum(dim=-1)
 
 
-def block_partials_chunked_multi(ids: torch.Tensor, keeps: list,
-                                 col_lo: int, block: int,
-                                 x_local: torch.Tensor,
-                                 chunk: int = MINOR_CHUNK) -> list:
-    """:func:`block_partials` in column blocks of ``chunk`` (the gathered
-    block stays [B, chunk, F] for wide candidate windows), for several keep
-    masks sharing one id window: each block's feature gather runs once and
-    every mask contracts it.  Returns [(num [B, F], cnt [B]), ...]."""
-    b, m = ids.shape
-    x = x_local.detach()
-    ids = ids.detach().to(torch.int64) - col_lo
-    out = [(x.new_zeros((b, x.shape[1])), x.new_zeros((b,))) for _ in keeps]
-    for c0 in range(0, m, chunk):
-        local = ids[:, c0: c0 + chunk]
-        in_block = (local >= 0) & (local < block)
-        xg = x[local.clamp(0, block - 1)]
-        for i, keep in enumerate(keeps):
-            w = (in_block & keep[:, c0: c0 + chunk].detach()).to(x.dtype)
-            num, cnt = out[i]
-            out[i] = (num + torch.einsum("bd,bdf->bf", w, xg),
-                      cnt + w.sum(dim=-1))
-    return out
-
-
 def sharded_raw_window(sh: ShardedRel, starts: torch.Tensor,
                        mine: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[B, ewin_dp] float32 store rows from this rank's LOCAL store block,
@@ -615,7 +595,8 @@ def spmd_forward(model, sg: ShardedGraph, batch: torch.Tensor,
     ``record`` (a dict, for tests) receives each relation's published
     selection: ``kept<r>`` [Bd, D] kept window ids + 1 (0 = none; a fast
     lane publishes them for this with one more graph sum),
-    ``keep_minor<r>`` [Bd, M] over ``cand_ids``, and ``cnt<r>``.
+    ``keep_minor<r>`` [Bd, M] over ``cand_ids`` (the plain selection,
+    ``oversample_minor_keeps``, published with one more), and ``cnt<r>``.
     ``hub_plans`` (one per relation, :func:`spmd_epoch_hub_plans`) fixes
     the hub lanes' chunks, so nothing is read back; None plans this
     batch, one read-back per hub relation.
@@ -662,11 +643,11 @@ def spmd_forward(model, sg: ShardedGraph, batch: torch.Tensor,
     # owner metadata: ONE packed sum for all relations
     cols = []
     for sh in shards:
-        cols += [sh.deg[lclip], sh.keff[lclip], sh.ksample[lclip],
+        cols += [sh.deg[lclip], sh.keff[lclip],
                  sh.hub_idx[lclip] if sh.has_hubs
                  else sh.deg.new_zeros(lclip.shape)]
     meta_h = mesh.owner_pick_async(mine, torch.stack(cols, dim=1),
-                                   "owner_meta")              # [Bd, 4R]
+                                   "owner_meta")              # [Bd, 3R]
     s0_h = None
     if any(sh.ewin is None or sh.has_hubs for sh in shards):
         s0_h = mesh.graph_gather_async(s0_of(x_local), "scores")  # [N_pad]
@@ -706,38 +687,32 @@ def spmd_forward(model, sg: ShardedGraph, batch: torch.Tensor,
     center_scores = self_feats @ clf.w + clf.b
     center_s0 = s0_of(self_feats)
 
-    minor_ctx = tp_block = None
+    minor_ctx = tp_block = ranked = None
     if train:
         tp_feats = train_pos_feats if tp_h is None else tp_h.wait()
         tp_s0 = s0_of(tp_feats)
         m_max = model.minor_window(int(train_pos.shape[0]), shards)
-        cand_ids, cand_valid, _, _ = oversample_candidates_values(
-            center_s0, tp_s0, train_pos, train_pos_valid, m_max)
+        # one sort of the train positives' scores a step: the minors'
+        # windows and the hub lane's band read it
+        ranked = rank_train_positives(tp_s0, train_pos_valid)
         if any(sh.has_hubs for sh in shards):
             tp_rows = torch.where(tp_mine, tp_local.clamp(0, block - 1),
                                   block)
             tp_block = x_local.new_zeros((block + 1,)).index_fill_(
                 0, tp_rows, 1.0)[:block]
-            spv = torch.where(train_pos_valid, tp_s0, _INF)
-            sp_sorted, slot_sorted = torch.sort(spv, stable=True)
-            minor_ctx = (sp_sorted, slot_sorted.to(torch.int32),
-                         tp_feats.detach()[slot_sorted])
+            sp_sorted, order = ranked
+            minor_ctx = (sp_sorted, order.to(torch.int32),
+                         tp_feats.detach()[order])
 
     meta_all = meta_h.wait()
 
-    rel_sums = []       # per relation [num, cnt, keep_minor]
-    km_defer = []       # (relation, owner-local keep-minor) of fast lanes
+    rel_sums = []       # per relation (num, cnt)
+    minor_rels = []     # per relation (shard, neighbor ids, choose keep)
     for r, sh in enumerate(shards):
         d = sh.width
-        deg_b, keff_b, ks_b, hslot = meta_all[:, 4 * r: 4 * r + 4].unbind(1)
+        deg_b, keff_b, hslot = meta_all[:, 3 * r: 3 * r + 3].unbind(1)
         is_hub = deg_b > d if sh.has_hubs else None
         nbr = lanes[r][0]
-        if train:
-            base_minor = oversample_keep(None, None, y, cand_valid, model.rho,
-                                         ksample_b=ks_b)
-            if sh.has_hubs:
-                base_minor = base_minor & ~is_hub[:, None]
-        keep_minor = None
         if sh.ewin is not None:
             # fast lane: the owner chooses and sums its rows' windows, in
             # one kernel (hub rows leave the window)
@@ -750,10 +725,6 @@ def spmd_forward(model, sg: ShardedGraph, batch: torch.Tensor,
             if record is not None:
                 record[f"kept{r}"] = mesh.graph_sum(
                     torch.where(keep, nbr + 1, 0))
-            if train:
-                km = dedup_minor_keep(nbr, keep, n_pad, cand_ids,
-                                      base_minor & mine[:, None])
-                km_defer.append((r, km))
         else:
             # plain lane: publish the kept ids, sum this block's rows
             valid_o = lanes[r][1]
@@ -767,9 +738,7 @@ def spmd_forward(model, sg: ShardedGraph, batch: torch.Tensor,
             if record is not None:
                 record[f"kept{r}"] = enc
             num, cnt = block_partials(kept_ids, kept, col_lo, block, x_local)
-            if train:
-                keep_minor = dedup_minor_keep(kept_ids, kept, n_pad,
-                                              cand_ids, base_minor)
+            nbr, keep = kept_ids, kept
         if sh.has_hubs:
             h_num, h_cnt = spmd_hub_sum(
                 sh, mesh, is_hub, deg_b, hslot, s0_h.wait(), center_s0,
@@ -777,29 +746,30 @@ def spmd_forward(model, sg: ShardedGraph, batch: torch.Tensor,
                 labels=y, rho=model.rho,
                 plan=None if hub_plans is None else hub_plans[r])
             num, cnt = num + h_num, cnt + h_cnt     # disjoint row sets
-        rel_sums.append([num, cnt, keep_minor])
+        rel_sums.append((num, cnt))
+        minor_rels.append((sh, nbr, keep))
 
-    if train and km_defer:
-        # ONE sum publishes every fast lane's keep-minor mask
-        m_w = cand_ids.shape[1]
-        packed = mesh.graph_sum(torch.cat(
-            [km.to(torch.int32) for _, km in km_defer], dim=1)) > 0
-        for j, (r, _) in enumerate(km_defer):
-            rel_sums[r][2] = packed[:, j * m_w: (j + 1) * m_w]
-    if train and record is not None:
-        record["cand_ids"] = cand_ids
-        for r, st in enumerate(rel_sums):
-            record[f"keep_minor{r}"] = st[2]
     if train:
-        # minors: one chunked block gather, one contraction per relation
-        parts = block_partials_chunked_multi(
-            cand_ids, [st[2] for st in rel_sums], col_lo, block, x_local)
-        rel_sums = [[num + mn, cnt + mc, None]
-                    for (num, cnt, _), (mn, mc) in zip(rel_sums, parts)]
+        # the single device's minors at the owned rows (local indices):
+        # only a row's owner adds them, so the packed sum counts them once
+        y_owned = torch.where(mine, y, 0)
+        if record is not None:
+            slots, keeps = oversample_minor_keeps(
+                center_s0, tp_s0, train_pos, train_pos_valid, m_max, lclip,
+                y_owned, model.rho, minor_rels)
+            record["cand_ids"] = train_pos.to(torch.int32)[slots]
+            m_w = slots.shape[1]
+            pub = mesh.graph_sum(torch.cat(
+                [k.to(torch.int32) for k in keeps], dim=1)) > 0
+            for r in range(len(keeps)):
+                record[f"keep_minor{r}"] = pub[:, r * m_w: (r + 1) * m_w]
+        oversample_minor_sums(
+            center_s0, tp_s0, train_pos, train_pos_valid, tp_feats, m_max,
+            lclip, y_owned, model.rho, minor_rels, rel_sums, ranked=ranked)
 
     # ONE packed sum completes every relation's sums
     packed = mesh.graph_sum(torch.cat(
-        [torch.cat([num, cnt[:, None]], dim=1) for num, cnt, _ in rel_sums],
+        [torch.cat([num, cnt[:, None]], dim=1) for num, cnt in rel_sums],
         dim=1))                                                  # [Bd, R(F+1)]
     rel_embs = []
     for r, layer in enumerate(model.intra):

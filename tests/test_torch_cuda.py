@@ -1816,10 +1816,10 @@ def test_captured_epochs_equal_eager_bit_for_bit(card, tmp_path, monkeypatch,
     # the store lanes choose in one kernel a relation; no other lane does
     assert per["choose_window"] == (
         3 if lane in ("fused", "relation", "hub") else 0), lane
-    # the lanes that score the gathered windows take a step's minors in
-    # one kernel; the score-table, learned and baseline lanes take none
+    # every frozen PC-GNN lane takes a step's minors in one kernel; the
+    # learned and baseline lanes take none
     assert per["oversample_minors"] == (
-        1 if lane in ("fused", "relation", "hub", "plain", "csr") else 0), lane
+        0 if lane in ("learned", "gcn", "gcn_hub", "sage") else 1), lane
     if lane in ("hub", "hub_no_stores", "gcn_hub", "csr"):
         assert per["ragged_gather"] >= 1
     assert r["pool_bytes"] > 0
@@ -2412,6 +2412,47 @@ def test_data_groups_capture_at_different_steps(card, tmp_path):
         # the heavy stack grew data rank 0's plan only: rank 0 captured
         # again (its warm-up step ran the data sums) while rank 1 replayed
         assert [r[key + ".heavy_captures"] for r in ranks] == [1, 0]
+
+
+def test_one_rank_nccl_group_steps_equal_single_device_exactly(
+        card, tmp_path, monkeypatch):
+    """The card's form of the CPU test of the same name: a 1-rank NCCL
+    group's (1, 1) step, captured, on the hub graph with bf16 stores
+    (fused, store and hub lanes), is the single device's captured step bit
+    for bit: loss and every parameter after 3 steps.  Both add their
+    oversampled minors with the oversample kernel, once a replay."""
+    import torch.distributed as dist
+
+    from pcgnn_tpu_torch.parallel.distributed import init_distributed
+    from pcgnn_tpu_torch.train.trainer import Trainer
+    from pcgnn_tpu_torch.utils.multiproc import free_port
+    monkeypatch.chdir(tmp_path)
+    torch.cuda.set_device(0)
+    init_distributed(f"localhost:{free_port()}", 1, 0, backend="nccl")
+    try:
+        cfg = _small_cfg(seed=7, data_name="synthetic:skew-tiny",
+                         batch_size=64, ewin_dtype="bfloat16")
+        single = Trainer(cfg, device=card)
+        rank = Trainer(dict(cfg, distributed=True), device="cuda:0",
+                       graph=single.graph)
+        assert rank.mesh.size == 1 and rank.sharded.fused is not None
+        got = []
+        for t in (single, rank):
+            model = t.new_model()
+            r = t.runner(model, t.new_optimizer(model))
+            batches, weights = t.epoch_plan(0)
+            losses = r.run(batches[:3], t.labels[batches[:3]], weights[:3])
+            torch.cuda.synchronize()
+            got.append((losses, list(model.parameters()), r.stats()))
+        assert torch.equal(got[0][0], got[1][0]), (got[0][0], got[1][0])
+        for a, b in zip(got[0][1], got[1][1]):
+            assert torch.equal(a, b)
+        for st in (got[0][2], got[1][2]):
+            assert st["captures"] == 1, st
+            assert st["replay_launches"]["oversample_minors"] == 1, st
+        assert rank.mesh.stats.calls == {"graph": 0, "data": 0}
+    finally:
+        dist.destroy_process_group()
 
 
 def test_one_rank_nccl_group_captures_one_piece_a_step(card, tmp_path,

@@ -1,7 +1,7 @@
 """PC-GNN on graphs without an edge-window store on every relation: the
 score-table lane, score-from-window without stores (with ``features_pad``,
 with clamped ids, with partial store coverage), the CSR branch of the frozen
-lanes, ``minor_sum``, and the degree-only stub of the stress presets.  The
+lanes, the one oversample call of each, and the degree-only stub of the stress presets.  The
 port against the JAX package on the same numpy-made inputs; on the CPU the
 port takes the plain version of every kernel, and the JAX hub lane its
 clipping fetch.
@@ -46,29 +46,6 @@ GRAD = dict(rtol=1e-4, atol=1e-6)
 NEAR_TIE = 1e-6
 # a stress-1m preset cut to test size: 4,096 nodes, F = 16, directed
 SMALL_STRESS = (4096, 16, 0.05, (16384, 8192, 4096), 3)
-
-
-# ------------------------------------------------------------- minor_sum
-
-@pytest.mark.parametrize("m", [7, 128, 300])
-def test_minor_sum_matches_jax(m):
-    """At one block (M <= 128) and in blocks (M > 128, the last one
-    ragged): sums to FWD, counts exactly; only the first f columns sum."""
-    rng = np.random.default_rng(m)
-    n, fc, f, b = 90, 9, 6, 13
-    xs = rng.normal(size=(n + 1, fc)).astype(np.float32)
-    xs[n] = 0.0
-    ids = rng.integers(0, n + 1, (b, m)).astype(np.int32)
-    keep = rng.random((b, m)) < 0.4
-    keep[0] = False
-    want = jagg.minor_sum(jnp.asarray(xs), jnp.asarray(ids),
-                          jnp.asarray(keep), f)
-    got = tagg.minor_sum(torch.from_numpy(xs), torch.from_numpy(ids),
-                         torch.from_numpy(keep), f)
-    assert got[0].shape == (b, f)
-    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), **FWD)
-    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
-    assert not got[0][0].any() and got[1][0] == 0
 
 
 # ------------------------------------------------- stub and stress preset
@@ -458,6 +435,61 @@ def test_clamped_ids_reach_no_sum(graphs, monkeypatch):
         for a, b in zip(model(gt, tb, ty, train=True, **kw),
                         model(padded, tb, ty, train=True, **kw)):
             assert torch.equal(a, b)
+
+
+# ------------------------------------------------ one oversample route
+
+_FROZEN_LANES = ["score_table", "hub_no_stores", "plain", "csr", "fused"]
+
+
+def _frozen_lane_graph(graphs, monkeypatch, lane):
+    """(case, graph) of one frozen lane: the score table (tiny, and
+    skew-tiny's hub graph, without stores), score-from-window over
+    ``features_pad`` and over the CSR, and the fused store lane."""
+    s = graphs["skew-tiny" if lane == "hub_no_stores" else "tiny"]
+    if lane in ("plain", "csr"):
+        monkeypatch.setattr(tpcgnn, "SCORE_FROM_WINDOW_MIN_NODES", 0)
+    if lane == "plain":
+        return s, tcsr.materialize_edge_windows(s["gt"], total_budget_bytes=0)
+    if lane == "csr":
+        monkeypatch.setattr(tcsr, "NBR2D_BUDGET_BYTES", 8)
+        gt = tsyn.synthetic_fraud_graph("tiny", seed=0)
+        assert all(r.nbr2d is None for r in gt.relations)
+        return s, gt
+    if lane == "fused":
+        gt = tcsr.materialize_edge_windows(s["gt"])
+        assert gt.fused is not None
+        return s, gt
+    return s, s["gt"]
+
+
+@pytest.mark.parametrize("lane", _FROZEN_LANES)
+def test_training_forward_adds_its_minors_in_one_call(graphs, monkeypatch,
+                                                      lane):
+    """Every frozen lane's training forward adds its oversampled minors
+    with exactly one call of ``oversample_minor_sums`` (one kernel on the
+    card) and runs no step of the chain of ops itself."""
+    s, gt = _frozen_lane_graph(graphs, monkeypatch, lane)
+    calls = {"sums": 0, "chain": 0}
+
+    def counting(name, key):
+        fn = getattr(tpcgnn, name)
+
+        def counted(*args, **kw):
+            calls[key] += 1
+            return fn(*args, **kw)
+        monkeypatch.setattr(tpcgnn, name, counted)
+
+    counting("oversample_minor_sums", "sums")
+    for name in ("oversample_candidates_values", "oversample_keep"):
+        counting(name, "chain")
+    model = _torch_model(s)
+    tp = torch.from_numpy(s["tp"])
+    with torch.no_grad():
+        model(gt, torch.from_numpy(s["batch"]), torch.from_numpy(s["y"]),
+              train=True, train_pos=tp,
+              train_pos_valid=torch.ones(len(tp), dtype=bool))
+    assert calls == {"sums": 1, "chain": 0}, calls
 
 
 # ------------------------------------------------ CSR branch, frozen lanes

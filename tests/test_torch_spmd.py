@@ -482,12 +482,12 @@ def test_dg1_issues_no_graph_collective(runs):
     for res in runs["ranks"][(1, 2)]:
         st = res["fused.stats"]
         assert st["calls"]["data"] == 0
-        # owner picks of self rows, train positives and metadata, the
-        # keep-minor publish and the packed output sum
-        assert st["calls"]["graph"] == 5, st
+        # owner picks of self rows, train positives and metadata, and the
+        # packed output sum (a row's owner adds its minors into it)
+        assert st["calls"]["graph"] == 4, st
         # the plain lane adds the score all-gather and one kept-id publish
         # per relation
-        assert res["plain.stats"]["calls"]["graph"] == 5 + 1 + 3 - 1
+        assert res["plain.stats"]["calls"]["graph"] == 4 + 1 + 3
 
 
 def test_masked_fetch_zeroes_the_rows_it_skips(runs):
@@ -617,7 +617,7 @@ def test_shard_batch_takes_the_data_blocks():
                                   graph_index=0), b)
 
 
-def test_block_partials_chunked_matches_unchunked_and_jax():
+def test_block_partials_matches_jax():
     rng = np.random.default_rng(0)
     b, m, n, f, block = 16, 300, 64, 8, 16
     ids = rng.integers(0, n, (b, m)).astype(np.int32)
@@ -627,14 +627,8 @@ def test_block_partials_chunked_matches_unchunked_and_jax():
         num0, cnt0 = spmd.block_partials(torch.from_numpy(ids),
                                          torch.from_numpy(keep), col_lo,
                                          block, torch.from_numpy(x_local))
-        (num1, cnt1), = spmd.block_partials_chunked_multi(
-            torch.from_numpy(ids), [torch.from_numpy(keep)], col_lo, block,
-            torch.from_numpy(x_local), chunk=32)
         jn, jc = jspmd._block_partials(jnp.asarray(ids), jnp.asarray(keep),
                                        col_lo, block, jnp.asarray(x_local))
-        np.testing.assert_allclose(num1.numpy(), num0.numpy(), rtol=1e-6,
-                                   atol=1e-6)
-        np.testing.assert_array_equal(cnt1.numpy(), cnt0.numpy())
         np.testing.assert_allclose(num0.numpy(), np.asarray(jn), rtol=1e-6,
                                    atol=1e-6)
         np.testing.assert_array_equal(cnt0.numpy(), np.asarray(jc))
