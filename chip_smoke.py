@@ -249,7 +249,8 @@ Phase 11 also times the learned steps in the same turns.  Then:
      capture seconds, and the forward's graph pool; the replays must
      launch kernels 1, 2 and 3 between them.
  30. the choose kernel (kernel 4) at the benchmark cells' record sections,
-     against its plain version and timed queued (below);
+     and its ids source and the score kernel at the stress cell's shapes,
+     against their plain versions and timed queued (below);
  31. the oversample kernel (kernel 5) at the benchmark cells' shapes of a
      step's minors, against its plain version and timed queued (below).
 
@@ -864,6 +865,122 @@ def choose_phase(rate: float) -> dict:
             "cells": cells}
 
 
+# the ids source's shapes: the stress cell's CSR lane, (rows, F, table
+# rows, relation widths, mean degrees of the draws with the self-loop),
+# and the score kernel's train-positive table, (P, F)
+CHOOSE_IDS_SHAPES = {"pcgnn-stress10m": (1024, 64, 10_000_000, (36, 23, 14),
+                                         (13, 7, 3))}
+SCORE_SHAPES = {"pcgnn-stress10m": (200_000, 64)}
+
+
+def choose_ids_phase(rate: float) -> tuple[dict, dict]:
+    """The choose kernel's ids source (``choose_ids_sum``) at
+    ``CHOOSE_IDS_SHAPES``: a float32 table of the cell's rows, batches of
+    random rows whose degrees are Poisson at the relations' means
+    (capped at their widths), random neighbor ids and padding N past the
+    table, keff = ceil(deg / 2); the three relations in turn, as the step
+    calls them.  Equal to the plain version (keep and counts exactly,
+    sums within rtol 1e-6), then timed by ``queued_ms`` over batches whose
+    rows exceed the L2 together, beside the plain version (``time_ms``).
+    The bound counts each valid slot's row and id read once, a row's
+    degree, keep count and center, and the sums, counts and keep masks
+    written once.  Then ``selection_score`` at ``SCORE_SHAPES`` (the
+    kernel queued over copies of the table, beside the float64 expression
+    it replaced), checked against that expression to an ulp.  Returns the
+    kernels-line entries of both kernels."""
+    from pcgnn_tpu_torch.ops import aggregate as agg
+    dev = torch.device("cuda")
+    cells, scores = {}, {}
+    for cell, (rows, f, n, widths, means) in CHOOSE_IDS_SHAPES.items():
+        gen = torch.Generator(device=dev).manual_seed(rows + f)
+        xs = torch.rand((n, f), generator=gen, device=dev) + 0.5
+        w0 = torch.randn((f, 2), generator=gen, device=dev)[:, 0]
+        b0 = torch.randn(2, generator=gen, device=dev)[0]
+        sets, nbytes = [], 0
+        for _ in range(30):
+            center = torch.randn(rows, generator=gen, device=dev)
+            rels = []
+            for d, mean in zip(widths, means):
+                deg = torch.poisson(torch.full((rows,), float(mean),
+                                               device=dev), gen)
+                deg = deg.clamp(1, d).to(torch.int32)
+                nbr = torch.randint(0, n, (rows, d), generator=gen,
+                                    device=dev, dtype=torch.int32)
+                valid = torch.arange(d, device=dev) < deg[:, None]
+                rels.append((torch.where(valid, nbr, n), deg,
+                             (deg + 1) // 2))
+                nbytes += (int(deg.sum()) * (f * 4 + 4)
+                           + rows * (12 + f * 4 + 4 + d))
+            sets.append((center, rels))
+        nbytes //= len(sets)
+
+        def each(fn):
+            def call(center, rels):
+                return [fn(xs, nbr, f, center, w0, b0, deg, k)
+                        for nbr, deg, k in rels]
+            return call
+
+        kernel = each(agg.choose_ids_sum)
+        plain = each(agg.choose_ids_sum_plain)
+        for got, want in zip(kernel(*sets[0]), plain(*sets[0])):
+            if not (torch.equal(got[2], want[2])
+                    and torch.equal(got[1], want[1])
+                    and torch.allclose(got[0], want[0], rtol=1e-6, atol=0)):
+                raise AssertionError(f"choose_window_ids at {cell} differs "
+                                     f"from its plain version")
+        bound_ms = nbytes / rate * 1e3
+        q = queued_ms(kernel, sets, bound_ms, f"choose_window_ids {cell}")
+        plain_ms, plain_run_ms = time_ms(plain, sets)
+        cells[cell] = {"rows": rows, "f": f, "table_rows": n,
+                     "widths": list(widths), "mean_degrees": list(means),
+                     "bytes": nbytes, "bound_ms": bound_ms, "ms": q["ms"],
+                     "readings_ms": q["readings_ms"], "plain_ms": plain_ms,
+                     "plain_run_ms": plain_run_ms}
+        del xs, sets
+    for cell, (p, f) in SCORE_SHAPES.items():
+        gen = torch.Generator(device=dev).manual_seed(p + f)
+        tables = [torch.randn((p, f), generator=gen, device=dev)
+                  for _ in range(4)]
+        w0 = torch.randn((f, 2), generator=gen, device=dev)[:, 0]
+        b0 = torch.randn(2, generator=gen, device=dev)[0]
+
+        def expression(x):
+            return (x.double() @ w0.double() + b0.double()).float()
+
+        got, want = agg.selection_score(tables[0], w0, b0), expression(
+            tables[0])
+        ulp = torch.finfo(torch.float32).eps * want.abs()
+        if not bool(((got - want).abs() <= ulp).all()):
+            raise AssertionError(f"selection_score at {cell} differs from "
+                                 f"the float64 expression")
+        bound_ms = p * (f + 1) * 4 / rate * 1e3
+        q = queued_ms(lambda x: agg.selection_score(x, w0, b0),
+                      [(x,) for x in tables], bound_ms,
+                      f"selection_score {cell}")
+        plain_ms, plain_run_ms = time_ms(expression,
+                                         [(x,) for x in tables] * 4)
+        scores[cell] = {"rows": p, "f": f, "bound_ms": bound_ms,
+                        "ms": q["ms"], "readings_ms": q["readings_ms"],
+                        "plain_ms": plain_ms, "plain_run_ms": plain_run_ms}
+
+    def entry(name, replaces, cells):
+        first = cells["pcgnn-stress10m"]
+        return {"name": name, "route": "cuda",
+                "source": "pcgnn_tpu_torch/csrc/choose_window.cu",
+                "replaces": replaces, "ms": first["ms"],
+                "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+                "bound_by": "bytes", "library_ms": None,
+                "range_ms": [first["readings_ms"][0],
+                             first["readings_ms"][-1]],
+                "cells": cells}
+
+    return (entry("choose_window_ids",
+                  "none: XLA ops (pcgnn_tpu/models/pcgnn.py:218, "
+                  "ops/aggregate.py:216 and :674)", cells),
+            entry("selection_score",
+                  "none: an XLA dot (pcgnn_tpu/models/pcgnn.py:215)", scores))
+
+
 # the oversample kernel's shapes in the kernels line: the benchmark cells'
 # steps, (rows, F, relation widths, train positives P, m_max): YelpChi's
 # window of 2C = 256 sorted entries, Amazon's dense form over all P
@@ -1254,14 +1371,71 @@ def csr_branch_phase(t) -> dict:
     return {"ragged_launches": launched, "equal": True}
 
 
+class LaunchCounter:
+    """One more launch counter of a kernel wrapper module, under the name
+    ``launches`` that a module of one kernel gives its own: reading and
+    writing it reads and writes the module's ``attr``."""
+
+    def __init__(self, mod, attr: str):
+        self.mod, self.attr = mod, attr
+
+    @property
+    def launches(self) -> int:
+        return getattr(self.mod, self.attr)
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        setattr(self.mod, self.attr, n)
+
+
 def kernel_counters() -> dict:
-    """Every kernel wrapper module of the package, by kernel name."""
+    """Every kernel of the package, by kernel name: its wrapper module, or
+    a ``LaunchCounter`` where one module launches several kernels (the
+    choose kernel's ids source and the score kernel)."""
     from pcgnn_tpu_torch.ops import (choose_window, mask_build,
                                      oversample_minors, ragged_gather,
                                      window_gather)
     return {"window_gather": window_gather, "ragged_gather": ragged_gather,
             "mask_build": mask_build, "choose_window": choose_window,
+            "choose_window_ids": LaunchCounter(choose_window, "ids_launches"),
+            "selection_score": LaunchCounter(choose_window, "score_launches"),
             "oversample_minors": oversample_minors}
+
+
+# each counted kernel's name in a profile, where it is not ``<name>_kernel``:
+# the choose kernel's two row sources are one template, told apart by the
+# source's type
+DEVICE_KERNELS = {"choose_window": ("choose_window_kernel", "::Records>"),
+                  "choose_window_ids": ("choose_window_kernel", "::Ids>"),
+                  "selection_score": ("score_rows_kernel",)}
+
+
+def runs_kernel(name: str, key: str) -> bool:
+    """Whether the profile's kernel ``key`` is the counted kernel ``name``."""
+    return all(s in key for s in DEVICE_KERNELS.get(name, (f"{name}_kernel",)))
+
+
+def choose_launches_per_step(t) -> dict:
+    """Choose kernels one forward of ``t`` launches, by source: a PC-GNN
+    forward on frozen features chooses each relation in one launch, from
+    the relation's store where the model reads it (``choose_window``) and
+    through the neighbor ids otherwise (``choose_window_ids``); the
+    learned lane and the baselines launch neither."""
+    if not t.is_pcgnn or t.learn_features:
+        return {"choose_window": 0, "choose_window_ids": 0}
+    rels = t.graph.relations
+    from_window = scores_from_window(t.graph)
+    stored = sum(r.ewin is not None and from_window for r in rels)
+    return {"choose_window": stored, "choose_window_ids": len(rels) - stored}
+
+
+def scores_from_window(g) -> bool:
+    """Whether a PC-GNN forward on frozen features scores the rows it
+    reads (every relation stored, or a graph at stress scale) rather than
+    the whole table, as ``PCGNN.forward`` decides."""
+    from pcgnn_tpu_torch.models.pcgnn import SCORE_FROM_WINDOW_MIN_NODES
+    return (all(r.ewin is not None for r in g.relations)
+            or g.num_nodes >= SCORE_FROM_WINDOW_MIN_NODES)
 
 
 class StepEvents:
@@ -1383,13 +1557,17 @@ def main_path_phase(t) -> dict:
     the capture each call every wrapper once per launch of the step, and
     nothing else in the training calls one.  Every step must launch the
     window gathers its lane reads (``window_launches_per_step``), and
-    every step with a hub row the ragged gather.  Every learned-lane step
-    and validation batch launches the mask build once per relation and no
+    every step with a hub row the ragged gather.  Every step and
+    validation batch launches the choose kernel once a relation, from the
+    store or through the ids as ``choose_launches_per_step`` says, and
+    every PC-GNN one the score kernel.  Every learned-lane step and
+    validation batch launches the mask build once per relation and no
     gather, and the table must move.  ``launches`` are what the card ran
     (``card_launches`` over the step's and the forward's runners)."""
     from pcgnn_tpu_torch.bench import edges_per_epoch
     mods = kernel_counters()
     want_wg = window_launches_per_step(t)
+    want_choose = choose_launches_per_step(t)
     nrel = t.graph.num_relations
     model = t.new_model()
     opt = t.new_optimizer(model)
@@ -1425,6 +1603,11 @@ def main_path_phase(t) -> dict:
         if h and not n["ragged_gather"]:
             raise AssertionError(f"a training step with {h} hub rows "
                                  f"launched no ragged_gather")
+        if any(n[k] != c for k, c in want_choose.items()):
+            raise AssertionError(f"a training step launched {n}, expected "
+                                 f"{want_choose} choose kernels")
+        if t.is_pcgnn and not n["selection_score"]:
+            raise AssertionError("a PC-GNN step launched no score kernel")
     if len(per_step) != len(hubs) or runner.eager_steps + runner.replays \
             != len(hubs):
         raise AssertionError(f"{len(hubs)} steps ran as "
@@ -1439,6 +1622,15 @@ def main_path_phase(t) -> dict:
                              f"captured forward: {predictor.stats()}")
     launches = card_launches({k: m.launches for k, m in mods.items()},
                              [runner, predictor])
+    forwards = len(step_ms) + eval_batches(t)
+    if any(launches[k] != c * forwards for k, c in want_choose.items()):
+        raise AssertionError(f"{forwards} training steps and validation "
+                             f"batches launched {launches}, expected "
+                             f"{want_choose} choose kernels each")
+    if t.is_pcgnn and launches["selection_score"] < forwards:
+        raise AssertionError(f"{forwards} training steps and validation "
+                             f"batches launched the score kernel "
+                             f"{launches['selection_score']} times")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite training loss: {losses}")
     if not res.auc > 0.5:
@@ -1571,7 +1763,7 @@ def profile_phase(t, steps: int | None = None) -> dict:
         span.device_time_total / 1e3 / steps if span else 0.0)
     out["mask_sized_kernels_per_step"] = mask_sized_kernels(prof, steps)
     for name in kernel_counters():
-        hit = [(ms, n) for k, ms, n in busy if f"{name}_kernel" in k]
+        hit = [(ms, n) for k, ms, n in busy if runs_kernel(name, k)]
         out[f"{name}_device_ms_per_launch"] = (
             sum(ms for ms, _ in hit) / sum(n for _, n in hit) if hit else None)
         out[f"{name}_launches_per_step"] = sum(n for _, n in hit) / steps
@@ -3074,7 +3266,9 @@ def single_step_phase(t, card: str, label: str = "phase 22") -> dict:
     """Phase 22, last: ``Trainer.single_step`` on ``t``'s graph at its
     configuration, timed with ``utils.roofline.measure`` at ``nscan`` 1
     and 16 against ``pcgnn_step_streaming_bytes`` (the JAX bench's
-    roofline reading, ``bench.py:116-121``): printed, no claim."""
+    roofline reading, ``bench.py:116-121``), whose score product reads the
+    rows the lane scores: the whole table, or the train positives where
+    the forward scores from the window: printed, no claim."""
     from pcgnn_tpu_torch.utils.roofline import (measure,
                                                 pcgnn_step_streaming_bytes)
     rng = np.random.default_rng(0)
@@ -3083,9 +3277,12 @@ def single_step_phase(t, card: str, label: str = "phase 22") -> dict:
     rw = np.ones(t.batch_size, np.float32)
     m_max = t.new_model().minor_window(int(t.train_pos_dev.shape[0]),
                                        t.graph.relations)
+    scored = (int(t.train_pos_dev.shape[0]) if scores_from_window(t.graph)
+              else None)
     step_bytes = pcgnn_step_streaming_bytes(t.graph, t.batch_size, m_max,
-                                            t.config["emb_size"])
-    out = {"step_bytes": step_bytes, "m_max": m_max}
+                                            t.config["emb_size"],
+                                            scored_rows=scored)
+    out = {"step_bytes": step_bytes, "m_max": m_max, "scored_rows": scored}
     for nscan in (1, 16):
         model = t.new_model()
         fn, args = t.single_step(model, t.new_optimizer(model), rb, ry, rw,
@@ -4597,8 +4794,10 @@ def main() -> int:
     print(f"phase 29 done at {time.time() - t0:.1f} s "
           f"({predicted['seconds']:.1f} s)", file=sys.stderr)
 
-    # 30: the choose kernel at the benchmark cells' record sections
+    # 30: the choose kernel at the benchmark cells' record sections, its
+    # ids source at the stress cell's and the score kernel
     choose = choose_phase(rate)
+    choose_ids, scores = choose_ids_phase(rate)
     print(f"phase 30 done at {time.time() - t0:.1f} s", file=sys.stderr)
     # 31: the oversample kernel at the benchmark cells' steps
     oversample = oversample_phase(rate)
@@ -4608,7 +4807,8 @@ def main() -> int:
     # with every count set to 0 just before it
     entries = {"window_gather": like["entry"],
                "ragged_gather": skew["entry"], "mask_build": learned["entry"],
-               "choose_window": choose, "oversample_minors": oversample}
+               "choose_window": choose, "choose_window_ids": choose_ids,
+               "selection_score": scores, "oversample_minors": oversample}
     for kname, entry in entries.items():
         entry["launches_by_path"] = {
             data: run["main_path"]["launches"][kname]

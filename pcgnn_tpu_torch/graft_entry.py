@@ -105,6 +105,7 @@ def _zero_launches() -> None:
                                      window_gather)
     window_gather.launches = window_gather.masked_launches = 0
     ragged_gather.launches = mask_build.launches = choose_window.launches = 0
+    choose_window.ids_launches = choose_window.score_launches = 0
     oversample_minors.launches = 0
 
 

@@ -9,12 +9,15 @@ Counterpart of ``pcgnn_tpu/models/pcgnn.py``, with its lanes:
     the fetched rows in one kernel (``ops.aggregate.choose_window_sum``);
   * score-table lane: a graph without a store on every relation, under
     ``SCORE_FROM_WINDOW_MIN_NODES`` nodes, builds one [N] selection-score
-    table per step and gathers ``[x ; s0 (; train-positive indicator)]``
-    rows by neighbor id;
+    table per step, and each relation's choose reads the rows
+    ``[x ; s0 (; train-positive indicator)]`` at its neighbor ids;
   * score-from-window without full coverage (stress scale): a relation
-    with a store reads it, one without gathers rows by neighbor id from the
-    dense table or, without one, from the CSR through the ragged gather,
-    and scores them.
+    with a store reads it, one without reads the feature rows at its
+    neighbor ids (from the dense table or, without one, from the CSR
+    through the ragged gather) and scores them.
+
+Without a store, a relation's choose is one kernel too, which reads each
+valid slot's row through its id (``ops.aggregate.choose_ids_sum``).
 
 In each of these lanes a training step's oversampled minors of every
 relation come from one more kernel (``ops.aggregate.oversample_minor_sums``).
@@ -53,6 +56,7 @@ from pcgnn_tpu_torch.ops.aggregate import (
     batch_neighbor_window,
     batch_raw_window,
     batch_record_window,
+    choose_ids_sum,
     choose_window_sum,
     keep_nearest,
     masked_mean_aggregate,
@@ -62,7 +66,6 @@ from pcgnn_tpu_torch.ops.aggregate import (
     rank_train_positives,
     scatter_batch_mask_counts,
     selection_score,
-    window_sum_from_gathered,
 )
 from pcgnn_tpu_torch.ops.hub import hub_choose_sum, hub_table
 from pcgnn_tpu_torch.utils.profiling import section
@@ -183,7 +186,6 @@ class PCGNN(nn.Module):
         any_hub = any(rel.has_hubs for rel in rels)
         need_tp = train and any_hub
         tp_args = (train_pos, train_pos_valid) if need_tp else ()
-        clamp_ids = False
         s0_col = None
         section("choose")
         if score_from_window:
@@ -195,10 +197,9 @@ class PCGNN(nn.Module):
             elif graph.features_pad is not None:
                 xs = graph.features_pad
             elif not any_hub:
-                # no sentinel row: ids are clamped to N-1 at the gather, and
-                # valid keeps the clamped rows out of every sum, so no step
-                # copies the whole table
-                xs, clamp_ids = x, True
+                # no sentinel row: the choose reads no padding id's row, so
+                # no step copies the whole table
+                xs = x
             else:
                 xs = hub_table(x)
         else:
@@ -245,34 +246,29 @@ class PCGNN(nn.Module):
                 # the minors' dedup reads nbr2d through the batch
                 nbr = None
             else:
-                nbr, valid = batch_neighbor_window(rel, batch,
-                                                   allow_capped=True)
+                nbr, _ = batch_neighbor_window(rel, batch, allow_capped=True)
                 deg_b = rel.deg[batch]
-                rows = xs[nbr.clamp(max=n - 1) if clamp_ids else nbr]
-                xw = rows[..., :f]
             if rel.has_hubs:
                 section("hub")
                 is_hub = deg_b > rel.window_width
-                if not store_lane:
-                    valid = valid & ~is_hub[:, None]   # hubs leave the lane
+            hub_cap = rel.window_width if rel.has_hubs else None
             section("choose")
+            # one kernel: scores, the keff nearest and their sum; slots
+            # past a row's degree (the store's next node's run, the ids'
+            # padding) and hub rows are invalid there
             if store_lane:
-                # one kernel: scores, the keff nearest and their sum; slots
-                # past a row's degree (the next node's run) and hub rows
-                # are invalid there
                 num, cnt, keep = choose_window_sum(
                     raw, max(rel.window_width, 1), f, center_s0, w0, b0,
-                    deg_b, rel.keff[batch],
-                    hub_cap=rel.window_width if rel.has_hubs else None,
+                    deg_b, rel.keff[batch], hub_cap=hub_cap,
                     round_bf16=bf16 and rel.ewin.dtype != torch.bfloat16,
                     want_keep=train)
             else:
-                nbr_s0 = (selection_score(sel_round(xw), w0, b0)
-                          if score_from_window else rows[..., s0_col])
-                dist = (center_s0[:, None] - nbr_s0).abs()
-                dist = torch.where(valid, dist, _INF)
-                keep = keep_nearest(dist, rel.keff[batch], valid)
-                num, cnt = window_sum_from_gathered(xw, keep)
+                # each valid slot's row read through its id, its score
+                # computed or, in the score-table lane, read from the table
+                num, cnt, keep = choose_ids_sum(
+                    xs, nbr, f, center_s0, w0, b0, deg_b, rel.keff[batch],
+                    hub_cap=hub_cap, score_col=s0_col, round_bf16=bf16,
+                    want_keep=train)
             if rel.has_hubs:
                 h_num, h_cnt = hub_choose_sum(
                     rel, batch, is_hub, xs, f, center_s0, w0=w0, b0=b0,
@@ -283,7 +279,7 @@ class PCGNN(nn.Module):
                 num = torch.where(is_hub[:, None], h_num, num)
                 cnt = torch.where(is_hub, h_cnt, cnt)
             if train:
-                # the unclamped ids: a clamped sentinel must not match
+                # the window's ids, padding N: a sentinel must not match
                 minor_rels.append((rel, nbr, keep))
             rel_sums.append((num, cnt))
 

@@ -11,12 +11,14 @@ Counterpart of ``pcgnn_tpu/ops/aggregate.py``, with its full-graph mean
     lexicographic sort is two stable sorts, secondary key first;
   * ids stay in integer tensors throughout.
 
-The window lane's choose of a relation (scores, ``keep_nearest`` and the
-kept rows' sum) is one hand-written kernel on the card,
-``choose_window_sum`` (``ops.choose_window``), and so are a training
-step's oversampled minors of every relation (candidates, keep, dedup and
-sums), ``oversample_minor_sums`` (``ops.oversample_minors``); the plain
-version of each is the chain of ops it replaces.
+The choose of a relation (scores, ``keep_nearest`` and the kept rows' sum)
+is one hand-written kernel on the card (``ops.choose_window``), from the
+fused records in the store lanes (``choose_window_sum``) and through the
+neighbor ids in the lanes without stores (``choose_ids_sum``), and so are
+a training step's oversampled minors of every relation (candidates, keep,
+dedup and sums), ``oversample_minor_sums`` (``ops.oversample_minors``);
+the plain version of each is the chain of ops it replaces.  On the card
+``selection_score`` is a kernel of the same file too.
 
 Selection is non-differentiable: everything that feeds it is detached.
 """
@@ -50,8 +52,60 @@ def selection_score(rows: torch.Tensor, w0: torch.Tensor,
     operand shape, so a self-loop's distance is exactly 0 and the card and
     the CPU select the same neighbors.  (The JAX reference computes it in
     float32 at precision "highest"; the two agree to about an ulp.)
+
+    A CUDA tensor is scored by the kernel (``ops.choose_window.
+    launch_scores``), a row a thread from its float32 values, with the
+    float64 dot product of the choose kernel's ids source: a row's score
+    depends on its values alone, whatever the rows' count, strides or
+    launch, and no float64 copy of the rows is made.  bfloat16 and float16
+    rows are widened to float32 first (exactly); a CUDA tensor of another
+    dtype raises.  On the CPU it is the float64 expression.
     """
-    return (rows.double() @ w0.double() + b0.double()).float()
+    if rows.device.type == "cpu":
+        return (rows.double() @ w0.double() + b0.double()).float()
+    if rows.device.type != "cuda":
+        raise ValueError(f"selection_score: unsupported device "
+                         f"{rows.device}")
+    if rows.dtype in (torch.bfloat16, torch.float16):
+        rows = rows.float()
+    elif rows.dtype != torch.float32:
+        raise ValueError(f"selection_score: the score kernel reads float32, "
+                         f"bfloat16 or float16 rows, got {rows.dtype}")
+    f = int(rows.shape[-1])
+    if w0.shape != (f,) or b0.numel() != 1 or w0.dtype != torch.float32 \
+            or b0.dtype != torch.float32 or w0.device != rows.device \
+            or b0.device != rows.device:
+        raise ValueError(f"selection_score: rows of {f} float32 values want "
+                         f"w0 [{f}] and one b0, float32 on {rows.device}; "
+                         f"got w0 {tuple(w0.shape)} {w0.dtype}, b0 "
+                         f"{tuple(b0.shape)} {b0.dtype}")
+    out = torch.empty(rows.shape[:-1], dtype=torch.float32,
+                      device=rows.device)
+    if out.numel() == 0:
+        return out
+    dims = _row_dims(rows)
+    if (f > 1 and rows.stride(-1) != 1) or len(dims) > 2:
+        rows = rows.contiguous()
+        dims = _row_dims(rows)
+    outer, inner = [(1, 0)] * (2 - len(dims)) + dims
+    choose_window.launch_scores(rows.detach(), outer, inner, f,
+                                w0.detach(), b0.detach(), out)
+    return out
+
+
+def _row_dims(rows: torch.Tensor) -> list:
+    """(count, stride) of the leading dimensions of ``rows`` [..., F], size
+    1 dropped and neighbors merged where one stride steps over the other:
+    a row's offset is the sum of index * stride."""
+    dims = []
+    for size, stride in zip(rows.shape[:-1], rows.stride()[:-1]):
+        if size == 1:
+            continue
+        if dims and dims[-1][1] == size * stride:
+            dims[-1] = (dims[-1][0] * size, stride)
+        else:
+            dims.append((size, stride))
+    return dims
 
 
 def batch_raw_window(rel, batch: torch.Tensor,
@@ -191,14 +245,28 @@ def choose_window_sum_plain(raw: torch.Tensor, d: int, f: int,
     replaces: the valid mask, ``selection_score`` of the (rounded) window
     rows, the distances, ``keep_nearest`` and
     ``window_sum_from_gathered``."""
-    xw = unpack_window(raw, d, f)
-    valid = (torch.arange(d, device=raw.device)[None, :]
+    return _choose_gathered(unpack_window(raw, d, f), None, center_s0, w0,
+                            b0, deg, keff, hub_cap, round_bf16)
+
+
+def _choose_gathered(xw: torch.Tensor, scores: torch.Tensor | None,
+                     center_s0: torch.Tensor, w0: torch.Tensor,
+                     b0: torch.Tensor, deg: torch.Tensor, keff: torch.Tensor,
+                     hub_cap: int | None, round_bf16: bool):
+    """The chain of both plain versions on a gathered [B, D, F] window
+    ``xw``: the valid mask (slots below min(deg, D), no row with deg >
+    ``hub_cap``), the given [B, D] ``scores`` or ``selection_score`` of the
+    (rounded) rows, the distances, ``keep_nearest`` and
+    ``window_sum_from_gathered``."""
+    d = xw.shape[1]
+    valid = (torch.arange(d, device=xw.device)[None, :]
              < deg.clamp(max=d)[:, None])
     if hub_cap is not None:
         valid = valid & ~(deg > hub_cap)[:, None]
-    rows = xw.to(torch.bfloat16).to(torch.float32) if round_bf16 else xw
-    dist = (center_s0[:, None] - selection_score(rows, w0, b0)).abs()
-    dist = torch.where(valid, dist, _INF)
+    if scores is None:
+        rows = xw.to(torch.bfloat16).to(torch.float32) if round_bf16 else xw
+        scores = selection_score(rows, w0, b0)
+    dist = torch.where(valid, (center_s0[:, None] - scores).abs(), _INF)
     keep = keep_nearest(dist, keff, valid)
     num, cnt = window_sum_from_gathered(xw, keep)
     return num, cnt, keep
@@ -271,6 +339,102 @@ def choose_window_sum(raw: torch.Tensor, d: int, f: int,
         choose_window.launch(
             raw.detach(), d, f, center_s0.detach().contiguous(), w0.detach(),
             b0.detach(), deg.to(torch.int32).contiguous(),
+            keff.to(torch.int32).contiguous(), hub_cap, round_bf16, num, cnt,
+            keep)
+    return num, cnt, keep
+
+
+def choose_ids_sum_plain(xs: torch.Tensor, nbr: torch.Tensor, f: int,
+                         center_s0: torch.Tensor, w0: torch.Tensor,
+                         b0: torch.Tensor, deg: torch.Tensor,
+                         keff: torch.Tensor, *, hub_cap: int | None = None,
+                         score_col: int | None = None,
+                         round_bf16: bool = False):
+    """The plain version of :func:`choose_ids_sum`, the chain of ops it
+    replaces: the rows gathered at the ids (clamped into the table, so a
+    padding id past it reads the last row, which no valid slot takes), the
+    valid mask, the score column or ``selection_score`` of the (rounded)
+    rows, the distances, ``keep_nearest`` and
+    ``window_sum_from_gathered``."""
+    rows = xs[nbr.clamp(max=xs.shape[0] - 1)]
+    return _choose_gathered(
+        rows[..., :f], None if score_col is None else rows[..., score_col],
+        center_s0, w0, b0, deg, keff, hub_cap, round_bf16)
+
+
+def choose_ids_sum(xs: torch.Tensor, nbr: torch.Tensor, f: int,
+                   center_s0: torch.Tensor, w0: torch.Tensor,
+                   b0: torch.Tensor, deg: torch.Tensor, keff: torch.Tensor,
+                   *, hub_cap: int | None = None, score_col: int | None = None,
+                   round_bf16: bool = False, want_keep: bool = True):
+    """The choose of one relation in a lane without stores: (num [B, f]
+    float32, cnt [B] float32, keep [B, D] bool, or None without
+    ``want_keep``), as :func:`choose_window_sum`, with slot d of row b the
+    row ``xs[nbr[b, d]]`` of a feature table.
+
+    ``xs`` [R, >= f] float32 is the table (the features, their sentinel
+    copy ``features_pad`` or ``ops.hub.hub_table``'s), whose first f
+    columns are summed; ``nbr`` [B, D] the window's neighbor ids
+    (``batch_neighbor_window``).  Slots at or past min(deg, D) are
+    invalid, and so is every slot of a row with deg > ``hub_cap``, and an
+    invalid slot's id is never read as a row: padding ids N need no
+    sentinel row.  A valid slot's score is column ``score_col`` of its row
+    (the score-table lane) or, without one, ``selection_score`` of its
+    first f values, rounded to bfloat16 first where ``round_bf16``.
+
+    On a CUDA tensor the wrapper launches the hand-written kernel
+    (``ops.choose_window.launch_ids``) or raises; on a CPU tensor it takes
+    :func:`choose_ids_sum_plain`.  It reads nothing back from the card.
+    The kernel scores a row as ``selection_score`` does on the card, to
+    the bit; its selection equals the plain version's and its sums add
+    the same rows in another order.
+    """
+    if xs.dim() != 2 or xs.dtype != torch.float32 or nbr.dim() != 2:
+        raise ValueError(f"choose_ids_sum wants a [R, C] float32 table and "
+                         f"[B, D] ids, got {tuple(xs.shape)} {xs.dtype} and "
+                         f"{tuple(nbr.shape)}")
+    b, d = (int(s) for s in nbr.shape)
+    cols = int(xs.shape[1])
+    if d < 1 or f < 1 or cols < f or (score_col is not None
+                                     and not 0 <= score_col < cols):
+        raise ValueError(f"choose_ids_sum: a table of {cols} columns, "
+                         f"{d} slots, f={f}, score column {score_col}")
+    if (center_s0.shape != (b,) or deg.shape != (b,) or keff.shape != (b,)
+            or w0.shape != (f,) or b0.numel() != 1):
+        raise ValueError(
+            f"choose_ids_sum: B={b}, F={f} but center_s0 "
+            f"{tuple(center_s0.shape)}, deg {tuple(deg.shape)}, keff "
+            f"{tuple(keff.shape)}, w0 {tuple(w0.shape)}, b0 "
+            f"{tuple(b0.shape)}")
+    if any(a.device != xs.device for a in (nbr, center_s0, w0, b0, deg,
+                                           keff)):
+        raise ValueError("choose_ids_sum: arguments on different devices")
+    if xs.device.type == "cpu":
+        num, cnt, keep = choose_ids_sum_plain(
+            xs, nbr, f, center_s0, w0, b0, deg, keff, hub_cap=hub_cap,
+            score_col=score_col, round_bf16=round_bf16)
+        return num, cnt, keep if want_keep else None
+    if xs.device.type != "cuda":
+        raise ValueError(f"choose_ids_sum: unsupported device {xs.device}")
+    if xs.stride(1) != 1 or any(a.dtype != torch.float32
+                                for a in (center_s0, w0, b0)):
+        raise ValueError("choose_ids_sum: the table needs unit column "
+                         "stride and the scores float32")
+    if d >= 2 ** 30 or f >= 2 ** 20:
+        raise ValueError(f"choose_ids_sum: {d} slots of {f} values exceed "
+                         f"the kernel's 32-bit row indexing")
+    dev = xs.device
+    num = torch.empty((b, f), dtype=torch.float32, device=dev)
+    cnt = torch.empty((b,), dtype=torch.float32, device=dev)
+    keep = (torch.empty((b, d), dtype=torch.bool, device=dev) if want_keep
+            else None)
+    if b:
+        ids = nbr.to(torch.int32)
+        if ids.stride(1) != 1:
+            ids = ids.contiguous()
+        choose_window.launch_ids(
+            xs.detach(), ids, f, score_col, center_s0.detach().contiguous(),
+            w0.detach(), b0.detach(), deg.to(torch.int32).contiguous(),
             keff.to(torch.int32).contiguous(), hub_cap, round_bf16, num, cnt,
             keep)
     return num, cnt, keep

@@ -74,7 +74,9 @@ from pcgnn_tpu_torch.utils.profiling import section, span
 def launch_counts() -> dict:
     """Every kernel wrapper's launch count, by kernel name; the window
     gathers with ``active`` (kernel 1c, the sharded store lane) also
-    apart, as ``window_gather_masked``."""
+    apart, as ``window_gather_masked``, and the choose kernel's ids source
+    (the lanes without stores) and score kernel (``selection_score``) as
+    ``choose_window_ids`` and ``selection_score``."""
     from pcgnn_tpu_torch.ops import (choose_window, mask_build,
                                      oversample_minors, ragged_gather,
                                      window_gather)
@@ -83,6 +85,8 @@ def launch_counts() -> dict:
             "ragged_gather": ragged_gather.launches,
             "mask_build": mask_build.launches,
             "choose_window": choose_window.launches,
+            "choose_window_ids": choose_window.ids_launches,
+            "selection_score": choose_window.score_launches,
             "oversample_minors": oversample_minors.launches}
 
 

@@ -217,16 +217,22 @@ def measure(fn: Callable, *args, analytic_bytes: Optional[float] = None,
 
 
 def pcgnn_step_streaming_bytes(graph, batch_size: int, m_max: int,
-                               emb_dim: int) -> float:
+                               emb_dim: int, *,
+                               scored_rows: int | None = None) -> float:
     """Least memory traffic of one PC-GNN training step, in bytes, counted
     as the JAX package counts it: each relation's neighbor-window rows
     (features and score) and ids, the oversampled minor rows, one pass of
     the score product over the feature table, the self rows, and the
     [B, F + emb] activations three times (forward and backward).  Sort
     scratch, backward re-reads and the optimizer's traffic are left out:
-    it is a lower bound."""
+    it is a lower bound.
+
+    ``scored_rows`` is the rows the score product reads: by default the
+    whole table, as the JAX package counts it.  A lane that scores from
+    the window reads no table pass, only the batch's rows (the self rows)
+    and the train positives' (pass their count)."""
     f = graph.feat_dim
-    n = graph.num_nodes
+    n = graph.num_nodes if scored_rows is None else scored_rows
     b = batch_size
     total = 0.0
     for rel in graph.relations:

@@ -350,6 +350,228 @@ def test_choose_kernel_equals_plain(card, case):
         assert torch.isnan(scores[~scored]).all()
 
 
+# the ids source's cases: (rows, F, table columns, relation widths, the
+# width of the relation with hub rows or None, the score column or None,
+# a sentinel row N): the stress cell's clamped CSR lane (a [N, 64] table of
+# 16-byte rows, no sentinel), hub_table's F + 1 columns (the train-positive
+# indicator) and F + 2 (the score-table lane's score and indicator), both
+# unaligned, at widths past the rank select and past shared memory, and
+# values scored at their bfloat16 rounding (``rounded``)
+_IDS_CASES = {
+    "stress": (1024, 64, 64, (36, 23, 14), None, None, False),
+    "padded": (1024, 32, 32, (17, 49), None, None, True),
+    "hub_table": (512, 32, 33, (49, 300), 300, None, True),
+    "score_table": (512, 32, 34, (17, 300), 300, 32, True),
+    "wide": (8, 5, 6, (20000,), None, None, True),
+    "wide_table": (8, 5, 7, (20000,), None, 5, True),
+    "rounded": (512, 32, 32, (17, 49), None, None, True),
+}
+
+
+def _ids_inputs(card, case, seed):
+    """A table of ``case`` and each relation's (ids [B, D], degrees, keep
+    counts, hub cap); the centers' scores, w0 (a strided view) and b0.
+    Values are bfloat16 values in [0.5, 2), so every sum of them is exact
+    in float32 (``rounded``: 2^-12 more, which rounding to bfloat16
+    drops); the score column holds each row's score.  Invalid slots
+    hold ids far past the table (a read of one faults), or N, the padding
+    id, past a table without a sentinel row.  Rows 0-63 take their own
+    node at slot 0 and repeat it in slots 1-3 (a self-loop at distance 0
+    and ties); rows 64-95 keep 0, 96-127 their valid count, 128-159 more
+    than the width; a relation with hubs has rows past its cap."""
+    from pcgnn_tpu_torch.ops.aggregate import selection_score
+    rows, f, cols, widths, hub_cap, score_col, sentinel = _IDS_CASES[case]
+    n = 200_000
+    gen = torch.Generator(device=card).manual_seed(seed)
+    xs = (torch.rand((n + sentinel, cols), generator=gen, device=card)
+          + 0.5).to(torch.bfloat16).float()
+    if case == "rounded":
+        xs += 2.0 ** -12
+    w = torch.randn((f, 2), generator=gen, device=card)
+    w0, b0 = w[:, 0], torch.randn(2, generator=gen, device=card)[0]
+    if score_col is not None:
+        xs[:, score_col] = selection_score(xs[:, :f], w0, b0)
+    batch = torch.randint(0, n, (rows,), generator=gen, device=card)
+    center = selection_score(xs[batch, :f].to(torch.bfloat16).float()
+                             if case == "rounded" else xs[batch, :f], w0, b0)
+    if rows > 64:
+        center[64:] = (torch.randn(rows - 64, generator=gen, device=card)
+                       * w0.norm() + b0)
+    rels = []
+    for d in widths:
+        top = d + 8 if hub_cap else d
+        deg = torch.randint(0, top + 1, (rows,), generator=gen, device=card,
+                            dtype=torch.int32)
+        deg[:64] = deg[:64].clamp(min=min(d, 4))
+        nbr = torch.randint(0, n, (rows, d), generator=gen, device=card,
+                            dtype=torch.int32)
+        nbr[:64, : min(d, 4)] = batch[:64, None].int()
+        k = (deg + 1) // 2
+        keff = torch.where(deg <= k + 1, deg, k)
+        keff[64:96] = 0
+        keff[96:128] = deg[96:128].clamp(max=d)
+        keff[128:160] = d + 1
+        cap = hub_cap if d == hub_cap else None
+        valid = torch.arange(d, device=card) < deg.clamp(max=d)[:, None]
+        if cap is not None:
+            valid &= ~(deg > cap)[:, None]
+        pad = n if not sentinel else 2 ** 31 - 1
+        nbr = torch.where(valid, nbr, pad)
+        rels.append((nbr, deg, keff, cap))
+    return xs, rels, center, w0, b0
+
+
+@pytest.mark.parametrize("case", sorted(_IDS_CASES))
+def test_choose_ids_kernel_equals_plain(card, case):
+    """The choose kernel's ids source against its plain version (the chain
+    of ops it replaced): keep masks and counts equal, sums (exact here)
+    within float32 round-off of the order, and the scores it took equal
+    ``selection_score``'s on the card (the same arithmetic) or the score
+    column; invalid slots' ids, past the table, are never read.  A second
+    launch repeats every bit, launches are counted and make no host sync,
+    and without ``want_keep`` no mask is written."""
+    from pcgnn_tpu_torch.ops import aggregate as agg
+    from pcgnn_tpu_torch.ops import choose_window as cw
+    xs, rels, center, w0, b0 = _ids_inputs(card, case, seed=3)
+    rows_in, f, _, _, _, score_col, _ = _IDS_CASES[case]
+    rnd = case == "rounded"
+    for nbr, deg, keff, hub_cap in rels:
+        d = nbr.shape[1]
+        args = (xs, nbr, f, center, w0, b0, deg, keff)
+        kw = dict(hub_cap=hub_cap, score_col=score_col, round_bf16=rnd)
+        want = agg.choose_ids_sum_plain(*args, **kw)
+        before = cw.ids_launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = agg.choose_ids_sum(*args, **kw)
+            again = agg.choose_ids_sum(*args, **kw)
+            bare = agg.choose_ids_sum(*args, **kw, want_keep=False)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        assert cw.ids_launches == before + 3
+        num, cnt, keep = got
+        assert torch.equal(keep, want[2]), (case, d)
+        assert torch.equal(cnt, want[1]), (case, d)
+        torch.testing.assert_close(num, want[0], rtol=1e-6, atol=0)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        assert bare[2] is None and torch.equal(bare[0], num)
+        assert torch.equal(bare[1], cnt)
+        # the cases are there: partial keeps, self-loops and hub rows
+        n = deg.clamp(max=d)
+        if hub_cap is not None:
+            n = torch.where(deg > hub_cap, 0, n)
+            assert (deg > hub_cap).any() and not keep[deg > hub_cap].any()
+        chose = (keff > 0) & (keff < n)
+        assert chose.sum() >= min(8, rows_in // 4)
+        assert keep[:64, 0][(keff[:64] > 0) & (n[:64] > 0)].all()
+        # the scores the kernel took
+        scores = torch.full((len(nbr), d), float("nan"), device=card)
+        out = (torch.empty_like(num), torch.empty_like(cnt))
+        cw.launch_ids(xs, nbr, f, score_col, center, w0, b0, deg, keff,
+                      hub_cap, rnd, *out, None, scores=scores)
+        scored = chose[:, None] & (torch.arange(d, device=card) < n[:, None])
+        rows = xs[torch.where(scored, nbr, 0)]
+        sel = rows[..., :f]
+        if rnd:
+            sel = sel.to(torch.bfloat16).float()
+        ref = (agg.selection_score(sel, w0, b0)
+               if score_col is None else rows[..., score_col])
+        assert torch.equal(scores[scored], ref[scored]), (case, d)
+        assert torch.isnan(scores[~scored]).all()
+
+
+def _score_reference(rows: np.ndarray, w0: np.ndarray, b0: float):
+    """[..., F] float32 rows -> [...] float32, the score kernel's
+    arithmetic in numpy: feature j into float64 chain j mod 4 in order
+    (past the last multiple of 4, chain 0), (a0 + a1) + (a2 + a3) + b0,
+    rounded once.  A float32 product is exact in float64, so each of the
+    kernel's fused multiply-adds is this product and sum."""
+    x = rows.astype(np.float64)
+    w = w0.astype(np.float64)
+    f = x.shape[-1]
+    a = [np.zeros(x.shape[:-1]) for _ in range(4)]
+    for j in range(f - f % 4):
+        a[j % 4] = a[j % 4] + x[..., j] * w[j]
+    for j in range(f - f % 4, f):
+        a[0] = a[0] + x[..., j] * w[j]
+    return (((a[0] + a[1]) + (a[2] + a[3])) + np.float64(b0)).astype(
+        np.float32)
+
+
+def test_selection_score_kernel_equals_float64(card):
+    """``selection_score`` on the card is the score kernel: on the train
+    positives' [P, 64] table and on strided views of a [B, D, F + 2]
+    table (a hub chunk's rows) and of fused records ([B, D * F] sections),
+    and at F past a chunk of 32 features (36 in 16-byte reads, 70 in
+    4-byte ones, with a tail past the last multiple of 4), it equals the
+    kernel's arithmetic in numpy bit for bit and the float64 expression to
+    an ulp, gives a row the same value in every layout, launches once a
+    call with no host sync, and leaves the CPU path the float64
+    expression."""
+    from pcgnn_tpu_torch.ops import aggregate as agg
+    from pcgnn_tpu_torch.ops import choose_window as cw
+    gen = torch.Generator(device=card).manual_seed(5)
+    table = torch.randn((200_000, 64), generator=gen, device=card)
+    wide = torch.randn((1024, 36, 66), generator=gen, device=card)
+    wide[:, 5, :64] = table[:1024]
+    rec = torch.randn((1024, 5000), generator=gen, device=card)
+    cases = {"table": table, "chunk": wide[..., :64],
+             "records": rec[:, 7: 7 + 36 * 64].view(1024, 36, 64),
+             "f36": torch.randn((5000, 36), generator=gen, device=card),
+             "f70": torch.randn((3001, 72), generator=gen,
+                                device=card)[:, :70]}
+    assert not cases["chunk"].is_contiguous()
+    weights = {f: torch.randn((f, 2), generator=gen, device=card)[:, 0]
+               for f in (64, 36, 70)}
+    b0 = torch.randn(2, generator=gen, device=card)[0]
+    before = cw.score_launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = {k: agg.selection_score(v, weights[v.shape[-1]], b0)
+               for k, v in cases.items()}
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert cw.score_launches == before + len(cases)
+    b0n = float(b0)
+    for k, v in cases.items():
+        rows, w0 = v.cpu(), weights[v.shape[-1]].cpu()
+        assert torch.equal(got[k].cpu(), torch.from_numpy(
+            _score_reference(rows.numpy(), w0.numpy(), b0n))), k
+        expr = agg.selection_score(rows, w0, b0.cpu())
+        ulp = torch.finfo(torch.float32).eps * expr.abs().clamp(min=2 ** -126)
+        assert ((got[k].cpu() - expr).abs() <= ulp).all(), k
+    assert torch.equal(got["chunk"][:, 5], got["table"][:1024])
+    rows, w0 = table[:64].cpu(), weights[64].cpu()
+    assert torch.equal(agg.selection_score(rows, w0, b0.cpu()),
+                       (rows.double() @ w0.double()
+                        + b0.cpu().double()).float())
+
+
+def test_selection_score_kernel_widens_half_rows_and_refuses_others(card):
+    """On the card, bfloat16 and float16 rows are widened to float32
+    (exactly) and scored by the kernel, as the float32 rows of the same
+    values are, bit for bit and one launch a call; float64 rows raise, as
+    no float64 copy is scored on the card."""
+    from pcgnn_tpu_torch.ops import aggregate as agg
+    from pcgnn_tpu_torch.ops import choose_window as cw
+    gen = torch.Generator(device=card).manual_seed(6)
+    x = torch.randn((3000, 9, 40), generator=gen, device=card)
+    w0 = torch.randn(40, generator=gen, device=card)
+    b0 = torch.randn((), generator=gen, device=card)
+    for dtype in (torch.bfloat16, torch.float16):
+        half = x.to(dtype)
+        before = cw.score_launches
+        got = agg.selection_score(half, w0, b0)
+        assert cw.score_launches == before + 1, dtype
+        assert got.dtype == torch.float32 and got.shape == (3000, 9)
+        assert torch.equal(got, agg.selection_score(half.float(), w0, b0))
+    before = cw.score_launches
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+        agg.selection_score(x.double(), w0, b0)
+    assert cw.score_launches == before
+
+
 _OVERSAMPLE_CASES = {
     # case: (rows, F, relation widths, train positives P, m_max, the hub
     # cap of the relation that width, the ids: "table" (nbr2d read at the
@@ -1813,9 +2035,13 @@ def test_captured_epochs_equal_eager_bit_for_bit(card, tmp_path, monkeypatch,
         assert per["window_gather"] == 3
     if lane == "learned":
         assert per["mask_build"] == 3 and per["window_gather"] == 0
-    # the store lanes choose in one kernel a relation; no other lane does
+    # the store lanes choose in one kernel a relation from the records, the
+    # lanes without stores through the ids; the others do not choose
     assert per["choose_window"] == (
         3 if lane in ("fused", "relation", "hub") else 0), lane
+    assert per["choose_window_ids"] == (
+        3 if lane in ("score_table", "plain", "hub_no_stores", "csr")
+        else 0), lane
     # every frozen PC-GNN lane takes a step's minors in one kernel; the
     # learned and baseline lanes take none
     assert per["oversample_minors"] == (

@@ -284,17 +284,20 @@ def test_score_table_lane_matches_jax(graphs, preset, train):
 
 def test_score_table_self_loop_distance_is_zero(graphs, monkeypatch):
     """Centers, neighbors and candidates read one score table, so every
-    row's self-loop is at distance 0 and is kept (keff >= 1)."""
+    row's self-loop is at distance 0 and is kept (keff >= 1).  The choose
+    (``choose_ids_sum``'s plain version on the CPU) is spied on at its
+    ``keep_nearest``."""
     s = graphs["tiny"]
     gt = s["gt"]
     calls = []
+    keep_nearest = tagg.keep_nearest
 
     def spy(dist, k, valid):
-        keep = tagg.keep_nearest(dist, k, valid)
+        keep = keep_nearest(dist, k, valid)
         calls.append((dist, keep))
         return keep
 
-    monkeypatch.setattr(tpcgnn, "keep_nearest", spy)
+    monkeypatch.setattr(tagg, "keep_nearest", spy)
     batch = torch.from_numpy(s["batch"][:-3])
     with torch.no_grad():
         _torch_model(s)(gt, batch, None, train=False)

@@ -256,6 +256,155 @@ def test_choose_window_sum_launches_nothing_on_the_cpu():
     assert launch_counts() == before and "choose_window" in before
 
 
+# the tables the lanes without stores read rows from: the features (ids
+# clamped, no sentinel row), their sentinel copy (``features_pad``),
+# ``hub_table``'s with and without the train-positive column, and the
+# score table's (score column F)
+_ID_TABLES = ["clamp_ids", "features_pad", "hub_table", "hub_table_tp",
+              "score_table"]
+
+
+def _ids_case(table, seed):
+    """(xs, ids, f, centers, w0, b0, deg, keff, hub cap, score column,
+    valid, clamp_ids) of a batch of 200 rows over a 3,000-node table of
+    ``table``'s layout, in two relations of widths 17 and 90 (past the
+    rank select's 64), the wider with hub rows past its cap.  Values are
+    quarters (ties); rows 0-19 take their own node at slot 0 and slots
+    1-2 (a self-loop and ties); keff is 0 on rows 20-29, the valid count
+    on 30-39, past the width on 40-49; padding slots hold N."""
+    from pcgnn_tpu_torch.ops.hub import hub_table
+    rng = np.random.default_rng(seed)
+    n, f, b = 3000, 6, 200
+    x = torch.from_numpy((rng.integers(-8, 9, (n, f)) / 4).astype(
+        np.float32))
+    w0 = torch.from_numpy(rng.normal(size=f).astype(np.float32))
+    b0 = torch.tensor(0.125)
+    s0 = tagg.selection_score(x, w0, b0)
+    tp = torch.from_numpy(rng.choice(n, 300, replace=False))
+    tpv = torch.from_numpy(rng.random(300) < 0.9)
+    xs, score_col = {
+        "clamp_ids": (x, None),
+        "features_pad": (torch.cat([x, x.new_zeros((1, f))]), None),
+        "hub_table": (hub_table(x), None),
+        "hub_table_tp": (hub_table(x, tp, tpv), None),
+        "score_table": (hub_table(x, tp, tpv, s0=s0), f)}[table]
+    batch = torch.from_numpy(rng.choice(n, b, replace=False))
+    center = s0[batch]
+    rels = []
+    for d, cap in ((17, None), (90, 90)):
+        deg = torch.from_numpy(rng.integers(0, d + 9 if cap else d + 1,
+                                            b).astype(np.int32))
+        deg[:20] = deg[:20].clamp(min=3)
+        nbr = torch.from_numpy(rng.integers(0, n, (b, d)).astype(np.int32))
+        nbr[:20, :3] = batch[:20, None].to(torch.int32)
+        keff = ((deg + 1) // 2).to(torch.int32)
+        keff[20:30] = 0
+        keff[30:40] = deg[30:40].clamp(max=d)
+        keff[40:50] = d + 1
+        valid = torch.arange(d)[None, :] < deg.clamp(max=d)[:, None]
+        if cap is not None:
+            valid = valid & ~(deg > cap)[:, None]
+            assert (deg > cap).any()
+        rels.append((torch.where(valid, nbr, n), deg, keff, cap, valid))
+    return xs, f, center, w0, b0, score_col, rels, table == "clamp_ids"
+
+
+@pytest.mark.parametrize("table", _ID_TABLES)
+def test_choose_ids_sum_equals_the_chain_it_replaced(table):
+    """``choose_ids_sum`` on the CPU (its plain version) against the chain
+    ``PCGNN.forward`` ran before it, written out here: the rows gathered at
+    the ids (clamped to N - 1 without a sentinel row), the score column or
+    ``selection_score`` of the rows, ``keep_nearest`` over the valid slots
+    less the hub rows, and ``window_sum_from_gathered``.  Keep masks,
+    sums and counts are equal bit for bit, in every table layout, with
+    hub rows, padding ids N, keff 0, keff at and past the valid count, and
+    a window past 64 slots."""
+    xs, f, center, w0, b0, score_col, rels, clamp_ids = _ids_case(table, 9)
+    n = 3000
+    for nbr, deg, keff, cap, valid in rels:
+        got = tagg.choose_ids_sum(xs, nbr, f, center, w0, b0, deg, keff,
+                                  hub_cap=cap, score_col=score_col)
+        rows = xs[nbr.clamp(max=n - 1) if clamp_ids else nbr]
+        xw = rows[..., :f]
+        nbr_s0 = (tagg.selection_score(xw, w0, b0) if score_col is None
+                  else rows[..., score_col])
+        dist = torch.where(valid, (center[:, None] - nbr_s0).abs(),
+                           float("inf"))
+        keep = tagg.keep_nearest(dist, keff, valid)
+        num, cnt = tagg.window_sum_from_gathered(xw, keep)
+        assert torch.equal(got[2], keep), (table, nbr.shape)
+        assert torch.equal(got[0], num) and torch.equal(got[1], cnt)
+        bare = tagg.choose_ids_sum(xs, nbr, f, center, w0, b0, deg, keff,
+                                   hub_cap=cap, score_col=score_col,
+                                   want_keep=False)
+        assert bare[2] is None and torch.equal(bare[0], num)
+        # the cases are there: self-loops kept, ties, partial keeps, hubs
+        assert keep[:20, 0][keff[:20] > 0].any()
+        assert not keep[20:30].any()
+        assert (keep.sum(1) < valid.sum(1)).any()
+        assert (keep[30:50].sum(1) == valid[30:50].sum(1)).all()
+        if cap is not None:
+            assert not keep[deg > cap].any()
+        assert (nbr == n).any()
+
+
+def test_choose_ids_sum_launches_nothing_on_the_cpu(monkeypatch):
+    """A CPU training forward through the CSR lane takes the plain
+    versions: ``launch_counts()["choose_window_ids"]`` and
+    ``["selection_score"]`` stay put."""
+    from pcgnn_tpu_torch.data.synthetic import synthetic_fraud_graph
+    from pcgnn_tpu_torch.models import pcgnn
+    from pcgnn_tpu_torch.models.pcgnn import PCGNN
+    from pcgnn_tpu_torch.train.capture import launch_counts
+    g = synthetic_fraud_graph("tiny", seed=1)
+    g = dataclasses.replace(g, relations=tuple(
+        dataclasses.replace(r, nbr2d=None) for r in g.relations))
+    model = PCGNN(g.feat_dim, 8, g.num_relations, alpha=2.0, rho=0.5,
+                  generator=torch.Generator().manual_seed(0))
+    tp = torch.nonzero(g.labels == 1)[:, 0]
+    monkeypatch.setattr(pcgnn, "SCORE_FROM_WINDOW_MIN_NODES", 0)
+    before = launch_counts()
+    loss = model.loss(g, torch.arange(64), g.labels[:64], train_pos=tp,
+                      train_pos_valid=torch.ones_like(tp, dtype=torch.bool))
+    assert torch.isfinite(loss)
+    assert launch_counts() == before
+    assert {"choose_window_ids", "selection_score"} <= set(before)
+
+
+@pytest.mark.parametrize("shape,view", [
+    ((300, 32), None), ((7, 9, 25), None), ((40, 12, 34), (Ellipsis, 32)),
+    ((5, 1, 64), None)])
+def test_selection_score_on_the_cpu_is_the_float64_expression(shape, view):
+    """On the CPU ``selection_score`` stays the float64 expression, on
+    contiguous rows and on strided views (a hub table's rows, their first
+    F of F + 2 columns), and launches nothing."""
+    from pcgnn_tpu_torch.ops import choose_window
+    rng = np.random.default_rng(len(shape))
+    a = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    rows = a if view is None else a[..., : view[1]]
+    f = rows.shape[-1]
+    w0 = torch.from_numpy(rng.normal(size=(f, 2)).astype(np.float32))[:, 0]
+    b0 = torch.tensor(-0.375)
+    before = choose_window.score_launches
+    got = tagg.selection_score(rows, w0, b0)
+    want = (rows.double() @ w0.double() + b0.double()).float()
+    assert got.dtype == torch.float32 and got.shape == rows.shape[:-1]
+    assert torch.equal(got, want)
+    assert choose_window.score_launches == before
+
+
+def test_selection_score_refuses_a_device_without_its_kernel():
+    """Off the CPU, ``selection_score`` is the card's kernel or nothing: a
+    tensor on a device with neither raises, and launches nothing."""
+    from pcgnn_tpu_torch.ops import choose_window
+    rows = torch.empty((4, 8), device="meta")
+    w0 = torch.empty(8, device="meta")
+    before = choose_window.score_launches
+    with pytest.raises(ValueError, match="unsupported device"):
+        tagg.selection_score(rows, w0, torch.empty((), device="meta"))
+    assert choose_window.score_launches == before
+
+
 def _minor_case(form, seed):
     """Inputs of one step's oversampled minors: train positives (a tenth
     invalid) whose scores take few values (``bf16``: scores of

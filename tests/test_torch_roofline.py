@@ -56,6 +56,17 @@ def test_step_streaming_bytes_matches_jax(preset, seed, stores, batch_size,
     assert isinstance(got, float) and got == want
 
 
+@pytest.mark.parametrize("scored", [None, 0, 500])
+def test_step_streaming_bytes_counts_the_scored_rows(scored):
+    """``scored_rows`` takes the place of the table's rows in the score
+    product's pass, and nothing else moves; by default it is the table."""
+    g = torch_graph("tiny", seed=1)
+    base = troof.pcgnn_step_streaming_bytes(g, 64, 7, 16)
+    got = troof.pcgnn_step_streaming_bytes(g, 64, 7, 16, scored_rows=scored)
+    rows = g.num_nodes if scored is None else scored
+    assert got == base - (g.num_nodes - rows) * g.feat_dim * 4
+
+
 @pytest.mark.parametrize("kind,peaks", [
     ("NVIDIA H100 80GB HBM3", (3.35e12, 989e12)),
     ("NVIDIA H100 PCIe", (2.0e12, 756e12)),
