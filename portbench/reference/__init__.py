@@ -34,7 +34,16 @@ same name under ``counts/``.
 
 ``pcgnn`` is PC-GNN's one Pick-Choose-Aggregate layer, its joint loss, its
 gradients and Adam; ``graph`` its graph, ``weights`` its initial weights.
-``gcn`` is the GCN baseline over the homo graph.  ``plain`` holds what
-they share: the control's TF32, the gathered rows' sums, cross-entropy
-and Adam.
+``gcn`` is the GCN baseline over the homo graph, ``sage`` the GraphSAGE
+baseline over it.  ``plain`` holds what they share: the control's TF32,
+the gathered rows' sums, cross-entropy and Adam.
+
+A new configuration brings new files and entries alone: its
+configuration file under ``configs/`` and each cell's traffic file under
+``workloads/``, a reference module here and a count module under
+``counts/`` of one name where no reference it could name exists yet, and
+its entries in ``BENCHMARK.json`` (the configuration, each cell, and the
+cell's name in the ``workloads`` list of each per-layer metric it reads).
+The benchmark's tests read its cells, their CPU cuts and their metric
+lists from those files.
 """

@@ -62,19 +62,25 @@ def aggregate(g, nodes: torch.Tensor, low: bool) -> torch.Tensor:
     return num / cnt.sqrt()[:, None]
 
 
-def forward(g, params: dict, nodes: torch.Tensor,
-            low: bool = False) -> torch.Tensor:
-    """[B, 2] logits."""
+def forward(g, params: dict, nodes: torch.Tensor, low: bool = False,
+            agg=aggregate) -> torch.Tensor:
+    """[B, 2] logits over the aggregate ``agg`` (GCN's, or a sibling's
+    over the same graph and weights)."""
     with torch.no_grad():
-        agg = aggregate(g, nodes, low)
-    z = torch.relu(mm(agg, params["enc.w"], low))
+        a = agg(g, nodes, low)
+    z = torch.relu(mm(a, params["enc.w"], low))
     return mm(z, params["head.w"], low)
 
 
-def loss(g, params: dict, nodes, weights, low: bool = False):
+def loss(g, params: dict, nodes, weights, low: bool = False,
+         agg=aggregate):
     y = g.labels[nodes]
     denom = weights.sum().clamp(min=1.0)
-    return (ce(forward(g, params, nodes, low), y) * weights).sum() / denom
+    return (ce(forward(g, params, nodes, low, agg), y) * weights).sum() / denom
+
+
+def sigmoid_of_fraud(logits: torch.Tensor) -> torch.Tensor:
+    return torch.sigmoid(logits)[:, 1]
 
 
 # Interface: what the harness and the check call (``reference/__init__``)
@@ -102,15 +108,17 @@ def initial_weights(seed: int, raw, cfg: dict, device) -> dict:
 
 
 def steps(g, params0: dict, batches, batch_weights, hyper: dict,
-          low: bool = False) -> dict:
+          low: bool = False, agg=aggregate) -> dict:
     return adam_steps(params0, batches, batch_weights,
-                      lambda p, nodes, w: loss(g, p, nodes, w, low),
+                      lambda p, nodes, w: loss(g, p, nodes, w, low, agg),
                       lr=hyper["lr"], weight_decay=hyper["weight_decay"])
 
 
 def fraud_probabilities(g, params: dict, nodes: torch.Tensor, hyper: dict,
-                        low: bool = False, block: int = 4096):
+                        low: bool = False, block: int = 4096, agg=aggregate,
+                        prob=sigmoid_of_fraud):
+    """``prob`` of the logits: the fraud probability of each of ``nodes``."""
     with torch.no_grad():
-        return torch.cat([torch.sigmoid(forward(g, params, nodes[i: i + block],
-                                                low))[:, 1]
+        return torch.cat([prob(forward(g, params, nodes[i: i + block], low,
+                                       agg))
                           for i in range(0, nodes.shape[0], block)])

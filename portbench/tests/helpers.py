@@ -33,20 +33,54 @@ PRESETS = {
 
 STRESS = "pcgnn-stress10m.train"
 GCN = "gcn-amazon.train"
-# (workload, preset, batch) of each cell's CPU cut
-PCGNN_CELLS = [("pcgnn-yelpchi.train", "tiny", 16),
-               ("pcgnn-amazon.train", "tiny", 16),
-               ("pcgnn-yelpchi.hubs", "skew-tiny", 64),
-               (STRESS, "stress-small", 96)]
-CELLS = PCGNN_CELLS + [(GCN, "tiny", 16)]
+
+
+def bench() -> dict:
+    return harness.load_json(ROOT / "BENCHMARK.json")
+
+
+def files(workload: str) -> tuple:
+    """(configuration, traffic) of ``workload`` as its files state them."""
+    _, cfg, traffic = harness.cell_files(bench(), workload, ROOT)
+    return cfg, traffic
+
+
+def directed(workload: str) -> bool:
+    """Whether the configuration of ``workload`` states a directed graph,
+    the CSR lane's property (stress-10m's)."""
+    return bool(files(workload)[0]["graph"].get("directed"))
+
+
+def cpu_cut(workload: str) -> tuple:
+    """(preset, batch) of the CPU cut of ``workload``, from what its files
+    state: a directed graph takes ``stress-small`` at 96 and the CSR
+    lane's patches (``lane``), hubs in the traffic ``skew-tiny`` at 64,
+    every other cell ``tiny`` at 16."""
+    if directed(workload):
+        return "stress-small", 96
+    if files(workload)[1]["graph"]["hubs"]:
+        return "skew-tiny", 64
+    return "tiny", 16
+
+
+def reference_name(workload: str) -> str:
+    """The reference the configuration of ``workload`` names."""
+    return files(workload)[0].get("reference", "pcgnn")
+
+
+# (workload, preset, batch) of each cell's CPU cut, every cell of
+# BENCHMARK.json; PC-GNN's cells are those of its reference
+CELLS = [(w["name"], *cpu_cut(w["name"])) for w in bench()["workloads"]]
+PCGNN_CELLS = [c for c in CELLS if reference_name(c[0]) == "pcgnn"]
 
 
 def stress_lane(monkeypatch) -> None:
-    """The port's budgets patched as its lane tests patch them, so that the
-    cut stress cell lands in the real one's lane: every dense neighbor
-    table over ``NBR2D_BUDGET_BYTES`` (kernel 2 reads the CSR), no padded
-    feature table, and N at ``SCORE_FROM_WINDOW_MIN_NODES`` (scores from
-    the gathered rows, ids clamped)."""
+    """The port's budgets patched as its lane tests patch them, so that a
+    cut cell with a directed graph lands in the lane the stress cell's
+    scale forces: every dense neighbor table over ``NBR2D_BUDGET_BYTES``
+    (kernel 2 reads the CSR), no padded feature table, and N at
+    ``SCORE_FROM_WINDOW_MIN_NODES`` (scores from the gathered rows, ids
+    clamped)."""
     from pcgnn_tpu_torch.graph import csr
     from pcgnn_tpu_torch.models import pcgnn
     monkeypatch.setattr(csr, "NBR2D_BUDGET_BYTES", 8)
@@ -55,13 +89,10 @@ def stress_lane(monkeypatch) -> None:
 
 
 def lane(monkeypatch, workload: str) -> None:
-    """The patches the CPU cut of ``workload`` needs to take its lane."""
-    if workload == STRESS:
+    """The patches the CPU cut of ``workload`` needs to take its lane: the
+    CSR lane's where its graph is directed."""
+    if directed(workload):
         stress_lane(monkeypatch)
-
-
-def bench() -> dict:
-    return harness.load_json(ROOT / "BENCHMARK.json")
 
 
 def small_cell(workload: str, preset: str, batch_size: int) -> tuple:

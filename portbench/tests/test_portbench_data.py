@@ -23,49 +23,71 @@ def test_every_entry_resolves_to_its_file():
     b = bench()
     assert b["command"] == ["python3", "-m", "portbench.run"]
     assert b["paths"] == ["portbench"]
+    configs = [c["name"] for c in b["configs"]]
+    cells = [w["name"] for w in b["workloads"]]
+    for names in (configs, cells):
+        assert 1 <= len(names) <= 24 and len(names) == len(set(names))
+        assert all(NAME.match(n) for n in names), names
     for c in b["configs"]:
         cfg = load(ROOT / c["file"])
         assert c["file"].startswith("portbench/")
         assert cfg["name"] == c["name"] and cfg["reduced"] == c["reduced"]
         assert any(w["config"] == c["name"] for w in b["workloads"])
     for w in b["workloads"]:
+        assert w["config"] in configs and NAME.match(w["traffic"])
         cell, cfg, traffic = harness.cell_files(b, w["name"], ROOT)
         assert set(traffic["limits"]) == {"pick_bad", "loss_gap", "grad_gap",
                                           "update_gap", "prob_gap"}
-        assert w["chips"] == 1
+        assert w["chips"] in (1, 4)
         assert harness.cell_metrics(b, w["name"], False)
         assert harness.cell_metrics(b, w["name"], True)
+    # the driver's rule: a quarter of the cells on four chips, or one
+    four = sum(w["chips"] == 4 for w in b["workloads"])
+    assert four <= max(1, len(cells) // 4)
     for m in b["end_to_end"] + b["per_layer"]:
         assert (HERE / "metrics" / f"{m['name']}.py").exists(), m["name"]
         assert callable(harness.reader(m["name"]))
         assert NAME.match(m["name"]) and UNIT.match(m["unit"])
     names = [m["name"] for m in b["end_to_end"] + b["per_layer"]]
     assert len(names) == len(set(names))
-    assert [w["name"] for w in b["workloads"]] == [
-        "pcgnn-yelpchi.train", "pcgnn-amazon.train", "pcgnn-yelpchi.hubs",
-        "pcgnn-stress10m.train", "gcn-amazon.train"]
 
 
 def test_metric_lists_follow_their_workloads():
+    # each list of cells names the cells that exist and have what its
+    # metric reads, and every such cell, read from the cells' files:
+    # kernel 1's share where a store is read, kernel 2's where hubs or no
+    # store send rows through it, the CSR lane's gather section where
+    # there is no store, the choose, oversample and hub sections where
+    # the model is PC-GNN's (with hubs for the hub section)
     b = bench()
-    layer = {m["name"] for m in harness.cell_metrics(
-        b, "pcgnn-yelpchi.train", True)}
-    assert "ragged_gather_roofline" not in layer
-    # kernel 2's share where it runs in the step: the hub cell and the
-    # stress cell; the CSR lane's section in the stress cell alone;
-    # kernel 1's nowhere else than the store cells; PC-GNN's choose and
-    # oversample sections in PC-GNN's cells alone
+    cells = {w["name"] for w in b["workloads"]}
+    need = {
+        "window_gather_roofline": lambda cfg, tr: cfg["model"]["edge_windows"],
+        "ragged_gather_roofline": lambda cfg, tr: (
+            bool(tr["graph"]["hubs"]) or not cfg["model"]["edge_windows"]),
+        "step_gather_ms": lambda cfg, tr: not cfg["model"]["edge_windows"],
+        "step_choose_ms": lambda cfg, tr: pcgnn_model(cfg),
+        "step_oversample_ms": lambda cfg, tr: pcgnn_model(cfg),
+        "step_hub_ms": lambda cfg, tr: (pcgnn_model(cfg)
+                                        and bool(tr["graph"]["hubs"])),
+    }
+    for m in b["per_layer"] + b["end_to_end"]:
+        listed = m.get("workloads")
+        if listed is None:
+            assert m["name"] not in need, m["name"]
+            continue
+        assert listed and len(listed) == len(set(listed)), m["name"]
+        assert set(listed) <= cells, (m["name"], set(listed) - cells)
     for w in b["workloads"]:
+        _, cfg, traffic = harness.cell_files(b, w["name"], ROOT)
         got = {m["name"] for m in harness.cell_metrics(b, w["name"], True)}
-        stress = w["name"] == "pcgnn-stress10m.train"
-        assert ("ragged_gather_roofline" in got) == (
-            stress or w["name"] == "pcgnn-yelpchi.hubs")
-        assert ("step_gather_ms" in got) == stress
-        assert ("window_gather_roofline" in got) != stress
-        pcgnn_cell = w["config"].startswith("pcgnn-")
-        assert ("step_choose_ms" in got) == pcgnn_cell
-        assert ("step_oversample_ms" in got) == pcgnn_cell
+        for name, has in need.items():
+            assert (name in got) == bool(has(cfg, traffic)), (name, w["name"])
         assert "step_mfu" in got
+
+
+def pcgnn_model(cfg: dict) -> bool:
+    return cfg["model"]["model"] == "PCGNN"
 
 
 def window_rec():
@@ -198,6 +220,27 @@ def steps(*args, **kw):
     return pcgnn.steps(*args, **kw)
 '''
 
+COPY_COUNT = '''"""PC-GNN's step count under the name of its reference's copy."""
+from portbench.counts.pcgnn import count
+'''
+
+# the tests that read the benchmark's structure from its files, run again
+# in a copy that holds one more configuration and cell
+STRUCTURAL = ("test_every_entry_resolves_to_its_file",
+              "test_metric_lists_follow_their_workloads",
+              "test_every_configuration_names_its_reference_and_count",
+              "test_every_new_metric_is_declared_with_its_cells")
+
+STRUCTURE = '''import sys
+import portbench
+import pytest
+assert portbench.__file__.startswith(sys.argv[1]), portbench.__file__
+tests = [f"portbench/tests/{m}.py" for m in ("test_portbench_data",
+         "test_portbench_reference", "test_portbench_spans")]
+sys.exit(pytest.main(tests + ["-q", "-p", "no:cacheprovider", "-k",
+                              " or ".join(sys.argv[2:])]))
+'''
+
 DRIVE = '''import json, sys, torch
 import portbench
 from portbench.reference import pcgnn_named, plain
@@ -212,7 +255,9 @@ print(json.dumps({"correct": line["correct"], "calls": pcgnn_named.CALLS}))
 def test_a_configuration_that_differs_needs_new_files_alone(tmp_path):
     # a configuration whose graph is directed, with no store and a
     # reference of its own name, added to a copy of the benchmark as new
-    # files and registry entries; no file the benchmark had is edited
+    # files and registry entries; no file the benchmark had is edited, and
+    # the structural tests, run in the copy, read the new cell from its
+    # files and pass
     shutil.copy(ROOT / "BENCHMARK.json", tmp_path)
     shutil.copytree(HERE, tmp_path / "portbench",
                     ignore=shutil.ignore_patterns("__pycache__"))
@@ -225,7 +270,8 @@ def test_a_configuration_that_differs_needs_new_files_alone(tmp_path):
     new = {"configs/pcgnn-yelpchi-directed.json": json.dumps(cfg),
            "workloads/pcgnn-yelpchi-directed.train.json": (
                HERE / "workloads" / "pcgnn-yelpchi.train.json").read_text(),
-           "reference/pcgnn_named.py": COPY_REFERENCE}
+           "reference/pcgnn_named.py": COPY_REFERENCE,
+           "counts/pcgnn_named.py": COPY_COUNT}
     for name, text in new.items():
         (tmp_path / "portbench" / name).write_text(text)
     b = bench()
@@ -235,13 +281,24 @@ def test_a_configuration_that_differs_needs_new_files_alone(tmp_path):
     b["workloads"].append({"name": "pcgnn-yelpchi-directed.train",
                            "config": cfg["name"], "traffic": "train",
                            "chips": 1, "why": "a test"})
+    # the per-layer metrics a PC-GNN cell without a store reads
+    for m in b["per_layer"]:
+        if m["name"] in ("ragged_gather_roofline", "step_gather_ms",
+                         "step_choose_ms", "step_oversample_ms"):
+            m["workloads"].append("pcgnn-yelpchi-directed.train")
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(b))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(ROOT)
+    env["PYTHONDONTWRITEBYTECODE"] = "1"
     out = subprocess.run([sys.executable, "-c", DRIVE, str(tmp_path)],
                          cwd=tmp_path, env=env, capture_output=True,
                          text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-3000:]
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got == {"correct": True, "calls": ["steps"]}
+    out = subprocess.run([sys.executable, "-c", STRUCTURE, str(tmp_path),
+                          *STRUCTURAL], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    assert f"{len(STRUCTURAL)} passed" in out.stdout, out.stdout[-3000:]
     assert all(p.read_bytes() == v for p, v in had.items())

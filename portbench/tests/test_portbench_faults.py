@@ -5,13 +5,17 @@ reference in TF32 in the program's place) fails the cells' limits."""
 import pytest
 import torch
 
-from pcgnn_tpu_torch.models.gcn import GCN
-from pcgnn_tpu_torch.models.pcgnn import PCGNN
+from pcgnn_tpu_torch.models import build_model
 from pcgnn_tpu_torch.train.trainer import Trainer
 from portbench import calibrate
 from portbench.tests.helpers import CELLS, lane, run_small, small_cell
 
-MODELS = {"PCGNN": PCGNN, "GCN": GCN}
+
+def model_class(name: str) -> type:
+    """The class the port's registry builds for a configuration's
+    ``model``."""
+    return type(build_model(name, feat_dim=1, emb_dim=1, num_relations=1,
+                            alpha=2.0, rho=0.5))
 
 
 def state_unchanged(monkeypatch, model):
@@ -73,7 +77,7 @@ def test_a_broken_step_is_not_correct(monkeypatch, fault, workload, preset,
     lane(monkeypatch, workload)
     cfg, _ = small_cell(workload, preset, batch)
     # the fault in the step of the cell's own model
-    fault(monkeypatch, MODELS[cfg["model"]["model"]])
+    fault(monkeypatch, model_class(cfg["model"]["model"]))
     line, rows = run_small(workload, preset, batch, seed=21)
     assert line["correct"] is False, rows
 

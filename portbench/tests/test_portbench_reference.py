@@ -2,6 +2,7 @@
 the steps the harness records, and whole runs through the harness."""
 
 import dataclasses
+import importlib
 import math
 
 import numpy as np
@@ -225,13 +226,25 @@ def test_gathered_aggregate_equals_the_dense_one(workload, preset, batch,
             torch.testing.assert_close(got, want, rtol=2e-6, atol=1e-6)
 
 
-def test_a_configuration_without_the_key_takes_pcgnns_reference():
+INTERFACE = ("build_graph", "edges_per_epoch", "initial_weights", "steps",
+             "fraud_probabilities")
+
+
+def test_every_configuration_names_its_reference_and_count():
+    # each configuration's reference (``pcgnn`` where it names none) is a
+    # module of reference/ with the interface the harness and the check
+    # call, and its step count the module of the same name under counts/
     b = harness.load_json(harness.HERE.parent / "BENCHMARK.json")
     for c in b["configs"]:
         cfg = harness.load_json(harness.HERE.parent / c["file"])
-        gcn = c["name"] == "gcn-amazon"
-        assert cfg.get("reference", "pcgnn") == ("gcn" if gcn else "pcgnn")
-        assert harness.reference_module(cfg) is (gcnref if gcn else ref)
+        name = cfg.get("reference", "pcgnn")
+        assert (harness.HERE / "reference" / f"{name}.py").is_file(), name
+        assert (harness.HERE / "counts" / f"{name}.py").is_file(), name
+        mod = harness.reference_module(cfg)
+        assert mod.__name__ == f"portbench.reference.{name}"
+        assert all(callable(getattr(mod, f, None)) for f in INTERFACE), name
+        count = importlib.import_module(f"portbench.counts.{name}")
+        assert callable(getattr(count, "count", None)), name
     assert harness.reference_module({}) is ref
 
 

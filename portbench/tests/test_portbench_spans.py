@@ -82,15 +82,15 @@ def without_program(rec):
 
 
 def test_every_new_metric_is_declared_with_its_cells():
-    b = bench()
-    for cell in ("pcgnn-yelpchi.train", "pcgnn-amazon.train",
-                 "pcgnn-yelpchi.hubs"):
-        names = {m["name"] for m in harness.cell_metrics(b, cell, True)}
-        want = set(NEW) - ({"step_hub_ms"} if "hubs" not in cell else set())
-        assert want <= names and (("step_hub_ms" in names)
-                                  == ("hubs" in cell))
-    sources = {m["name"]: m["source"] for m in b["per_layer"]}
-    assert {sources[n] for n in NEW} == {"program_span", "device_trace"}
+    # each declared, read from the program's spans or the trace; the
+    # cells a list names are held to what its metric reads by
+    # test_metric_lists_follow_their_workloads
+    declared = {m["name"]: m for m in bench()["per_layer"]}
+    assert set(NEW) <= set(declared)
+    assert {declared[n]["source"] for n in NEW} == {"program_span",
+                                                    "device_trace"}
+    for n in NEW:
+        assert declared[n].get("workloads", [n]), n
 
 
 @pytest.mark.parametrize("name,want", [
